@@ -1,0 +1,159 @@
+"""Dispatch for the blocked decode: one entry point, :func:`decode`.
+
+A :class:`DecodePlan` names one concrete path:
+
+* ``path="cuda"``  — the hand-written kernels: kernel 1
+  (``kernel.vbyte_decode_blocked_cuda``) for the ``stream`` epilogue,
+  kernel 2 (``epilogues.fused_decode``) for every other epilogue when
+  ``fused=True``. On CPU tensors the wrappers compute the same function
+  with their plain versions.
+* ``path="torch"`` — the vectorized torch-op decoder
+  (``core.vbyte.masked``) followed by the torch epilogue body, on whatever
+  device the operands live.
+* ``path="ref"``   — the gather-lowered decoder (``ref.py``), unfused.
+* ``fused=False``  — two steps: decode the int32 ``[n_blocks, B]`` grid,
+  then apply the epilogue body to it (kernel 1, then torch ops, on the
+  card).
+
+``plan="auto"`` (the default) resolves to ``DecodePlan("cuda", fused=True)``
+for operands on the card and ``DecodePlan("torch", fused=True)`` on the
+CPU. There is no measured autotune cache yet (ROADMAP queue 1 item 5).
+``chunk`` and ``block_tile`` stay in the plan for API parity with the
+reference; the CUDA core has one routing for every chunk width, so they
+change nothing here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.vbyte import masked as vmasked
+
+from . import epilogues as eplib
+from .kernel import vbyte_decode_blocked_cuda
+from .ops import as_i32_bits, normalize_block_meta
+from .ref import vbyte_decode_blocked_ref
+
+PATHS = ("cuda", "torch", "ref")
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """One concrete decode execution plan (see module docstring)."""
+
+    path: str  # "cuda" | "torch" | "ref"
+    fused: bool = True
+    block_tile: int = 8
+    chunk: int | None = None
+
+    def __post_init__(self):
+        if self.path not in PATHS:
+            raise ValueError(f"unknown plan path {self.path!r}")
+        if self.chunk is not None and (self.chunk <= 0 or self.chunk % 8):
+            raise ValueError(
+                f"plan chunk width must be a positive multiple of 8 or "
+                f"None; got {self.chunk!r}")
+
+
+def default_plan(device: torch.device) -> DecodePlan:
+    """The kernels on the card, the torch decoder elsewhere."""
+    return DecodePlan("cuda" if device.type == "cuda" else "torch", fused=True)
+
+
+def resolve_plan(plan, *, device: torch.device) -> DecodePlan:
+    if isinstance(plan, DecodePlan):
+        return plan
+    if plan in (None, "auto"):
+        return default_plan(device)
+    if plan in ("cuda", "kernel"):
+        return DecodePlan("cuda", fused=True)
+    if plan == "torch":
+        return DecodePlan("torch", fused=True)
+    if plan == "ref":
+        return DecodePlan("ref", fused=False)
+    if plan in ("fused", "unfused"):
+        return DecodePlan(default_plan(device).path, fused=plan == "fused")
+    raise ValueError(
+        f"unknown plan {plan!r}; expected a DecodePlan or one of "
+        "'auto', 'cuda', 'kernel', 'torch', 'ref', 'fused', 'unfused'")
+
+
+def _decode_grid(operands: dict, *, block_size: int, differential: bool,
+                 plan: DecodePlan) -> torch.Tensor:
+    """Step-1 decode to the int32 (uint32 bits) [n_blocks, block_size] grid."""
+    dec = {"cuda": vbyte_decode_blocked_cuda,
+           "torch": vmasked.decode_blocked,
+           "ref": vbyte_decode_blocked_ref}[plan.path]
+    return dec(operands["payload"], operands["counts"], operands["bases"],
+               block_size=block_size, differential=differential)
+
+
+def decode(
+    operands,  # CompressedIntArray, or device_operands()-style dict
+    *,
+    format: str | None = None,
+    block_size: int | None = None,
+    differential: bool | None = None,
+    epilogue: str = "stream",
+    epilogue_operands: dict | None = None,
+    plan: DecodePlan | str | None = "auto",
+):
+    """Decode a blocked compressed stream, optionally fused into a consumer.
+
+    ``operands`` is either a ``CompressedIntArray`` (format/block_size/
+    differential come from it) or the raw operand dict (``payload`` +
+    ``counts``/``bases``), in which case the three metadata kwargs are
+    required. Returns the epilogue's output: the int32 (uint32 bits)
+    ``[n_blocks, block_size]`` grid for ``epilogue="stream"``, the
+    ``(grid, checksum column)`` pair for ``"checksum"``, ``[n_blocks, P]``
+    or ``[n_blocks, 1]`` for the probe epilogues. Results stay on the
+    operands' device; nothing here synchronises.
+    """
+    from repro_torch.core.compressed_array import CompressedIntArray
+
+    if isinstance(operands, CompressedIntArray):
+        arr = operands
+        operands = arr.device_operands()
+        format = arr.format if format is None else format
+        block_size = arr.block_size if block_size is None else block_size
+        differential = (arr.differential if differential is None
+                        else differential)
+    if format is None or block_size is None or differential is None:
+        raise ValueError(
+            "format=/block_size=/differential= are required when operands "
+            "are a raw dict (pass a CompressedIntArray to omit them)")
+    if format not in eplib.FORMAT_OPERANDS:
+        raise ValueError(f"unknown format {format!r}; expected one of "
+                         f"{tuple(eplib.FORMAT_OPERANDS)}")
+    if format != "vbyte":
+        raise NotImplementedError(eplib.NOT_PORTED.format(format))
+    ep = eplib.get_epilogue(epilogue)
+    extras = dict(epilogue_operands or {})
+    ep.check(differential, extras)
+
+    fmt_keys = eplib.FORMAT_OPERANDS[format] + ("counts", "bases")
+    missing = [k for k in fmt_keys if k not in operands]
+    if missing:
+        raise ValueError(f"format {format!r} operands missing {missing}")
+    nb = operands["payload"].shape[0]
+    operands = {
+        "payload": operands["payload"].contiguous(),
+        "counts": as_i32_bits(normalize_block_meta(
+            "counts", operands["counts"], nb)).contiguous(),
+        "bases": as_i32_bits(normalize_block_meta(
+            "bases", operands["bases"], nb)).contiguous(),
+    }
+    p = resolve_plan(plan, device=operands["payload"].device)
+
+    if epilogue == "stream":
+        return _decode_grid(operands, block_size=block_size,
+                            differential=differential, plan=p)
+    if p.fused and p.path == "cuda":
+        return eplib.fused_decode(operands, extras, format=format,
+                                  epilogue=epilogue, block_size=block_size,
+                                  differential=differential)
+    # torch fused (one torch pass on the device) or unfused: grid, then body
+    grid = _decode_grid(operands, block_size=block_size,
+                        differential=differential, plan=p)
+    return eplib.apply_grid(epilogue, grid, operands["counts"], extras)
