@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch._device import resolve_device
-from repro_torch.core.compressed_array import CompressedIntArray, _check_format
+from repro_torch.core.compressed_array import CompressedIntArray
 from repro_torch.index.builder import InvertedIndex, TermPostings
 
 
@@ -20,16 +20,16 @@ def compressed_from_numpy(leaves: dict, *, format: str, block_size: int,
                           payload_bytes: int | None, device=None,
                           ragged: bool = False,
                           checksums=None) -> CompressedIntArray:
-    """A ``CompressedIntArray`` from numpy leaves ``payload`` (uint8
-    ``[n_blocks, stride]``), ``counts`` (``[n_blocks]``) and ``bases``
-    (uint32 ``[n_blocks]``). ``payload_bytes`` is the tight encoded size
-    (the reference's ``host_enc.payload_bytes``), kept for ``bits_per_int``."""
-    _check_format(format)
-    return CompressedIntArray.from_host(
-        leaves["payload"], leaves["counts"], leaves["bases"],
-        block_size=block_size, differential=differential, n=n,
-        payload_bytes=payload_bytes, ragged=ragged, checksums=checksums,
-        device=device)
+    """A ``CompressedIntArray`` from the numpy leaves of its format —
+    ``payload`` (vbyte), ``control`` + ``data`` (streamvbyte) or
+    ``widths`` + ``data`` (binpack), each uint8 ``[n_blocks, …]`` — plus
+    ``counts`` (``[n_blocks]``) and ``bases`` (uint32 ``[n_blocks]``).
+    ``payload_bytes`` is the tight encoded size (the reference's
+    ``host_enc.payload_bytes``), kept for ``bits_per_int``."""
+    return CompressedIntArray.from_operands(
+        leaves, format=format, block_size=block_size,
+        differential=differential, n=n, payload_bytes=payload_bytes,
+        ragged=ragged, checksums=checksums, device=device)
 
 
 def index_from_numpy(terms: dict, *, n_docs: int, block_size: int,
@@ -40,13 +40,15 @@ def index_from_numpy(terms: dict, *, n_docs: int, block_size: int,
     ``terms[t]`` is a dict with ``df``, ``first_doc``, ``last_doc``,
     ``max_impact`` and two stream dicts, ``arr`` (the d-gap docid stream)
     and ``impacts``, each holding the leaves of :func:`compressed_from_numpy`
-    plus ``n`` and ``payload_bytes``.
+    plus ``n`` and ``payload_bytes``. A stream dict may name its own
+    ``format``: an index built with ``format="auto"`` picks the codec per
+    term, so its streams do; otherwise the index's ``format`` applies.
     """
     dev = resolve_device(device)
 
     def stream(s: dict, differential: bool) -> CompressedIntArray:
         return compressed_from_numpy(
-            s, format=format, block_size=block_size,
+            s, format=s.get("format", format), block_size=block_size,
             differential=differential, n=s["n"],
             payload_bytes=s.get("payload_bytes"),
             checksums=s.get("checksums"), device=dev)

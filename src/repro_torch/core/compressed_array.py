@@ -1,10 +1,19 @@
-"""Device-resident compressed integer arrays (format ``"vbyte"``).
+"""Device-resident compressed integer arrays in three formats.
 
 ``CompressedIntArray`` is the port of ``repro/core/compressed_array.py``:
-posting lists and id streams stored in the blocked VByte layout
-(``block_size`` integers per block, each block independently decodable
-through its ``counts``/``bases`` entry) and decoded on the card by the
-kernels of ``repro_torch.kernels.vbyte_decode``.
+posting lists and id streams stored in a blocked layout (``block_size``
+integers per block, each block independently decodable through its
+``counts``/``bases`` entry) and decoded on the card by the kernels of
+``repro_torch.kernels.vbyte_decode``. The format's leaves, as in the
+reference's ``FORMAT_LEAVES``:
+
+* ``"vbyte"``       — ``payload [n_blocks, stride]`` (kernel 1);
+* ``"streamvbyte"`` — ``control [n_blocks, B/4]`` + ``data [n_blocks,
+  stride]`` (kernel 3);
+* ``"binpack"``     — ``widths [n_blocks, 1]`` + ``data [n_blocks, stride]``
+  (kernel 4);
+
+plus ``counts`` and ``bases`` for every format.
 
 Placement: the leaves are tensors on one device — on the card by default —
 and stay there for the array's lifetime. ``take_blocks``/``slice_blocks``
@@ -15,9 +24,6 @@ copy (``counts_host``) next to the device tensor and no probe pass waits
 on the device for it. What does wait is :meth:`decode`, which copies the
 decoded grid to the host: that is inherent to the host-driven query
 engine.
-
-Only the vbyte format is ported; ``"streamvbyte"`` and ``"binpack"`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -28,20 +34,27 @@ import torch
 
 from repro_torch._device import resolve_device
 
+from .vbyte import binpack as bpk
 from .vbyte import encode as venc
 from .vbyte import ref as vref
+from .vbyte import stream_vbyte as svb
 
-FORMATS = ("vbyte",)
-_NOT_PORTED = ("format={!r} is not ported yet (ROADMAP queue 1 item 8, "
-               "slice B: Stream-VByte, binpack and the auto partition)")
+FORMATS = ("vbyte", "streamvbyte", "binpack")
+# the leaves of each format, in the reference's order (block dim leads)
+FORMAT_LEAVES = {
+    "vbyte": ("payload", "counts", "bases"),
+    "streamvbyte": ("control", "data", "counts", "bases"),
+    "binpack": ("widths", "data", "counts", "bases"),
+}
+_ENCODERS = {"vbyte": (venc.encode_blocked, venc.encode_ragged_blocked),
+             "streamvbyte": (svb.encode_blocked, svb.encode_ragged_blocked),
+             "binpack": (bpk.encode_blocked, bpk.encode_ragged_blocked)}
 
 
 def _check_format(format: str) -> None:
-    if format in ("streamvbyte", "binpack", "auto"):
-        raise NotImplementedError(_NOT_PORTED.format(format))
     if format not in FORMATS:
         raise ValueError(f"unknown format {format!r}; expected one of "
-                         f"('vbyte', 'streamvbyte', 'binpack')")
+                         f"{FORMATS}")
 
 
 def block_checksums(grid: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -63,17 +76,25 @@ def block_checksums(grid: np.ndarray, counts: np.ndarray) -> np.ndarray:
 class CompressedIntArray:
     """A compressed, block-decodable array of uint32 on one device.
 
-    * ``payload`` — ``uint8 [n_blocks, stride]``
+    * ``payload`` — ``uint8 [n_blocks, stride]`` (vbyte)
+    * ``control`` — ``uint8 [n_blocks, block_size // 4]`` (streamvbyte)
+    * ``widths``  — ``uint8 [n_blocks, 1]`` per-block bit width (binpack)
+    * ``data``    — ``uint8 [n_blocks, stride]`` (streamvbyte, binpack)
     * ``counts``  — ``int32 [n_blocks]`` valid integers per block
     * ``bases``   — ``int32 [n_blocks]`` differential carry-in (uint32 bits)
     * ``counts_host`` — numpy copy of ``counts`` (host-side accounting)
+
+    A format's unused leaves are ``None``.
     """
 
-    payload: torch.Tensor
     counts: torch.Tensor
     bases: torch.Tensor
     counts_host: np.ndarray
     format: str = "vbyte"
+    payload: torch.Tensor | None = None
+    control: torch.Tensor | None = None
+    widths: torch.Tensor | None = None
+    data: torch.Tensor | None = None
     block_size: int = 128
     differential: bool = False
     n: int = 0
@@ -86,37 +107,54 @@ class CompressedIntArray:
 
     # -- construction -----------------------------------------------------
     @classmethod
-    def from_host(cls, payload, counts, bases, *, block_size: int,
-                  differential: bool, n: int | None = None,
-                  payload_bytes: int | None = None, ragged: bool = False,
-                  checksums=None, device=None) -> "CompressedIntArray":
-        """Place host leaves (numpy) on ``device`` (default: the card).
-        ``bases`` may be uint32 or int32; they are kept as int32 bits."""
+    def from_operands(cls, operands: dict, *, format: str = "vbyte",
+                      block_size: int = 128, differential: bool = False,
+                      n: int | None = None, ragged: bool = False,
+                      payload_bytes: int | None = None, checksums=None,
+                      device=None) -> "CompressedIntArray":
+        """Wrap the format's leaves (numpy arrays or tensors; no
+        re-encoding) and place them on ``device`` (default: the card).
+        ``bases`` may be uint32 or int32; they are kept as int32 bits.
+        ``n`` defaults to ``sum(counts)``."""
+        _check_format(format)
+        missing = [k for k in FORMAT_LEAVES[format] if k not in operands]
+        if missing:
+            raise ValueError(f"format {format!r} operands missing {missing}")
         dev = resolve_device(device)
-        counts_host = np.ascontiguousarray(counts, dtype=np.int32).reshape(-1)
-        bases_bits = np.ascontiguousarray(bases).reshape(-1)
+
+        def host(x, dtype=None):
+            # a writable contiguous copy where the caller's array is
+            # read-only (a buffer handed over from another framework)
+            x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+            return np.require(x, dtype, ["C", "W"])
+
+        counts_host = host(operands["counts"], np.int32).reshape(-1)
+        bases_bits = host(operands["bases"]).reshape(-1)
         if bases_bits.dtype != np.int32:
             bases_bits = bases_bits.astype(np.uint32).view(np.int32)
+        leaves = {k: torch.as_tensor(host(operands[k], np.uint8), device=dev)
+                  for k in FORMAT_LEAVES[format][:-2]}
         return cls(
-            payload=torch.as_tensor(np.ascontiguousarray(payload, np.uint8),
-                                    device=dev),
             counts=torch.as_tensor(counts_host, device=dev),
             bases=torch.as_tensor(bases_bits, device=dev),
-            counts_host=counts_host, format="vbyte", block_size=block_size,
+            counts_host=counts_host, format=format, block_size=block_size,
             differential=differential,
             n=int(counts_host.sum()) if n is None else int(n),
             ragged=ragged, payload_bytes=payload_bytes,
-            checksums=None if checksums is None else np.asarray(checksums))
+            checksums=None if checksums is None else np.asarray(checksums),
+            **leaves)
 
     @classmethod
-    def from_encoding(cls, enc: venc.BlockedEncoding, *, checksums=None,
+    def from_encoding(cls, enc, format: str, *, checksums=None,
                       device=None) -> "CompressedIntArray":
-        return cls.from_host(enc.payload, enc.counts, enc.bases,
-                             block_size=enc.block_size,
-                             differential=enc.differential, n=enc.n,
-                             payload_bytes=enc.payload_bytes,
-                             ragged=enc.ragged, checksums=checksums,
-                             device=device)
+        """Place a host encoding (``BlockedEncoding``,
+        ``StreamVByteEncoding`` or ``BinpackEncoding``) on ``device``."""
+        return cls.from_operands(
+            {k: getattr(enc, k) for k in FORMAT_LEAVES[format]},
+            format=format, block_size=enc.block_size,
+            differential=enc.differential, n=enc.n,
+            ragged=enc.ragged, payload_bytes=enc.payload_bytes,
+            checksums=checksums, device=device)
 
     @classmethod
     def encode(
@@ -140,14 +178,14 @@ class CompressedIntArray:
             meta = venc.prepare_blocked(
                 values, block_size=block_size, differential=differential,
                 wrap=wrap)
-        enc = venc.encode_blocked(stride_multiple=stride_multiple, meta=meta)
+        enc = _ENCODERS[format][0](stride_multiple=stride_multiple, meta=meta)
         cs = None
         if checksum:
             # checksum the decoded (absolute) values, padded to the grid
             grid = np.zeros((enc.counts.shape[0], meta.block_size), np.uint64)
             grid.reshape(-1)[: meta.values.size] = meta.values
             cs = block_checksums(grid, enc.counts)
-        return cls.from_encoding(enc, checksums=cs, device=dev)
+        return cls.from_encoding(enc, format, checksums=cs, device=dev)
 
     @classmethod
     def encode_ragged(
@@ -165,7 +203,7 @@ class CompressedIntArray:
         """Encode ragged id bags: block b holds list b (≤ block_size ids)."""
         _check_format(format)
         dev = resolve_device(device)
-        enc = venc.encode_ragged_blocked(
+        enc = _ENCODERS[format][1](
             lists, block_size=block_size, differential=differential,
             stride_multiple=stride_multiple, wrap=wrap)
         cs = None
@@ -173,7 +211,7 @@ class CompressedIntArray:
             vpad, counts = venc.ragged_block_values(
                 lists, block_size=block_size, differential=False, wrap=wrap)
             cs = block_checksums(vpad, counts)
-        return cls.from_encoding(enc, checksums=cs, device=dev)
+        return cls.from_encoding(enc, format, checksums=cs, device=dev)
 
     # -- metadata ----------------------------------------------------------
     @property
@@ -182,11 +220,19 @@ class CompressedIntArray:
 
     @property
     def stride(self) -> int:
-        return self.payload.shape[1]
+        """Byte width of the main byte leaf (``payload`` or ``data``)."""
+        main = self.payload if self.format == "vbyte" else self.data
+        return main.shape[1]
 
     @property
     def device(self) -> torch.device:
-        return self.payload.device
+        return self.counts.device
+
+    @property
+    def resident_bytes(self) -> int:
+        """Bytes the leaves hold on the device (padding included)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.device_operands().values())
 
     def _encoded_size(self, what: str) -> int:
         if self.payload_bytes is None:
@@ -207,20 +253,20 @@ class CompressedIntArray:
 
     # -- device form --------------------------------------------------------
     def device_operands(self) -> dict[str, torch.Tensor]:
-        """Tensors consumed by the decoders and the kernels."""
-        return {"payload": self.payload, "counts": self.counts,
-                "bases": self.bases}
+        """The format's leaves, as consumed by the decoders and kernels."""
+        return {k: getattr(self, k) for k in FORMAT_LEAVES[self.format]}
 
     def leaves_numpy(self) -> dict[str, np.ndarray]:
-        """Host copies of the leaves: payload uint8, counts int32, bases uint32."""
-        return {"payload": self.payload.cpu().numpy(),
-                "counts": self.counts.cpu().numpy(),
-                "bases": self.bases.cpu().numpy().view(np.uint32)}
+        """Host copies of the leaves: byte leaves uint8, counts int32,
+        bases uint32."""
+        out = {k: t.cpu().numpy() for k, t in self.device_operands().items()}
+        out["bases"] = out["bases"].view(np.uint32)
+        return out
 
     def to(self, device) -> "CompressedIntArray":
         dev = resolve_device(device)
-        return replace(self, payload=self.payload.to(dev),
-                       counts=self.counts.to(dev), bases=self.bases.to(dev))
+        return replace(self, **{k: t.to(dev)
+                                for k, t in self.device_operands().items()})
 
     def slice_blocks(self, start: int, stop: int, *,
                      pad_to: int | None = None) -> "CompressedIntArray":
@@ -257,10 +303,10 @@ class CompressedIntArray:
         if self.checksums is not None:  # count-0 pad blocks checksum to 0
             cs = np.zeros(rows, np.int32)
             cs[:k] = self.checksums[idx]
-        return replace(self, payload=gather(self.payload),
-                       counts=gather(self.counts), bases=gather(self.bases),
-                       counts_host=counts_host, n=int(counts_host.sum()),
-                       payload_bytes=None, checksums=cs)
+        return replace(self, counts_host=counts_host, n=int(counts_host.sum()),
+                       payload_bytes=None, checksums=cs,
+                       **{name: gather(t)
+                          for name, t in self.device_operands().items()})
 
     # -- decoding ------------------------------------------------------------
     def decode_blocked(self, *, plan="auto") -> torch.Tensor:
@@ -281,10 +327,17 @@ class CompressedIntArray:
 
     def decode_scalar_oracle(self) -> np.ndarray:
         """Byte-at-a-time reference decode (slow; tests only)."""
-        leaves = self.leaves_numpy()
-        out = vref.decode_blocked_scalar(
-            leaves["payload"], leaves["counts"], leaves["bases"],
-            self.block_size, differential=self.differential)
+        lv = self.leaves_numpy()
+        kw = dict(differential=self.differential)
+        meta = (lv["counts"], lv["bases"], self.block_size)
+        if self.format == "streamvbyte":
+            out = svb.decode_blocked_scalar(lv["control"], lv["data"], *meta,
+                                            **kw)
+        elif self.format == "binpack":
+            out = bpk.decode_blocked_scalar(lv["widths"], lv["data"], *meta,
+                                            **kw)
+        else:
+            out = vref.decode_blocked_scalar(lv["payload"], *meta, **kw)
         mask = (np.arange(self.block_size)[None, :]
                 < self.counts_host[:, None])
         return out[mask].astype(np.uint32)

@@ -1,4 +1,16 @@
-from . import encode, masked, ref  # noqa: F401
+from . import (  # noqa: F401
+    binpack,
+    binpack_masked,
+    encode,
+    masked,
+    ref,
+    stream_masked,
+    stream_vbyte,
+)
+from .binpack import (  # noqa: F401
+    BinpackEncoding,
+    bit_widths,
+)
 from .encode import (  # noqa: F401
     BlockedEncoding,
     BlockedMeta,
@@ -9,4 +21,8 @@ from .encode import (  # noqa: F401
     prepare_blocked,
     validate_u32,
     vbyte_lengths,
+)
+from .stream_vbyte import (  # noqa: F401
+    StreamVByteEncoding,
+    svb_lengths,
 )

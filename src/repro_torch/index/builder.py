@@ -19,8 +19,14 @@ bit-identical scores.
 
 The compressed streams live on the index's device (the card by default);
 the skip tables, ``max_impact`` and ``counts_host`` stay on the host,
-where the query engine reads them without waiting on the device. Only
-``format="vbyte"`` is ported (ROADMAP queue 1 item 8 has the others).
+where the query engine reads them without waiting on the device.
+
+``format`` is one codec for every list (``"vbyte"``, ``"streamvbyte"``,
+``"binpack"``) or ``"auto"``: the shortest-path block partition of
+``index.partition`` per list, which gives each term its own codec and its
+own variable-count block boundaries. The emitted arrays are ordinary
+uniform-``block_size`` ``CompressedIntArray``s (counts ≤ block_size mask
+the tails), so the query engine serves a mixed-codec index unchanged.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core import CompressedIntArray
 from repro_torch.core.compressed_array import _check_format
 from repro_torch.core.vbyte import prepare_blocked
+
+from .partition import choose_partition, encode_partitioned
 
 MAX_DOCID = (1 << 31) - 1  # the membership epilogue compares in int32
 BM25_K1 = 1.2  # tf-saturation shape; sat(1) == 1 exactly
@@ -198,8 +206,14 @@ def build_index(
     defaults to ``max docid + 1``. ``checksum=True`` writes the per-block
     checksum column on both streams. Encoding runs on the host; the
     streams are placed on ``device`` (default: the card).
+
+    ``format="auto"`` chooses each list's partition and codec
+    (:func:`~repro_torch.index.partition.choose_partition`); docids and
+    impacts are encoded over the same bounds, so their blocks align 1:1,
+    and the skip table and ``max_impact`` follow the partition's blocks.
     """
-    _check_format(format)
+    if format != "auto":
+        _check_format(format)
     dev = resolve_device(device)
     if not isinstance(lists, dict):
         lists = dict(enumerate(lists))
@@ -234,25 +248,45 @@ def build_index(
     index = InvertedIndex(terms={}, n_docs=int(n_docs),
                           block_size=block_size, format=format,
                           impact_bits=impact_bits, has_tf=bool(tf_arrs))
+    enc_kw = dict(block_size=block_size, stride_multiple=stride_multiple,
+                  checksum=checksum, device=dev)
     for term, d in docids.items():
-        # one metadata pass shared by the payload encode and the skip table
-        meta = prepare_blocked(d, block_size=block_size, differential=True)
-        arr = CompressedIntArray.encode(
-            format=format, block_size=block_size, differential=True,
-            stride_multiple=stride_multiple, checksum=checksum, meta=meta,
-            device=dev)
-        first, last = meta.skip_table()
         df = int(d.size)
         tf = tf_arrs.get(term, np.ones(d.size, np.int64))
         q = quantize_impacts(impact_value(index.n_docs, df, impact_bits), tf,
                              impact_bits)
-        imeta = prepare_blocked(q.astype(np.uint64), block_size=block_size,
-                                differential=False)
-        imp = CompressedIntArray.encode(
-            format=format, block_size=block_size, differential=False,
-            stride_multiple=stride_multiple, checksum=checksum, meta=imeta,
-            device=dev)
+        if format == "auto":
+            part = choose_partition(d, block_size=block_size)
+            b = part.bounds
+            arr = encode_partitioned(d, b, format=part.format,
+                                     differential=True, **enc_kw)
+            # impacts share the docid stream's partition so blocks stay
+            # aligned 1:1 (MaxScore's block-max column indexes both)
+            imp = encode_partitioned(q.astype(np.uint64), b,
+                                     format=part.format, differential=False,
+                                     **enc_kw)
+            if df:
+                first = d[b[:-1]].astype(np.uint32)
+                last = d[b[1:] - 1].astype(np.uint32)
+                mi = np.array([int(q[i:j].max(initial=0))
+                               for i, j in zip(b[:-1], b[1:])], np.int32)
+            else:
+                first = last = np.zeros(0, np.uint32)
+                mi = np.zeros(0, np.int32)
+        else:
+            # one metadata pass shared by the payload encode and the skip
+            # table
+            meta = prepare_blocked(d, block_size=block_size,
+                                   differential=True)
+            arr = CompressedIntArray.encode(format=format, differential=True,
+                                            meta=meta, **enc_kw)
+            first, last = meta.skip_table()
+            imeta = prepare_blocked(q.astype(np.uint64),
+                                    block_size=block_size, differential=False)
+            imp = CompressedIntArray.encode(format=format, differential=False,
+                                            meta=imeta, **enc_kw)
+            mi = _block_max(q, block_size)
         index.terms[term] = TermPostings(
             term=term, arr=arr, first_doc=first, last_doc=last, df=df,
-            impacts=imp, max_impact=_block_max(q, block_size))
+            impacts=imp, max_impact=mi)
     return index

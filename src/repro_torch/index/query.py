@@ -197,10 +197,15 @@ def _decode_impact_stream(tp: TermPostings, *, plan, stats) -> np.ndarray:
 
 
 def _weight_extras(weights, rows=None, *, pad=None):
-    """The ``w_payload`` operand for the ``bm25_weighted*`` epilogues,
-    optionally row-gathered to align with a gathered main stream."""
+    """Format-tagged weight operands (``w_payload``, ``w_control`` +
+    ``w_data`` or ``w_widths`` + ``w_data``) for the ``bm25_weighted*``
+    epilogues, optionally row-gathered to align with a gathered main
+    stream. The format is the impact stream's own: an ``auto`` index mixes
+    codecs per term."""
     sub = weights if rows is None else weights.take_blocks(rows, pad_to=pad)
-    return {"w_payload": sub.payload}, sub.n
+    extras = {f"w_{k}": v for k, v in sub.device_operands().items()
+              if k in ("payload", "control", "data", "widths")}
+    return extras, sub.n
 
 
 def _route_probes(tp: TermPostings, chunk: np.ndarray):

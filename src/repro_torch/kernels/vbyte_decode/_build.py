@@ -37,12 +37,25 @@ SIGNATURES = {
     "vbyte_decode": {
         "vbyte_decode_blocked_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     },
+    "stream_decode": {
+        "stream_decode_blocked_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                         _P],
+    },
+    "binpack_decode": {
+        "binpack_decode_blocked_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                          _P],
+    },
     "fused_decode": {
-        "fused_decode_launch": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _I, _P,
-                                _P, _I, _P, _P, _P],
+        # format, epilogue, bytes, meta, S, counts, bases, nb, B,
+        # differential, probe, P, impact, w_format, w_bytes, w_meta, S_w,
+        # out, out2, stream
+        "fused_decode_launch": [_I, _I, _P, _P, _I, _P, _P, _LL, _I, _I, _P,
+                                _I, _P, _I, _P, _P, _I, _P, _P, _P],
     },
 }
 ERROR_STRING = {"vbyte_decode": "vbyte_error_string",
+                "stream_decode": "stream_error_string",
+                "binpack_decode": "binpack_error_string",
                 "fused_decode": "fused_error_string"}
 
 
@@ -50,7 +63,8 @@ ERROR_STRING = {"vbyte_decode": "vbyte_error_string",
 class LaunchCounter:
     """Plain count of kernel launches, bumped by a wrapper where it launches
     its kernel and nowhere else — how a run shows it went through it.
-    ``by`` splits the count by variant (the fused kernel's epilogue)."""
+    ``by`` splits the count by variant (the fused kernel's
+    ``"format/epilogue"``)."""
 
     count: int = 0
     by: dict = field(default_factory=dict)

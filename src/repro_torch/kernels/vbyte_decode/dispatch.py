@@ -2,18 +2,20 @@
 
 A :class:`DecodePlan` names one concrete path:
 
-* ``path="cuda"``  — the hand-written kernels: kernel 1
-  (``kernel.vbyte_decode_blocked_cuda``) for the ``stream`` epilogue,
-  kernel 2 (``epilogues.fused_decode``) for every other epilogue when
-  ``fused=True``. On CPU tensors the wrappers compute the same function
-  with their plain versions.
-* ``path="torch"`` — the vectorized torch-op decoder
-  (``core.vbyte.masked``) followed by the torch epilogue body, on whatever
-  device the operands live.
-* ``path="ref"``   — the gather-lowered decoder (``ref.py``), unfused.
+* ``path="cuda"``  — the hand-written kernels: the format's decode kernel
+  for the ``stream`` epilogue (kernel 1 ``vbyte``, kernel 3
+  ``streamvbyte``, kernel 4 ``binpack``), kernel 2
+  (``epilogues.fused_decode``, the same format's core) for every other
+  epilogue when ``fused=True``. On CPU tensors the wrappers compute the
+  same function with their plain versions.
+* ``path="torch"`` — the format's vectorized torch-op decoder
+  (``core.vbyte.masked``, ``stream_masked``, ``binpack_masked``) followed
+  by the torch epilogue body, on whatever device the operands live.
+* ``path="ref"``   — the gather-lowered vbyte decoder (``ref.py``),
+  unfused; the other formats raise, as in the reference.
 * ``fused=False``  — two steps: decode the int32 ``[n_blocks, B]`` grid,
-  then apply the epilogue body to it (kernel 1, then torch ops, on the
-  card).
+  then apply the epilogue body to it (the decode kernel, then torch ops,
+  on the card).
 
 ``plan="auto"`` (the default) resolves to ``DecodePlan("cuda", fused=True)``
 for operands on the card and ``DecodePlan("torch", fused=True)`` on the
@@ -28,12 +30,12 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.vbyte import masked as vmasked
-
 from . import epilogues as eplib
+from .binpack_kernel import binpack_decode_blocked_cuda
 from .kernel import vbyte_decode_blocked_cuda
-from .ops import as_i32_bits, normalize_block_meta
+from .ops import normalize_block_meta, normalize_counts_bases
 from .ref import vbyte_decode_blocked_ref
+from .stream_kernel import stream_decode_blocked_cuda
 
 PATHS = ("cuda", "torch", "ref")
 
@@ -79,13 +81,27 @@ def resolve_plan(plan, *, device: torch.device) -> DecodePlan:
         "'auto', 'cuda', 'kernel', 'torch', 'ref', 'fused', 'unfused'")
 
 
-def _decode_grid(operands: dict, *, block_size: int, differential: bool,
-                 plan: DecodePlan) -> torch.Tensor:
+CUDA_DECODERS = {"vbyte": vbyte_decode_blocked_cuda,
+                 "streamvbyte": stream_decode_blocked_cuda,
+                 "binpack": binpack_decode_blocked_cuda}
+
+
+def _decode_grid(operands: dict, *, format: str, block_size: int,
+                 differential: bool, plan: DecodePlan) -> torch.Tensor:
     """Step-1 decode to the int32 (uint32 bits) [n_blocks, block_size] grid."""
-    dec = {"cuda": vbyte_decode_blocked_cuda,
-           "torch": vmasked.decode_blocked,
-           "ref": vbyte_decode_blocked_ref}[plan.path]
-    return dec(operands["payload"], operands["counts"], operands["bases"],
+    if plan.path == "ref":
+        if format != "vbyte":
+            raise ValueError(
+                "plan path 'ref' (the gather-lowered decoder) only exists "
+                f"for format='vbyte'; got {format!r} — stream_masked is "
+                "already gather-based, use path 'torch'")
+        dec = vbyte_decode_blocked_ref
+    elif plan.path == "cuda":
+        dec = CUDA_DECODERS[format]
+    else:
+        dec = eplib.PLAIN_DECODERS[format]
+    leaves = [operands[k] for k in eplib.FORMAT_OPERANDS[format]]
+    return dec(*leaves, operands["counts"], operands["bases"],
                block_size=block_size, differential=differential)
 
 
@@ -102,9 +118,9 @@ def decode(
     """Decode a blocked compressed stream, optionally fused into a consumer.
 
     ``operands`` is either a ``CompressedIntArray`` (format/block_size/
-    differential come from it) or the raw operand dict (``payload`` +
-    ``counts``/``bases``), in which case the three metadata kwargs are
-    required. Returns the epilogue's output: the int32 (uint32 bits)
+    differential come from it) or the raw operand dict (``payload`` |
+    ``control``/``data`` | ``widths``/``data``, + ``counts``/``bases``), in
+    which case the three metadata kwargs are required. Returns the epilogue's output: the int32 (uint32 bits)
     ``[n_blocks, block_size]`` grid for ``epilogue="stream"``, the
     ``(grid, checksum column)`` pair for ``"checksum"``, ``[n_blocks, P]``
     or ``[n_blocks, 1]`` for the probe epilogues. Results stay on the
@@ -126,8 +142,6 @@ def decode(
     if format not in eplib.FORMAT_OPERANDS:
         raise ValueError(f"unknown format {format!r}; expected one of "
                          f"{tuple(eplib.FORMAT_OPERANDS)}")
-    if format != "vbyte":
-        raise NotImplementedError(eplib.NOT_PORTED.format(format))
     ep = eplib.get_epilogue(epilogue)
     extras = dict(epilogue_operands or {})
     ep.check(differential, extras)
@@ -136,24 +150,21 @@ def decode(
     missing = [k for k in fmt_keys if k not in operands]
     if missing:
         raise ValueError(f"format {format!r} operands missing {missing}")
-    nb = operands["payload"].shape[0]
-    operands = {
-        "payload": operands["payload"].contiguous(),
-        "counts": as_i32_bits(normalize_block_meta(
-            "counts", operands["counts"], nb)).contiguous(),
-        "bases": as_i32_bits(normalize_block_meta(
-            "bases", operands["bases"], nb)).contiguous(),
-    }
-    p = resolve_plan(plan, device=operands["payload"].device)
+    nb = operands[fmt_keys[0]].shape[0]
+    counts, bases = normalize_counts_bases(operands["counts"],
+                                           operands["bases"], nb)
+    operands = {k: operands[k].contiguous() for k in fmt_keys[:-2]}
+    if format == "binpack":  # the width column, as [n_blocks] or [n_blocks, 1]
+        operands["widths"] = normalize_block_meta(
+            "widths", operands["widths"], nb).reshape(nb, 1)
+    operands.update(counts=counts, bases=bases)
+    p = resolve_plan(plan, device=counts.device)
+    kw = dict(format=format, block_size=block_size, differential=differential)
 
     if epilogue == "stream":
-        return _decode_grid(operands, block_size=block_size,
-                            differential=differential, plan=p)
+        return _decode_grid(operands, plan=p, **kw)
     if p.fused and p.path == "cuda":
-        return eplib.fused_decode(operands, extras, format=format,
-                                  epilogue=epilogue, block_size=block_size,
-                                  differential=differential)
+        return eplib.fused_decode(operands, extras, epilogue=epilogue, **kw)
     # torch fused (one torch pass on the device) or unfused: grid, then body
-    grid = _decode_grid(operands, block_size=block_size,
-                        differential=differential, plan=p)
+    grid = _decode_grid(operands, plan=p, **kw)
     return eplib.apply_grid(epilogue, grid, operands["counts"], extras)

@@ -15,15 +15,18 @@ operands on the CPU. The epilogues the search path runs are ported:
 * ``membership`` — ``[T, P]`` hit bitmap against a sorted probe set padded
   with -1; ``bm25_accum`` multiplies it by the term's int32 impact;
 * ``bm25_weighted`` — ``Σ_j hit·w`` where ``w`` is the aligned per-posting
-  impact stream (``w_payload``), decoded in the same pass with the main
-  tile's counts;
+  impact stream, decoded in the same pass with the main tile's counts. Its
+  format is picked by which operands arrive, in the reference's order:
+  ``w_widths`` + ``w_data`` (binpack), ``w_payload`` (vbyte), ``w_control``
+  + ``w_data`` (streamvbyte);
 * ``*_rows`` — the block-aligned variants: ``probe`` is a tiled
   ``[T, 1]`` extra, block t compared against its own probe only.
 
 Masked slots compare as -1 and only probes ``>= 0`` count. Sums wrap mod
-2^32 exactly like the reference's int32 arithmetic. The ``bag_sum``,
-``dot_score`` and ``adjacency_rebase`` consumers, and the Stream-VByte and
-binpack weight operands, are still to port (ROADMAP queue 1, slices B/D).
+2^32 exactly like the reference's int32 arithmetic. The main stream may be
+any of the three formats (the kernel's decode core is a template
+parameter). The ``bag_sum``, ``dot_score`` and ``adjacency_rebase``
+consumers are still to port (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -32,20 +35,27 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.vbyte.masked import (decode_blocked as decode_blocked_plain,
-                                           to_i32_bits, to_u32)
+from repro_torch.core.vbyte import binpack_masked, masked, stream_masked
+from repro_torch.core.vbyte.masked import to_i32_bits, to_u32
 
+from . import binpack_kernel, kernel, stream_kernel
 from ._build import LaunchCounter, library
-from .kernel import check_operands
-from .ops import as_i32_bits, normalize_block_meta
+from .ops import normalize_counts_bases
 
 FORMAT_OPERANDS = {
     "vbyte": ("payload",),
     "streamvbyte": ("control", "data"),
     "binpack": ("widths", "data"),
 }
-NOT_PORTED = ("not ported yet: format={!r} is ROADMAP queue 1 item 8 "
-              "(slice B: Stream-VByte, binpack and the auto partition)")
+# per format: the plain decoder, the kernel's operand check, and the id of
+# the format in csrc/fused_decode.cu
+PLAIN_DECODERS = {"vbyte": masked.decode_blocked,
+                  "streamvbyte": stream_masked.decode_blocked,
+                  "binpack": binpack_masked.decode_blocked}
+CHECK_OPERANDS = {"vbyte": kernel.check_operands,
+                  "streamvbyte": stream_kernel.check_operands,
+                  "binpack": binpack_kernel.check_operands}
+FORMAT_IDS = {"vbyte": 0, "streamvbyte": 1, "binpack": 2}
 WEIGHT_OPERANDS = ("w_payload", "w_control", "w_data", "w_widths")
 MAX_PROBE_WIDTH = 4096  # broadcast probe set held in shared memory per CTA
 
@@ -106,21 +116,30 @@ def _bm25_accum_rows_apply(vals, valid, *, probe, impact):
     return _membership_rows_apply(vals, valid, probe=probe) * impact.reshape(())
 
 
-def _decode_weight_tile(valid, w_payload=None, w_control=None, w_data=None,
-                        w_widths=None):
-    """Decode the aligned per-posting weight tile (non-differential). Its
-    blocks align 1:1 with the main stream, so the main tile's ``valid`` mask
-    is the weight tile's count vector."""
-    if w_control is not None or w_widths is not None or (
-            w_data is not None and w_payload is None):
-        raise NotImplementedError(NOT_PORTED.format(
-            "binpack" if w_widths is not None else "streamvbyte"))
-    if w_payload is None:
-        raise ValueError("weighted epilogue needs the w_payload (vbyte) extra")
+def weight_format(w_payload=None, w_control=None, w_data=None,
+                  w_widths=None) -> tuple[str, tuple]:
+    """``(format, leaves)`` of the aligned weight stream, picked by which
+    operands arrived, in the reference's order: binpack, vbyte,
+    streamvbyte."""
+    if w_widths is not None and w_data is not None:
+        return "binpack", (w_widths, w_data)
+    if w_payload is not None:
+        return "vbyte", (w_payload,)
+    if w_control is not None and w_data is not None:
+        return "streamvbyte", (w_control, w_data)
+    raise ValueError("weighted epilogue needs w_payload (vbyte), "
+                     "w_control + w_data (streamvbyte), or "
+                     "w_widths + w_data (binpack) extras")
+
+
+def _decode_weight_tile(valid, **weights):
+    """Decode the aligned per-posting weight tile (dense, non-differential).
+    Its blocks align 1:1 with the main stream, so the main tile's ``valid``
+    mask is the weight tile's count vector."""
+    fmt, leaves = weight_format(**weights)
     counts = valid.sum(dim=1).to(torch.int32)
-    zeros = torch.zeros_like(counts)
-    w = decode_blocked_plain(w_payload, counts, zeros,
-                             block_size=valid.shape[-1], differential=False)
+    w = PLAIN_DECODERS[fmt](*leaves, counts, torch.zeros_like(counts),
+                            block_size=valid.shape[-1], differential=False)
     return torch.where(valid, w, 0)
 
 
@@ -227,12 +246,16 @@ def apply_grid(epilogue: str, grid: torch.Tensor, counts: torch.Tensor,
     return ep.apply(grid, valid, **extras)
 
 
-def fused_decode_plain(payload, counts, bases, extras, *, epilogue: str,
-                       block_size: int, differential: bool):
-    """The plain version of kernel 2: torch decode, then the ``apply`` body."""
-    grid = decode_blocked_plain(payload, counts, bases, block_size=block_size,
-                                differential=differential)
-    return apply_grid(epilogue, grid, counts, extras)
+def fused_decode_plain(operands: dict, extras: dict, *, format: str,
+                       epilogue: str, block_size: int, differential: bool):
+    """The plain version of kernel 2: the format's torch decoder, then the
+    epilogue's ``apply`` body. ``operands`` holds the format's leaves and
+    1-D int32 ``counts``/``bases``."""
+    leaves = [operands[k] for k in FORMAT_OPERANDS[format]]
+    grid = PLAIN_DECODERS[format](*leaves, operands["counts"],
+                                  operands["bases"], block_size=block_size,
+                                  differential=differential)
+    return apply_grid(epilogue, grid, operands["counts"], extras)
 
 
 # ---------------------------------------------------------------------------
@@ -246,10 +269,14 @@ def _check_i32(name, t, shape, device):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _fused_decode_cuda(payload, counts, bases, extras, *, ep: Epilogue,
-                       block_size: int, differential: bool):
-    dev = payload.device
-    nb, S = payload.shape
+def _fused_decode_cuda(format: str, ops: dict, extras: dict, *,
+                       ep: Epilogue, block_size: int, differential: bool):
+    leaves = [ops[k] for k in FORMAT_OPERANDS[format]]
+    main = leaves[-1]  # payload or data
+    meta = leaves[0] if len(leaves) == 2 else None  # control or widths
+    counts, bases = ops["counts"], ops["bases"]
+    dev = main.device
+    nb, S = main.shape
     B = block_size
     probe = extras.get("probe")
     P = 1
@@ -265,21 +292,14 @@ def _fused_decode_cuda(payload, counts, bases, extras, *, ep: Epilogue,
     impact = extras.get("impact")
     if impact is not None:
         _check_i32("impact", impact, (1, 1), dev)
-    w_payload = extras.get("w_payload")
-    S_w = 1
+    w_format, w_bytes, w_meta, S_w = 0, None, None, 1
     if ep.name.startswith("bm25_weighted"):
-        if any(k in extras for k in ("w_control", "w_data", "w_widths")):
-            raise NotImplementedError(NOT_PORTED.format(
-                "binpack" if "w_widths" in extras else "streamvbyte"))
-        if w_payload is None:
-            raise ValueError("weighted epilogue needs the w_payload (vbyte) extra")
-        if (w_payload.dtype != torch.uint8 or w_payload.dim() != 2
-                or w_payload.shape[0] != nb or w_payload.shape[1] < 1
-                or w_payload.device != dev or not w_payload.is_contiguous()):
-            raise ValueError(f"w_payload must be a contiguous uint8 [{nb}, S_w] "
-                             f"tensor on {dev}; got {w_payload.dtype} "
-                             f"{tuple(w_payload.shape)} on {w_payload.device}")
-        S_w = w_payload.shape[1]
+        fmt, w_leaves = weight_format(
+            **{k: extras.get(k) for k in WEIGHT_OPERANDS})
+        CHECK_OPERANDS[fmt](*w_leaves, counts, bases, block_size=B)
+        w_format, w_bytes = FORMAT_IDS[fmt], w_leaves[-1]
+        w_meta = w_leaves[0] if len(w_leaves) == 2 else None
+        S_w = w_bytes.shape[1]
 
     if ep.name in ("stream", "checksum"):
         out = torch.empty((nb, B), dtype=torch.int32, device=dev)
@@ -296,11 +316,12 @@ def _fused_decode_cuda(payload, counts, bases, extras, *, ep: Epilogue,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             library("fused_decode").call(
-                "fused_decode_launch", ep.cuda_id, payload.data_ptr(), S,
-                counts.data_ptr(), bases.data_ptr(), nb, B, int(differential),
-                ptr(probe), P, ptr(impact), ptr(w_payload), S_w,
+                "fused_decode_launch", FORMAT_IDS[format], ep.cuda_id,
+                main.data_ptr(), ptr(meta), S, counts.data_ptr(),
+                bases.data_ptr(), nb, B, int(differential), ptr(probe), P,
+                ptr(impact), w_format, ptr(w_bytes), ptr(w_meta), S_w,
                 out.data_ptr(), ptr(out2), stream)
-        launches.bump(ep.name)
+        launches.bump(f"{format}/{ep.name}")
     return (out, out2) if out2 is not None else out
 
 
@@ -308,27 +329,29 @@ def fused_decode(operands: dict, extras: dict, *, format: str, epilogue: str,
                  block_size: int, differential: bool):
     """Fused decode→epilogue in one pass over the blocked operands.
 
-    ``operands`` is ``CompressedIntArray.device_operands()`` (``counts``/
-    ``bases`` may be ``[n_blocks]`` or ``[n_blocks, 1]``). On the card this
-    is one launch of kernel 2; on the CPU, :func:`fused_decode_plain`.
-    Output shapes are exactly ``[n_blocks, …]``.
+    ``operands`` is ``CompressedIntArray.device_operands()`` of any format
+    (``counts``/``bases`` may be ``[n_blocks]`` or ``[n_blocks, 1]``). On
+    the card this is one launch of kernel 2; on the CPU,
+    :func:`fused_decode_plain`. Output shapes are exactly ``[n_blocks, …]``.
     """
     ep = get_epilogue(epilogue)
     ep.check(differential, extras)
     if format not in FORMAT_OPERANDS:
         raise ValueError(f"unknown format {format!r}")
-    if format != "vbyte":
-        raise NotImplementedError(NOT_PORTED.format(format))
-    payload = operands["payload"].contiguous()
-    nb = payload.shape[0]
-    counts = as_i32_bits(normalize_block_meta("counts", operands["counts"], nb))
-    bases = as_i32_bits(normalize_block_meta("bases", operands["bases"], nb))
-    counts, bases = counts.contiguous(), bases.contiguous()
-    check_operands(payload, counts, bases, block_size=block_size)
-    if not payload.is_cuda:
-        return fused_decode_plain(payload, counts, bases, extras,
+    names = FORMAT_OPERANDS[format]
+    missing = [k for k in names + ("counts", "bases") if k not in operands]
+    if missing:
+        raise ValueError(f"format {format!r} operands missing {missing}")
+    leaves = [operands[k].contiguous() for k in names]
+    counts, bases = normalize_counts_bases(operands["counts"],
+                                           operands["bases"],
+                                           leaves[-1].shape[0])
+    CHECK_OPERANDS[format](*leaves, counts, bases, block_size=block_size)
+    ops = dict(zip(names, leaves), counts=counts, bases=bases)
+    if not counts.is_cuda:
+        return fused_decode_plain(ops, extras, format=format,
                                   epilogue=epilogue, block_size=block_size,
                                   differential=differential)
-    return _fused_decode_cuda(payload, counts, bases, extras, ep=ep,
+    return _fused_decode_cuda(format, ops, extras, ep=ep,
                               block_size=block_size,
                               differential=differential)

@@ -19,6 +19,22 @@ MAX_BLOCK_SIZE = 1024  # B slots of uint32 per warp in shared memory
 launches = LaunchCounter()
 
 
+def check_meta(byte_leaves, counts, bases) -> None:
+    """The checks every decode kernel shares: ``counts``/``bases`` int32
+    ``[n_blocks]``, every operand on one device, contiguous on the card."""
+    nb = byte_leaves[0].shape[0]
+    for name, t in (("counts", counts), ("bases", bases)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (nb,):
+            raise ValueError(f"{name} must be int32 [{nb}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    ts = (*byte_leaves, counts, bases)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("the format's leaves, counts and bases must be on "
+                         "one device")
+    if counts.is_cuda and not all(t.is_contiguous() for t in ts):
+        raise ValueError("the CUDA kernel takes contiguous tensors")
+
+
 def check_operands(payload, counts, bases, *, block_size: int) -> None:
     """Raise on anything the kernel does not take."""
     if block_size < 1 or block_size > MAX_BLOCK_SIZE:
@@ -29,16 +45,7 @@ def check_operands(payload, counts, bases, *, block_size: int) -> None:
                          f"{payload.dtype} {tuple(payload.shape)}")
     if payload.shape[1] < 1:
         raise ValueError("payload stride must be ≥ 1")
-    nb = payload.shape[0]
-    for name, t in (("counts", counts), ("bases", bases)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (nb,):
-            raise ValueError(f"{name} must be int32 [{nb}], got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    if len({t.device for t in (payload, counts, bases)}) != 1:
-        raise ValueError("payload, counts and bases must be on one device")
-    if payload.is_cuda and not all(t.is_contiguous()
-                                   for t in (payload, counts, bases)):
-        raise ValueError("the CUDA kernel takes contiguous tensors")
+    check_meta((payload,), counts, bases)
 
 
 def vbyte_decode_blocked_cuda(payload: torch.Tensor, counts: torch.Tensor,

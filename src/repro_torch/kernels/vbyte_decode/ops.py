@@ -1,17 +1,21 @@
 """Public decode wrappers and the shape contract of the decode kernels.
 
-``vbyte_decode_blocked`` matches ``ref.vbyte_decode_blocked_ref`` and
-``repro_torch.core.vbyte.masked.decode_blocked`` bit for bit; on a CUDA
-tensor it runs kernel 1. There is no ``block_tile`` padding: the CUDA
-kernel masks the ragged edge of its grid itself, so output shapes are
-exactly ``[n_blocks, …]``.
+``vbyte_decode_blocked`` (kernel 1), ``stream_vbyte_decode_blocked``
+(kernel 3) and ``binpack_decode_blocked`` (kernel 4) take the reference's
+operand shapes (``counts``/``bases`` as ``[n_blocks]`` or ``[n_blocks,
+1]``, binpack ``widths`` likewise), normalise them and run the kernel on a
+CUDA tensor, its plain torch version on a CPU tensor. There is no
+``block_tile`` padding: the CUDA kernels mask the ragged edge of their
+grid themselves, so output shapes are exactly ``[n_blocks, …]``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .binpack_kernel import binpack_decode_blocked_cuda
 from .kernel import vbyte_decode_blocked_cuda
+from .stream_kernel import stream_decode_blocked_cuda
 
 
 def normalize_block_meta(name: str, x: torch.Tensor, n_blocks: int) -> torch.Tensor:
@@ -63,6 +67,14 @@ def as_i32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
+def normalize_counts_bases(counts, bases, nb: int):
+    """``counts``/``bases`` as the kernels take them: contiguous int32
+    ``[n_blocks]`` (bases keep their uint32 bits)."""
+    counts = as_i32_bits(normalize_block_meta("counts", counts, nb))
+    bases = as_i32_bits(normalize_block_meta("bases", bases, nb))
+    return counts.contiguous(), bases.contiguous()
+
+
 def vbyte_decode_blocked(
     payload: torch.Tensor,  # uint8 [n_blocks, stride]
     counts: torch.Tensor,  # int   [n_blocks] or [n_blocks, 1]
@@ -72,9 +84,43 @@ def vbyte_decode_blocked(
     differential: bool,
 ) -> torch.Tensor:
     """Decode a blocked VByte payload to int32 (uint32 bits) [n_blocks, block_size]."""
-    nb = payload.shape[0]
-    counts = as_i32_bits(normalize_block_meta("counts", counts, nb)).contiguous()
-    bases = as_i32_bits(normalize_block_meta("bases", bases, nb)).contiguous()
+    counts, bases = normalize_counts_bases(counts, bases, payload.shape[0])
     return vbyte_decode_blocked_cuda(payload.contiguous(), counts, bases,
                                      block_size=block_size,
                                      differential=differential)
+
+
+def stream_vbyte_decode_blocked(
+    control: torch.Tensor,  # uint8 [n_blocks, block_size // 4]
+    data: torch.Tensor,  # uint8 [n_blocks, data_stride]
+    counts: torch.Tensor,  # int   [n_blocks] or [n_blocks, 1]
+    bases: torch.Tensor,  # int32 (uint32 bits) [n_blocks] or [n_blocks, 1]
+    *,
+    block_size: int,
+    differential: bool,
+) -> torch.Tensor:
+    """Decode a blocked Stream-VByte payload to int32 (uint32 bits)
+    ``[n_blocks, block_size]``."""
+    counts, bases = normalize_counts_bases(counts, bases, control.shape[0])
+    return stream_decode_blocked_cuda(
+        control.contiguous(), data.contiguous(), counts, bases,
+        block_size=block_size, differential=differential)
+
+
+def binpack_decode_blocked(
+    widths: torch.Tensor,  # uint8 [n_blocks, 1] or [n_blocks]
+    data: torch.Tensor,  # uint8 [n_blocks, stride]
+    counts: torch.Tensor,  # int   [n_blocks] or [n_blocks, 1]
+    bases: torch.Tensor,  # int32 (uint32 bits) [n_blocks] or [n_blocks, 1]
+    *,
+    block_size: int,
+    differential: bool,
+) -> torch.Tensor:
+    """Decode a blocked binpack payload to int32 (uint32 bits)
+    ``[n_blocks, block_size]``."""
+    nb = data.shape[0]
+    widths = normalize_block_meta("widths", widths, nb)[:, None]
+    counts, bases = normalize_counts_bases(counts, bases, nb)
+    return binpack_decode_blocked_cuda(
+        widths.to(torch.uint8).contiguous(), data.contiguous(), counts, bases,
+        block_size=block_size, differential=differential)

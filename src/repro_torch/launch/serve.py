@@ -73,10 +73,11 @@ class SearchEngine:
         for mode, terms in queries:
             self.search(terms, mode)
 
-    def run_workload(self, queries) -> dict:
+    def run_workload(self, queries, *, record: list | None = None) -> dict:
         """Drive (mode, terms) queries sequentially; aggregate QPS/latency
         plus the skip-table decode accounting over the whole workload. A
-        query's latency ends when its result is on the host."""
+        query's latency ends when its result is on the host. ``record``, a
+        list, receives each query's ``(result, QueryStats, seconds)``."""
         from repro_torch.index import QueryStats
 
         st = QueryStats()
@@ -84,9 +85,13 @@ class SearchEngine:
         n_results = 0
         t_start = time.perf_counter()
         for mode, terms in queries:
+            qst = st if record is None else QueryStats()
             t0 = time.perf_counter()
-            out = self.search(terms, mode, stats=st)
+            out = self.search(terms, mode, stats=qst)
             lat.append(time.perf_counter() - t0)
+            if record is not None:
+                record.append((out, qst, lat[-1]))
+                st.merge(qst)
             n_results += len(out[0] if isinstance(out, tuple) else out)
         wall = time.perf_counter() - t_start
         # blocks considered = decoded + skip-table-skipped (per pass) +

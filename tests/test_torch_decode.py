@@ -232,8 +232,21 @@ def test_leaves_and_shape_contract():
                                   differential=True)
     with pytest.raises(ValueError, match="unknown plan"):
         t.decode(plan="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TArr.encode(np.arange(5), format="streamvbyte", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Tdispatch.decode(ops, format="binpack", block_size=32,
-                         differential=True)
+    # the other two formats are ported: they encode and decode exactly as
+    # the reference does, and the vbyte-only 'ref' path refuses them as the
+    # reference's does
+    vals = np.arange(5, dtype=np.uint64) * 70001
+    s = TArr.encode(vals, format="streamvbyte", device="cpu")
+    assert_same(RArr.encode(vals, format="streamvbyte").decode_blocked(
+        plan="jnp"), s.decode_blocked())
+    r = RArr.encode(np.arange(70, dtype=np.uint64) * 1000, format="binpack",
+                    block_size=32, differential=True)
+    b_ops = {k: torch.as_tensor(np.array(v))
+             for k, v in r.device_operands().items()}
+    b_ops["bases"] = b_ops["bases"].view(torch.int32)
+    assert_same(r.decode_blocked(plan="jnp"),
+                Tdispatch.decode(b_ops, format="binpack", block_size=32,
+                                 differential=True))
+    with pytest.raises(ValueError, match="only exists"):
+        Tdispatch.decode(b_ops, format="binpack", block_size=32,
+                         differential=True, plan="ref")

@@ -2,7 +2,8 @@
 and unfused, the kernel plan on CPU tensors (its plain version), and the
 ``ref`` path — equals the reference's ``apply_grid`` and
 ``dispatch.decode(plan="unfused")`` bit for bit, including probe padding,
-count-0 blocks and the weighted stream."""
+count-0 blocks and the weighted stream, for the main stream in each of the
+three formats and the weight stream in each of the three formats."""
 import numpy as np
 import pytest
 import torch
@@ -28,23 +29,29 @@ PORT_PLANS = ("auto", "torch", DecodePlan("torch", fused=False), "cuda",
               DecodePlan("cuda", fused=False), "ref")
 
 
-def _workload(seed, differential, *, n=700, zero_blocks=3):
-    """Host operands (docid stream + aligned impact stream, count-0 blocks
-    appended) and host extras for every epilogue."""
+def _workload(seed, differential, *, n=700, zero_blocks=3, fmt="vbyte",
+              w_fmt=None):
+    """Host operands (docid stream in ``fmt`` + aligned impact stream in
+    ``w_fmt``, count-0 blocks appended) and host extras for every
+    epilogue."""
     rng = np.random.default_rng(seed)
     if differential:
         vals = np.sort(rng.choice(5000, size=n, replace=False)).astype(np.uint64)
     else:
         vals = rng.integers(0, 5000, size=n).astype(np.uint64)
-    arr = RArr.encode(vals, block_size=B, differential=differential)
+    arr = RArr.encode(vals, format=fmt, block_size=B,
+                      differential=differential)
     imp = RArr.encode(rng.integers(1, 300, size=n).astype(np.uint64),
-                      block_size=B)
-    pad = ((0, zero_blocks), (0, 0))
-    ops = {"payload": np.pad(np.asarray(arr.payload), pad),
-           "counts": np.pad(np.asarray(arr.counts), pad[0]),
-           "bases": np.pad(np.asarray(arr.bases), pad[0])}
-    nb = ops["payload"].shape[0]
-    w_payload = np.pad(np.asarray(imp.payload), pad)
+                      format=w_fmt or fmt, block_size=B)
+
+    def pad(a):
+        a = np.asarray(a)
+        return np.pad(a, ((0, zero_blocks),) + ((0, 0),) * (a.ndim - 1))
+
+    ops = {k: pad(v) for k, v in arr.device_operands().items()}
+    nb = ops["counts"].shape[0]
+    w_ops = {f"w_{k}": pad(v) for k, v in imp.device_operands().items()
+             if k not in ("counts", "bases")}
     # broadcast probes: half present in the list, half random; padded with -1
     probe = np.unique(np.concatenate([rng.choice(vals, 20), rng.integers(0, 5000, 20)]))
     probe = normalize_probe(probe, 64)
@@ -57,58 +64,88 @@ def _workload(seed, differential, *, n=700, zero_blocks=3):
         "membership_rows": {"probe": rows_probe},
         "bm25_accum": {"probe": probe, "impact": impact},
         "bm25_accum_rows": {"probe": rows_probe, "impact": impact},
-        "bm25_weighted": {"probe": probe, "w_payload": w_payload},
-        "bm25_weighted_rows": {"probe": rows_probe, "w_payload": w_payload},
+        "bm25_weighted": {"probe": probe, **w_ops},
+        "bm25_weighted_rows": {"probe": rows_probe, **w_ops},
     }
     return ops, extras
 
 
 def _port(ops, extras):
-    t_ops = {"payload": torch.tensor(ops["payload"]),
-             "counts": torch.tensor(ops["counts"]),
-             "bases": torch.tensor(ops["bases"].view(np.int32))}
+    t_ops = {k: torch.tensor(v) for k, v in ops.items()}
+    t_ops["bases"] = torch.tensor(ops["bases"].view(np.int32))
     return t_ops, {k: torch.tensor(v) for k, v in extras.items()}
+
+
+def _check_parity(ops, ex, *, fmt, epilogue, differential, plans=PORT_PLANS):
+    """The port's dispatch plans, apply_grid and plain kernel 2 against the
+    reference's unfused decode and its apply_grid."""
+    r_ops = {k: jnp.asarray(v) for k, v in ops.items()}
+    r_ex = {k: jnp.asarray(v) for k, v in ex.items()}
+    kw = dict(format=fmt, block_size=B, differential=differential)
+    ref = Rdispatch.decode(r_ops, epilogue_operands=r_ex, plan="unfused",
+                           epilogue=epilogue, **kw)
+    grid = Rdispatch.decode(r_ops, plan="jnp", **kw)
+    assert_same(ref, Repi.apply_grid(epilogue, grid, r_ops["counts"], r_ex))
+    t_ops, t_ex = _port(ops, ex)
+    for plan in plans:
+        out = Tdispatch.decode(t_ops, epilogue_operands=t_ex, plan=plan,
+                               epilogue=epilogue, **kw)
+        assert_same(ref, out, f"{fmt} {epilogue} {plan}")
+    # the port's apply_grid on the port's decoded grid, and the plain version
+    t_grid = Tdispatch.decode(t_ops, plan="torch", **kw)
+    assert_same(ref, Tepi.apply_grid(epilogue, t_grid, t_ops["counts"], t_ex))
+    assert_same(ref, Tepi.fused_decode_plain(
+        t_ops, t_ex, format=fmt, epilogue=epilogue, block_size=B,
+        differential=differential))
+    return ref
 
 
 @pytest.mark.parametrize("differential", [False, True])
 @pytest.mark.parametrize("epilogue", PORTED)
 def test_epilogue_parity(epilogue, differential):
     ops, extras = _workload(21, differential)
-    ex = extras[epilogue]
-    r_ops = {k: jnp.asarray(v) for k, v in ops.items()}
-    r_ex = {k: jnp.asarray(v) for k, v in ex.items()}
-    kw = dict(format="vbyte", block_size=B, differential=differential,
-              epilogue=epilogue)
-    ref = Rdispatch.decode(r_ops, epilogue_operands=r_ex, plan="unfused", **kw)
-    grid = Rdispatch.decode(r_ops, format="vbyte", block_size=B,
-                            differential=differential, plan="jnp")
-    assert_same(ref, Repi.apply_grid(epilogue, grid, r_ops["counts"], r_ex))
-    t_ops, t_ex = _port(ops, ex)
-    for plan in PORT_PLANS:
-        out = Tdispatch.decode(t_ops, epilogue_operands=t_ex, plan=plan, **kw)
-        assert_same(ref, out, f"{epilogue} {plan}")
-    # the port's apply_grid on the port's decoded grid, and the plain version
-    t_grid = Tdispatch.decode(t_ops, format="vbyte", block_size=B,
-                              differential=differential, plan="torch")
-    assert_same(ref, Tepi.apply_grid(epilogue, t_grid, t_ops["counts"], t_ex))
-    assert_same(ref, Tepi.fused_decode_plain(
-        t_ops["payload"], t_ops["counts"], t_ops["bases"], t_ex,
-        epilogue=epilogue, block_size=B, differential=differential))
+    _check_parity(ops, extras[epilogue], fmt="vbyte", epilogue=epilogue,
+                  differential=differential)
+
+
+@pytest.mark.parametrize("differential", [False, True])
+@pytest.mark.parametrize("epilogue", PORTED)
+@pytest.mark.parametrize("fmt", ["streamvbyte", "binpack"])
+def test_epilogue_parity_formats(fmt, epilogue, differential):
+    """Kernel 2's streamvbyte and binpack cores (their plain versions), with
+    the weight stream in the main stream's format."""
+    ops, extras = _workload(25, differential, fmt=fmt)
+    _check_parity(ops, extras[epilogue], fmt=fmt, epilogue=epilogue,
+                  differential=differential,
+                  plans=("auto", DecodePlan("torch", fused=False), "cuda"))
+
+
+@pytest.mark.parametrize("w_fmt", ["vbyte", "streamvbyte", "binpack"])
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_weight_stream_in_every_format(fmt, w_fmt):
+    """``bm25_weighted[_rows]`` with the impact stream in each of the three
+    formats under each main format."""
+    ops, extras = _workload(26, True, fmt=fmt, w_fmt=w_fmt)
+    for epilogue in ("bm25_weighted", "bm25_weighted_rows"):
+        _check_parity(ops, extras[epilogue], fmt=fmt, epilogue=epilogue,
+                      differential=True, plans=("auto", "cuda"))
 
 
 @pytest.mark.parametrize("epilogue", ["membership_rows", "bm25_weighted"])
 def test_pallas_fused_kernel_parity_tiny(epilogue):
-    """Against the Pallas fused kernel itself (interpret mode), tiny."""
-    ops, extras = _workload(22, True, n=90, zero_blocks=1)
-    r_ops = {k: jnp.asarray(v) for k, v in ops.items()}
-    r_ex = {k: jnp.asarray(v) for k, v in extras[epilogue].items()}
-    ref = Rdispatch.decode(r_ops, format="vbyte", block_size=B,
-                           differential=True, epilogue=epilogue,
-                           epilogue_operands=r_ex, plan="kernel")
-    t_ops, t_ex = _port(ops, extras[epilogue])
-    out = Tepi.fused_decode(t_ops, t_ex, format="vbyte", epilogue=epilogue,
-                            block_size=B, differential=True)
-    assert_same(ref, out, epilogue)
+    """Against the Pallas fused kernel itself (interpret mode), tiny, with
+    the main stream in each format."""
+    for fmt in ("vbyte", "streamvbyte", "binpack"):
+        ops, extras = _workload(22, True, n=90, zero_blocks=1, fmt=fmt)
+        r_ops = {k: jnp.asarray(v) for k, v in ops.items()}
+        r_ex = {k: jnp.asarray(v) for k, v in extras[epilogue].items()}
+        ref = Rdispatch.decode(r_ops, format=fmt, block_size=B,
+                               differential=True, epilogue=epilogue,
+                               epilogue_operands=r_ex, plan="kernel")
+        t_ops, t_ex = _port(ops, extras[epilogue])
+        out = Tepi.fused_decode(t_ops, t_ex, format=fmt, epilogue=epilogue,
+                                block_size=B, differential=True)
+        assert_same(ref, out, f"{fmt} {epilogue}")
 
 
 def test_weighted_stream_long_weights_and_empty_probe_set():
@@ -170,13 +207,21 @@ def test_epilogue_registry_errors():
     for name in ("bag_sum", "dot_score", "adjacency_rebase"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Tdispatch.decode(t_ops, epilogue=name, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Tepi.fused_decode(t_ops, {}, format="streamvbyte", epilogue="stream",
-                          block_size=B, differential=True)
-    w = torch.as_tensor(extras["bm25_weighted"]["w_payload"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the other two formats are ported: a streamvbyte main stream, and a
+    # streamvbyte weight stream under a vbyte main stream, match the
+    # reference
+    s_ops, s_ex = _workload(24, True, n=64, zero_blocks=0, fmt="streamvbyte")
+    _check_parity(s_ops, {}, fmt="streamvbyte", epilogue="stream",
+                  differential=True, plans=("cuda",))
+    _, w_ex = _workload(24, True, n=64, zero_blocks=0, w_fmt="streamvbyte")
+    assert {"w_control", "w_data"} <= set(w_ex["bm25_weighted"])
+    _check_parity(ops, w_ex["bm25_weighted"], fmt="vbyte",
+                  epilogue="bm25_weighted", differential=True,
+                  plans=("cuda",))
+    with pytest.raises(ValueError, match="needs w_payload"):
         Tdispatch.decode(t_ops, epilogue="bm25_weighted",
                          epilogue_operands={
                              "probe": torch.as_tensor(extras["membership"]["probe"]),
-                             "w_control": w, "w_data": w}, **kw)
+                             "w_control": torch.as_tensor(s_ops["control"])},
+                         **kw)
     assert set(PORTED) == set(Tepi.EPILOGUES)

@@ -14,6 +14,7 @@ from repro.index import conjunctive as r_and
 from repro.index import disjunctive as r_or
 from repro.index import topk as r_topk
 from repro_torch.convert import index_from_numpy
+from repro_torch.core.compressed_array import FORMAT_LEAVES
 from repro_torch.index import QueryStats as TStats
 from repro_torch.index import build_index as t_build
 from repro_torch.index import conjunctive as t_and
@@ -58,10 +59,12 @@ def assert_same_index(ri, ti):
             np.testing.assert_array_equal(getattr(rtp, name),
                                           getattr(ttp, name))
         for rs, ts in ((rtp.arr, ttp.arr), (rtp.impacts, ttp.impacts)):
+            assert rs.format == ts.format
             leaves = ts.leaves_numpy()
-            for name in ("payload", "counts", "bases"):
+            assert sorted(leaves) == sorted(FORMAT_LEAVES[rs.format])
+            for name, leaf in leaves.items():
                 np.testing.assert_array_equal(np.asarray(getattr(rs, name)),
-                                              leaves[name], err_msg=name)
+                                              leaf, err_msg=name)
             assert (rs.n, rs.differential) == (ts.n, ts.differential)
             assert rs.bits_per_int == ts.bits_per_int
 
@@ -183,9 +186,8 @@ def test_convert_round_trip(indexes):
     ri, ti = indexes["tf"]
 
     def stream(a):
-        return {"payload": np.asarray(a.payload), "counts": np.asarray(a.counts),
-                "bases": np.asarray(a.bases), "n": a.n,
-                "payload_bytes": a.enc.payload_bytes}
+        return {**{k: np.asarray(v) for k, v in a.device_operands().items()},
+                "n": a.n, "payload_bytes": a.enc.payload_bytes}
 
     terms = {t: {"df": tp.df, "first_doc": tp.first_doc,
                  "last_doc": tp.last_doc, "max_impact": tp.max_impact,
@@ -209,7 +211,11 @@ def test_builder_validation():
             t_build(bad, device="cpu")
     with pytest.raises(ValueError, match="≥ 1"):
         t_build({0: np.array([1, 2])}, tfs={0: np.array([0, 2])}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build({0: np.array([1, 2])}, format="auto", device="cpu")
+    # format="auto" is ported: a tiny list builds the reference's index
+    tiny = {0: np.array([1, 2]), 1: np.array([], np.int64)}
+    assert_same_index(r_build(tiny, format="auto"),
+                      t_build(tiny, format="auto", device="cpu"))
+    with pytest.raises(ValueError, match="unknown format"):
+        t_build({0: np.array([1, 2])}, format="zip", device="cpu")
     with pytest.raises(ValueError, match="positive integer"):
         t_topk(t_build({0: np.array([1, 2])}, device="cpu"), [0], 0)
