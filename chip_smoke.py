@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                       # the full run
-    python3 chip_smoke.py --queries 20 --svb-queries 10 --vbyte-queries 5 \\
-        --k20-lists 2                           # a short one
+    python3 chip_smoke.py --queries 4 --svb-queries 3 --vbyte-queries 3 \
+        --k20-lists 2 --profile-queries 2 --tt-requests 32 --tt-bags 16 \
+        --gin-scale 0.05                        # a short one, every path
 
 Drives the port (``src/repro_torch``) through the entry points a user
 calls, on the card, and fails (exit code ≠ 0, no result line) on any
@@ -14,31 +15,45 @@ fault. One JSON line per phase:
    (one nvcc per source), with the compiler's register / shared-memory
    report.
 3. kernel parity — each kernel against its plain torch version on the
-   same device tensors, bit for bit, at the main path's block layout
-   (B=128, 4096 blocks, count-0 blocks, ragged tails, differential both
-   ways): kernel 1 (vbyte decode) at strides 128 and 640 with all five
-   byte lengths; kernel 3 (Stream-VByte decode) at stride 128 and at its
-   widest (512) with all four byte lengths; kernel 4 (binpack decode) at
-   stride 128 and with every width 0..32; kernel 2 (fused decode → each of
-   its 8 epilogues) on the vbyte, streamvbyte and binpack cores, with a
-   weight stream of the same format. Times from CUDA events with the L2
-   flushed before every launch, beside the bound and the plain version's
-   time.
-4. main paths — a ClueWeb09-sized posting index (50M-doc universe, 16
+   same device tensors at the main path's block layout (B=128, 4096
+   blocks, count-0 blocks, ragged tails, differential both ways): kernel 1
+   (vbyte decode) at strides 128 and 640 with all five byte lengths;
+   kernel 3 (Stream-VByte decode) at stride 128 and at its widest (512)
+   with all four byte lengths; kernel 4 (binpack decode) at stride 128 and
+   with every width 0..32; kernel 2 (fused decode → each of its 11
+   epilogues) on the vbyte, streamvbyte and binpack cores. Integer outputs
+   bit for bit; ``bag_sum`` and ``dot_score`` (bf16 [V, 256] and f32
+   [V, 128] tables, V = 2^23 + 512, 1- and 8-row queries) within one bf16
+   ulp / 1e-5, or the f32 sums' rounding bound where a sum cancels, on
+   garbage ids (clamped) and, timed, on sorted item ids — beside the
+   bound, the plain version and the unfused chain (the decode kernel,
+   then one PyTorch call); ``bag_sum`` also at B=50. Times from CUDA
+   events with the L2 flushed before every launch.
+4. search paths — a ClueWeb09-sized posting index (50M-doc universe, 16
    lists from each of the paper's length groups K=12, 16, 20, Zipf tfs,
    block_size 128) built onto the card three ways, each served by
    ``SearchEngine(plan="auto")`` with every launch count set to 0 just
    before its workload and read just after: ``format="vbyte"`` (the
-   first 50 queries), ``format="auto"`` (100 queries; its per-list
+   first 25 queries), ``format="auto"`` (100 queries; its per-list
    partition DPs run in worker processes, one ``build_index`` call per
-   term, merged on the card) and ``format="streamvbyte"`` (the first 50).
+   term, merged on the card) and ``format="streamvbyte"`` (the first 25).
    Every query's result and ``QueryStats`` is then held equal to the plain
    ``plan="torch"`` engine's on the card (the replay runs in 6 spawned
    worker processes, each placing the index on the card from its numpy
    leaves), and 10 AND/OR answers per path against numpy set operations
    on the host lists. A profiler window gives each path's device busy
    share.
-5. the ``kernels`` line, the card line, and the result line.
+5. path ``two_tower`` — two-tower-retrieval at full width (2^23 users and
+   items) served by ``ServingEngine`` over 2^20 compressed candidates:
+   256 requests drained at most 8, 4, 2 and 1 at a time, then 64 bags
+   through ``embed_bags``; every top-k and bag held against the plain
+   engine's, 5 requests against scores computed on the host.
+6. path ``gin`` — gin-tu at full width over an ogbn-products-sized graph
+   made from ``--seed``, adjacency compressed: both decodes of
+   ``decode_compressed_edges``, ``forward`` and ``loss_fn``; edges held
+   bit for bit against the raw CSR and the plain plan, logits against a
+   forward over the raw adjacency.
+7. the ``kernels`` line, the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -60,6 +75,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # CUDA-core rate of the data sheet's float32 line
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (data sheet)
+BF16_FLOPS_PER_S = 989e12  # bf16 tensor cores, dense (data sheet)
 L2_FLUSH_BYTES = 64 << 20  # > the 50 MB L2: every timed launch starts cold
 BLOCK = 128
 N_PARITY_BLOCKS = 4096
@@ -70,6 +87,19 @@ CARD = ""  # "name, power limit" from nvidia-smi; set in phase 1
 PATH_KERNELS = {"vbyte": ("vbyte_decode_blocked", "vbyte"),
                 "auto": ("binpack_decode_blocked", "binpack"),
                 "streamvbyte": ("stream_decode_blocked", "streamvbyte")}
+# the gather epilogues' tables: (label, dtype name, width) — the serving
+# engine's bf16 item table [V, 256] and an f32 id-embedding table [V, 128],
+# V = the two-tower vocabulary (2^23 items rounded to 512 rows)
+GATHER_TABLES = (("bf16", "bfloat16", 256), ("f32", "float32", 128))
+GATHER_ROWS = -(-((1 << 23) + 2) // 512) * 512
+QUERY_ROWS = (1, 8)  # dot_score query rows: the smallest and largest bucket
+BAG_BLOCK = 50  # embed_bags: one bag of seq_len = 50 slots per block
+GATHER_EPILOGUES = ("bag_sum", "dot_score", "adjacency_rebase")
+# GIN logits over compressed vs raw adjacency, per node, relative to the
+# node's largest |logit|: the two forwards sum the same messages in
+# another order (index_add_ atomics on the card), and a changed f32 sum
+# can move a bf16 rounding by one ulp (2^-8 relative) in each of 5 layers
+GIN_RTOL = 2.0**-4
 
 
 def emit(phase: str, **fields):
@@ -211,10 +241,120 @@ def _extras(np, torch, rng, grid, counts, w_ops, dev):
             "weights": {f"w_{k}": t(v) for k, v in w_ops.items()}}
 
 
-def _bound(*, bytes_moved: float, ops: float) -> tuple[float, str]:
+def _bound(*, bytes_moved: float, ops: float,
+           ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bf16_ulps(torch, a, b) -> int:
+    """The largest distance between ``a`` and ``b`` in bf16 steps (both hold
+    bf16 values: bf16 tensors, or float32 ones that are exact bf16)."""
+    def ordinal(x):
+        v = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+
+    return int((ordinal(a) - ordinal(b)).abs().max()) if a.numel() else 0
+
+
+def _float_close(torch, o, r, *, bf16: bool, terms: int, s_abs,
+                 ulps: int = 1):
+    """Elementwise: ``o`` and ``r`` — two f32 sums of ``terms`` products,
+    taken in different orders, each rounded once (to bf16 when ``bf16``) —
+    agree within one bf16 ulp (bf16) or rtol = atol = 1e-5 (f32), or, where
+    the sum cancels towards 0, within the two f32 sums' worst-case rounding
+    error 2·terms·2^-24·Σ|product| (``s_abs``, the same sum over absolute
+    values), plus one bf16 ulp (``ulps`` where the value was rounded that
+    many times). Returns (ok, max abs err, max bf16 ulps, elements past
+    the ulps / past rtol)."""
+    of, rf = o.float(), r.float()
+    diff = (of - rf).abs()
+    if bf16:
+        _, e = torch.frexp(torch.maximum(of.abs(), rf.abs()))
+        ulp = torch.ldexp(torch.ones_like(diff), e - 8) * ulps
+    else:
+        ulp = 1e-5 + 1e-5 * rf.abs()
+    near = diff <= ulp
+    bound = ulp + 2.0 * terms * 2.0**-24 * s_abs.float() * 1.01
+    ok = bool((diff <= bound).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    max_ulps = _bf16_ulps(torch, o, r) if bf16 else 0
+    return ok, err, max_ulps, int((~near).sum())
+
+
+def _hold(torch, outs, refs, table_label, what: str, *, terms: int = 0,
+          s_abs=None) -> tuple[float, int]:
+    """Hold a kernel's outputs against its plain version's: integer outputs
+    bit for bit, float outputs by :func:`_float_close` (``s_abs`` the
+    float output's sum over absolute values). Dies beyond that; returns
+    (max abs error, max bf16 ulps)."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    err, ulps = 0.0, 0
+    for o, r in zip(outs, refs):
+        if o.shape != r.shape or o.dtype != r.dtype:
+            die(f"{what}: shape/dtype {tuple(o.shape)} {o.dtype} != "
+                f"{tuple(r.shape)} {r.dtype}")
+        if not o.is_floating_point():
+            if not torch.equal(o, r):
+                die(f"{what}: integer output differs from the plain version")
+            continue
+        ok, e, u, past = _float_close(torch, o, r, bf16=table_label == "bf16",
+                                      terms=terms, s_abs=s_abs)
+        err, ulps = max(err, e), max(ulps, u)
+        if not ok:
+            die(f"{what}: beyond the stated tolerance of the plain version "
+                f"(max abs err {e}, {u} bf16 ulps, {past} past one ulp)")
+    return err, ulps
+
+
+def _abs_sums(epilogues, ops, name, extras, kw):
+    """The plain version over |table| and |query|: Σ|product| per output."""
+    ex = {k: v.abs() for k, v in extras.items()}
+    out = epilogues.fused_decode_plain(ops, ex, epilogue=name, **kw)
+    return out[1] if name == "dot_score" else out
+
+
+def _terms(name, extras, B):
+    return extras["table"].shape[1] if name == "dot_score" else B
+
+
+def _gather_tables(torch):
+    """The gather epilogues' tables and query matrices on the card: bf16
+    rows and queries of norm 1 (as the item tower's outputs), f32 rows at
+    the id embeddings' scale (stddev 0.02)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    tables, queries = {}, {}
+    for label, dtype_name, d in GATHER_TABLES:
+        dtype = getattr(torch, dtype_name)
+        t = torch.randn(GATHER_ROWS, d, device="cuda", generator=g)
+        q = torch.randn(max(QUERY_ROWS), d, device="cuda", generator=g)
+        if label == "bf16":
+            t = t.div_(t.norm(dim=1, keepdim=True))
+            q = q.div_(q.norm(dim=1, keepdim=True))
+        else:
+            t = t.mul_(0.02)
+        tables[label] = t.to(dtype)
+        queries[label] = q.to(dtype)
+        del t
+    return tables, queries
+
+
+def _gather_variants(tables, queries, edge_base):
+    """(record key, epilogue, extras, table label) of every variant of the
+    gather epilogues, and of adjacency_rebase when ``edge_base`` is given."""
+    out = []
+    for label, table in tables.items():
+        out.append((f"bag_sum/{label}", "bag_sum", {"table": table}, label))
+        for nq in QUERY_ROWS:
+            out.append((f"dot_score/{label}/q{nq}", "dot_score",
+                        {"table": table, "query": queries[label][:nq]}, label))
+    if edge_base is not None:
+        out.append(("adjacency_rebase", "adjacency_rebase",
+                    {"edge_base": edge_base}, None))
+    return out
 
 
 def _max_err(outs, refs) -> int:
@@ -252,7 +392,8 @@ def phase_parity(np, torch, timer):
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     records = {"fused_decode": {}}
-    max_err = {"fused_decode": 0}
+    max_err = {"fused_decode": 0, "fused_decode_float": 0.0}
+    tables, queries = _gather_tables(torch)
     for fmt, kname, datasets in _parity_plan(rng):
         records[kname], max_err[kname] = {}, 0
         decode, plain = CUDA_DECODERS[fmt], epilogues.PLAIN_DECODERS[fmt]
@@ -302,6 +443,8 @@ def phase_parity(np, torch, timer):
                 ex = _extras(np, torch, rng, grid, enc.counts, w_ops, dev)
                 ops = dict(zip(names, leaves), counts=c, bases=b)
                 for name, ep in epilogues.EPILOGUES.items():
+                    if name in GATHER_EPILOGUES:
+                        continue  # below, and timed in phase_gather
                     extras = {}
                     if "probe" in ep.extras:
                         extras["probe"] = (ex["probe_r"] if "probe" in
@@ -347,7 +490,153 @@ def phase_parity(np, torch, timer):
                             bound_ms=bound, bound_by=by)
                         records["fused_decode"][f"{fmt}/{name}"] = rec
                     emit("parity_fused_decode", dataset=label, **rec)
+                # the gather epilogues on these values as ids: most lie
+                # past the table or below 0 as int32 and are clamped
+                eb = (torch.as_tensor(rng.integers(-2**31, 2**31, (nb, BLOCK))
+                                      .astype(np.int32), device=dev)
+                      if differential else None)
+                for key, name, extras, tl in _gather_variants(
+                        tables, queries, eb):
+                    kw1 = dict(format=fmt, block_size=BLOCK,
+                               differential=differential)
+                    kw2 = dict(epilogue=name, **kw1)
+                    err, ulps = _hold(
+                        torch, epilogues.fused_decode(ops, extras, **kw2),
+                        epilogues.fused_decode_plain(ops, extras, **kw2), tl,
+                        f"kernel 2 [{fmt}/{key}] {label} "
+                        f"differential={differential}",
+                        terms=_terms(name, extras, BLOCK),
+                        s_abs=(_abs_sums(epilogues, ops, name, extras, kw1)
+                               if tl else None))
+                    max_err["fused_decode_float"] = max(
+                        max_err["fused_decode_float"], err)
+                    emit("parity_fused_decode", dataset=label, format=fmt,
+                         epilogue=key, ids="garbage", n_blocks=nb,
+                         differential=differential, max_abs_err=err,
+                         max_bf16_ulps=ulps)
+    phase_gather(np, torch, timer, tables, queries, records, max_err)
     return records, max_err
+
+
+def _id_lists(np, rng, n_blocks: int, B: int):
+    """Ragged bags of sorted item ids in [1, GATHER_ROWS): every 7th empty,
+    the rest 1..B ids, distinct within the whole set."""
+    counts = [0 if i % 7 == 0 else int(rng.integers(1, B + 1))
+              for i in range(n_blocks)]
+    ids = rng.choice(np.arange(1, GATHER_ROWS, dtype=np.int64),
+                     sum(counts), replace=False)
+    out, at = [], 0
+    for n in counts:
+        out.append(np.sort(ids[at:at + n]).astype(np.uint64))
+        at += n
+    return out
+
+
+def phase_gather(np, torch, timer, tables, queries, records, max_err):
+    """bag_sum, dot_score (1- and 8-row queries) and adjacency_rebase on
+    each core over realistic ids (the retrieval corpus's layout: sorted item
+    ids, per-bag differential, 4096 blocks of B = 128, count-0 blocks and
+    ragged tails), plus bag_sum over the embedding-bag endpoint's B = 50
+    bags: held against their plain versions and timed (L2 cold) beside
+    the bound, the plain version and the unfused chain — the format's
+    decode kernel, then one PyTorch call (``F.embedding_bag``; index +
+    ``einsum``; the torch body of adjacency_rebase)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.vbyte_decode import epilogues
+    from repro_torch.kernels.vbyte_decode.dispatch import (CUDA_DECODERS,
+                                                           DecodePlan, decode)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    cases = [(fmt, BLOCK, True) for fmt in ("vbyte", "streamvbyte",
+                                            "binpack")]
+    cases.append(("vbyte", BAG_BLOCK, False))  # embed_bags' layout
+    for fmt, B, differential in cases:
+        lists = _id_lists(np, rng, N_PARITY_BLOCKS, B)
+        enc = _encoders()[fmt](lists, block_size=B, differential=differential)
+        names = epilogues.FORMAT_OPERANDS[fmt]
+        leaves = [torch.as_tensor(np.ascontiguousarray(getattr(enc, k)),
+                                  device=dev) for k in names]
+        c = torch.as_tensor(enc.counts, device=dev)
+        b = torch.as_tensor(enc.bases.view(np.int32), device=dev)
+        ops = dict(zip(names, leaves), counts=c, bases=b)
+        nb = c.shape[0]
+        kw = dict(block_size=B, differential=differential)
+        grid = CUDA_DECODERS[fmt](*leaves, c, b, **kw)
+        valid = torch.arange(B, device=dev)[None, :] < c[:, None]
+        n_valid = int(valid.sum())
+        distinct_valid = int(torch.unique(grid[valid]).numel())
+        distinct_all = distinct_valid + int(n_valid < nb * B)  # + pad row 0
+        need = enc.payload_bytes + 8 * nb
+        eb = torch.as_tensor(rng.integers(0, 2**31, (nb, B)).astype(np.int32),
+                             device=dev)
+        variants = _gather_variants(tables, queries,
+                                    eb if differential else None)
+        if B == BAG_BLOCK:
+            variants = [v for v in variants if v[1] == "bag_sum"]
+        for key, name, extras, tl in variants:
+            kw1 = dict(format=fmt, **kw)
+            kw2 = dict(epilogue=name, **kw1)
+            fused = lambda: epilogues.fused_decode(ops, extras, **kw2)  # noqa: E731
+            plain = lambda: epilogues.fused_decode_plain(ops, extras, **kw2)  # noqa: E731
+            err, ulps = _hold(torch, fused(), plain(), tl,
+                              f"kernel 2 [{fmt}/{key}] B={B}",
+                              terms=_terms(name, extras, B),
+                              s_abs=(_abs_sums(epilogues, ops, name, extras,
+                                               kw1) if tl else None))
+            max_err["fused_decode_float"] = max(
+                max_err["fused_decode_float"], err)
+            t = extras.get("table")
+            es = t.element_size() if t is not None else 0
+            d = t.shape[1] if t is not None else 0
+            if name == "bag_sum":
+                w = valid.to(t.dtype)
+                chain = lambda: F.embedding_bag(  # noqa: E731
+                    CUDA_DECODERS[fmt](*leaves, c, b, **kw), t, mode="sum",
+                    per_sample_weights=w)
+                bytes_moved = need + (distinct_valid + nb) * d * es
+                n_ops, rate = n_valid * d, F32_FLOPS_PER_S
+            elif name == "dot_score":
+                q = extras["query"]
+                nq = q.shape[0]
+                eq = "tbd,d->tb" if nq == 1 else "tbd,qd->tbq"
+                qq = q[0] if nq == 1 else q
+                chain = lambda: torch.einsum(  # noqa: E731
+                    eq, t[CUDA_DECODERS[fmt](*leaves, c, b, **kw)], qq)
+                bytes_moved = (need + distinct_all * d * es + nq * d * es
+                               + nb * B * 4 * (1 + nq))
+                n_ops = 2 * nb * B * nq * d
+                rate = BF16_FLOPS_PER_S if tl == "bf16" else F32_FLOPS_PER_S
+            else:
+                chain = lambda: decode(  # noqa: E731
+                    ops, format=fmt, epilogue=name, epilogue_operands=extras,
+                    plan=DecodePlan("cuda", fused=False), **kw)
+                bytes_moved = need + 2 * nb * B * 4
+                n_ops, rate = n_valid, INT_OPS_PER_S
+            # the yardstick computes the same function (recorded, not held:
+            # it is not the port's)
+            want = plain()
+            want = want[1] if name == "dot_score" else want
+            got = chain()
+            chain_err = (float((got.float() - want.float()).abs().max())
+                         if got.is_floating_point() else
+                         float((got != want).sum()))
+            bound, by = _bound(bytes_moved=bytes_moved, ops=n_ops,
+                               ops_per_s=rate)
+            rec = {"format": fmt, "epilogue": key, "block_size": B,
+                   "n_blocks": nb, "stride": leaves[-1].shape[1],
+                   "differential": differential, "n_ids": n_valid,
+                   "distinct_ids": distinct_valid, "max_abs_err": err,
+                   "max_bf16_ulps": ulps,
+                   "ms": timer.ms(fused, reps=30),
+                   "plain_ms": timer.ms(plain, reps=5),
+                   "unfused_chain_ms": timer.ms(chain, reps=10),
+                   "unfused_chain_max_abs_err": chain_err,
+                   "bound_ms": bound, "bound_by": by}
+            suffix = "" if B == BLOCK else f"/B{B}"
+            records["fused_decode"][f"{fmt}/{key}{suffix}"] = rec
+            emit("parity_fused_decode_gather", **rec)
 
 
 # ---------------------------------------------------------------------------
@@ -407,6 +696,20 @@ def _launch_counters():
             "stream_decode_blocked": stream_kernel.launches,
             "binpack_decode_blocked": binpack_kernel.launches,
             "fused_decode": epilogues.launches}
+
+
+def _reset(torch, counters):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for cnt in counters.values():
+        cnt.reset()
+
+
+def _read(torch, counters) -> dict:
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    launches["fused_decode_by"] = dict(counters["fused_decode"].by)
+    return launches
 
 
 def _build_terms(lists: dict, tfs: dict, n_docs: int) -> dict:
@@ -469,15 +772,10 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
     engine.warmup(qs[:5])
     t_warm = time.perf_counter() - t0
     counters = _launch_counters()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for cnt in counters.values():
-        cnt.reset()
+    _reset(torch, counters)
     record = []
     stats = engine.run_workload(qs, record=record)
-    torch.cuda.synchronize()
-    launches = {k: c.count for k, c in counters.items()}
-    launches["fused_decode_by"] = dict(counters["fused_decode"].by)
+    launches = _read(torch, counters)
     peak = torch.cuda.max_memory_allocated()
     emit("main_path", path=name, queries=len(qs), qps=stats["qps"],
          p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
@@ -540,7 +838,10 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
          mean_ms_by_mode={m: {"n": n, "kernels": round(ka / n * 1e3, 3),
                               "torch_plan": round(kb / n * 1e3, 3)}
                           for m, (n, ka, kb) in by_mode.items()})
-    _profile(torch, name, engine, qs[:profile_queries])
+    prof_qs = qs[:profile_queries]
+    _profile(torch, name,
+             lambda: [engine.search(terms, mode) for mode, terms in prof_qs],
+             len(prof_qs))
     seconds = time.perf_counter() - t_path
     emit("path_done", path=name, seconds=round(seconds, 3))
     del engine, index, record, replayed
@@ -549,19 +850,18 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
     return {"launches": launches, "seconds": seconds}
 
 
-def _profile(torch, name, engine, queries):
-    """Device busy share and device time by kernel over the first few
-    queries of the workload, from torch.profiler."""
+def _profile(torch, name, work, units: int, unit: str = "queries"):
+    """Device busy share and device time by kernel over ``work()`` (a few
+    requests of the path's workload), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    if not queries:
-        return
+    if not units:
+        return None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for mode, terms in queries:
-            engine.search(terms, mode)
+        work()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -576,12 +876,14 @@ def _profile(torch, name, engine, queries):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    emit("profile", path=name, queries=len(queries),
+    share = round(busy / wall_us, 4) if busy else None
+    emit("profile", path=name, **{unit: units},
          wall_ms=round(wall_us / 1e3, 3),
          device_busy_ms=round(busy / 1e3, 3),
-         device_busy_share=round(busy / wall_us, 4) if busy else None,
+         device_busy_share=share,
          top_device=[{"name": k[:80], "ms": round(us / 1e3, 3), "count": c}
                      for us, k, c in rows[:8]])
+    return share
 
 
 def phase_main_paths(np, torch, args) -> dict:
@@ -614,6 +916,294 @@ def phase_main_paths(np, torch, args) -> dict:
     return paths
 
 
+def _topk_agree(torch, got_s, got_i, want_s, want_i, what: str) -> int:
+    """Top-k lists agree: scores rank by rank within one bf16 ulp, and every
+    id of ``want`` whose score is not within one ulp of its k-th score is in
+    ``got`` (ids may trade places only among near-ties). Returns the
+    number of near-tie ids that differ."""
+    if _bf16_ulps(torch, got_s, want_s) > 1:
+        die(f"{what}: top-k scores differ by more than one bf16 ulp")
+    near = (want_s - want_s[:, -1:]).abs() <= want_s.abs() * 2.0**-7
+    swapped = 0
+    for r in range(want_i.shape[0]):
+        g = set(got_i[r].tolist())
+        if not set(want_i[r][~near[r]].tolist()) <= g:
+            die(f"{what}: row {r} top-k ids differ beyond the near-ties")
+        swapped += len(set(want_i[r].tolist()) - g)
+    return swapped
+
+
+def run_two_tower(np, torch, args) -> dict:
+    """Path ``two_tower``: the two-tower-retrieval config at full width
+    (2^23 users and items, id_dim 128, towers 1024-512-256, seq_len 50)
+    served by ``ServingEngine`` over a resident corpus of 2^20 sorted
+    candidate ids (vbyte, differential, block 128 — the retrieval_cand
+    shape), top-10, buckets 1/2/4/8; then the embedding-bag endpoint."""
+    import copy
+
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.core import CompressedIntArray
+    from repro_torch.ft import StragglerDetector
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import recsys, registry
+
+    t_path = time.perf_counter()
+    cfg = registry.resolve_config("two-tower-retrieval", "retrieval_cand")
+    rng = np.random.default_rng(args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = recsys.init_params(cfg, seed=args.seed, device="cuda")
+    n_cand = RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"]
+    cands = np.sort(rng.choice(np.arange(1, cfg.n_items, dtype=np.int64),
+                               n_cand, replace=False)).astype(np.uint64)
+    corpus = CompressedIntArray.encode(cands, differential=True,
+                                       device="cuda")
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = ServingEngine(params, cfg, corpus, top_k=10, device="cuda")
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    # the plain engine shares the item table and parameters (one copy of
+    # 13 GB on the card) and decodes + scores with the torch plan
+    plain = copy.copy(engine)
+    plain.plan, plain.detector = "torch", StragglerDetector()
+    emit("two_tower_build", n_items=cfg.n_items, n_users=cfg.n_users,
+         param_count=cfg.param_count(), corpus_n=corpus.n,
+         corpus_blocks=corpus.n_blocks, corpus_stride=corpus.stride,
+         bits_per_int=round(corpus.bits_per_int, 4),
+         item_table=list(engine.item_table.shape),
+         data_seconds=round(t_data, 3), item_table_seconds=round(t_table, 3),
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    engine.warmup()
+    plain.warmup()
+    t_warm = time.perf_counter() - t0
+
+    reqs = [(int(rng.integers(1, cfg.n_users)),
+             rng.integers(1, cfg.n_items, cfg.seq_len).astype(np.int32))
+            for _ in range(args.tt_requests)]
+    # the requests in four equal parts, drained at most 8, 4, 2 and 1 at a
+    # time: every bucket shape, the 1-row query (scores [nb, B]) included
+    parts = [(mb, reqs[i::4]) for i, mb in enumerate((8, 4, 2, 1))]
+    bags = [np.sort(rng.choice(np.arange(1, cfg.n_items, dtype=np.int64),
+                               int(n), replace=False))
+            for n in rng.integers(0, cfg.seq_len + 1, args.tt_bags)]
+    counters = _launch_counters()
+    _reset(torch, counters)
+    t0 = time.perf_counter()
+    runs, got = [], []
+    for mb, part in parts:
+        rec = []
+        runs.append(dict(engine.run_workload(part, max_batch=mb, record=rec),
+                         max_batch=mb))
+        got.append(rec)
+    t_serve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb = [engine.embed_bags(bags[i:i + 8]) for i in range(0, len(bags), 8)]
+    torch.cuda.synchronize()
+    t_bags = time.perf_counter() - t0
+    launches = _read(torch, counters)
+    peak = torch.cuda.max_memory_allocated()
+    by = launches["fused_decode_by"]
+    emit("two_tower_path", requests=len(reqs), bags=len(bags),
+         by_max_batch={r["max_batch"]: {k: r[k] for k in (
+             "n_requests", "qps", "p50_ms", "p99_ms", "mean_ms")}
+             for r in runs},
+         qps=round(len(reqs) / t_serve, 1),
+         serve_seconds=round(t_serve, 3), embed_bags_seconds=round(t_bags, 3),
+         warmup_seconds=round(t_warm, 3), peak_device_bytes=peak,
+         stragglers=runs[-1]["stragglers"], launches=launches,
+         dot_score_launches_per_request=round(
+             by.get("vbyte/dot_score", 0) / len(reqs), 4),
+         bag_sum_launches_per_bag=round(
+             by.get("vbyte/bag_sum", 0) / max(len(bags), 1), 4))
+    if not by.get("vbyte/dot_score") or not by.get("vbyte/bag_sum"):
+        die(f"two_tower did not launch kernel 2's dot_score and bag_sum: "
+            f"{launches}")
+
+    # every request and bag again through the plain torch plan on the
+    # card; 5 requests also against scores computed on the host in f64
+    t0 = time.perf_counter()
+    swapped = 0
+    for (mb, part), rec in zip(parts, got):
+        want = []
+        plain.run_workload(part, max_batch=mb, record=want)
+        for (gs, gi), (ws, wi) in zip(rec, want):
+            swapped += _topk_agree(torch, gs, gi, ws, wi,
+                                   f"two_tower max_batch={mb}")
+    bag_ulps = 0
+    for i, e in zip(range(0, len(bags), 8), emb):
+        w = plain.embed_bags(bags[i:i + 8])
+        # the mean rounds twice (the sum, then the division by the count)
+        s_abs = torch.stack([
+            engine.bag_table[torch.as_tensor(bg.astype(np.int64),
+                                             device="cuda")].float().abs()
+            .sum(0) / max(len(bg), 1) for bg in bags[i:i + 8]])
+        ok, _, u, _ = _float_close(torch, e, w, bf16=True,
+                                   terms=cfg.seq_len, s_abs=s_abs, ulps=2)
+        bag_ulps = max(bag_ulps, u)
+        if not ok:
+            die(f"embed_bags: beyond the stated tolerance of the torch "
+                f"plan ({u} bf16 ulps)")
+    table = engine.item_table[torch.as_tensor(cands.astype(np.int64),
+                                              device="cuda")].double().cpu()
+    first = parts[0][1][:8]  # the first microbatch, padded as served
+    uid = np.full(8, 1, np.int32)
+    hist = np.ones((8, cfg.seq_len), np.int32)
+    for j, (uj, hj) in enumerate(first):
+        uid[j], hist[j] = uj, hj
+    uid, hist = torch.as_tensor(uid), torch.as_tensor(hist)
+    with torch.inference_mode():  # the first microbatch's exact inputs
+        u = recsys.user_tower(engine.params, uid.cuda(), hist.cuda(), cfg,
+                              dtype=engine.dtype).double().cpu()[:5]
+    host = (table @ u.T).T.float().to(torch.bfloat16).float()  # [5, C]
+    hs, hi = recsys.topk_lower_index(host, engine.top_k)
+    host_ids = torch.as_tensor(cands.astype(np.int64))[hi].to(torch.int32)
+    gs, gi = got[0][0]
+    swapped_host = _topk_agree(torch, gs[:5], gi[:5], hs, host_ids,
+                               "two_tower vs host scores")
+    emit("two_tower_parity", requests=len(reqs), bags=len(bags),
+         near_tie_ids_swapped=swapped, host_checked=5,
+         host_near_tie_ids_swapped=swapped_host, bag_max_bf16_ulps=bag_ulps,
+         seconds=round(time.perf_counter() - t0, 3), equal=True)
+    prof = parts[0][1][:16]
+    share = _profile(torch, "two_tower",
+                     lambda: engine.run_workload(prof, max_batch=8),
+                     len(prof), unit="requests")
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="two_tower", seconds=round(seconds, 3))
+    del engine, plain, params, corpus, table, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": seconds, "peak": peak,
+            "busy_share": share}
+
+
+def run_gin(np, torch, args) -> dict:
+    """Path ``gin``: gin-tu at full width (5 layers, d_hidden 64) over a
+    graph made from ``--seed`` at the ogbn-products shape (2,449,029 nodes,
+    61,859,140 edges, d_feat 100, 47 classes), adjacency compressed
+    (vbyte, block 128): both decodes of ``decode_compressed_edges``, the
+    forward pass and the loss."""
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data.graph import compress_adjacency
+    from repro_torch.data.sampler import CSRGraph
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models import gnn, registry
+    from repro_torch.nn.gnn import decode_compressed_edges
+
+    t_path = time.perf_counter()
+    cfg = registry.resolve_config("gin-tu", "ogb_products")
+    dims = GNN_SHAPES["ogb_products"].dims
+    N = int(dims["raw_nodes"] * args.gin_scale)
+    E = int(dims["raw_edges"] * args.gin_scale)
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    g = random_graph(rng, N, E, cfg.d_feat, cfg.n_classes)
+    csr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], N)
+    del g["edge_src"], g["edge_dst"]
+    t_graph = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    comp = compress_adjacency(csr, device="cuda")
+    t_comp = time.perf_counter() - t0
+    own = torch.repeat_interleave(
+        torch.arange(N, dtype=torch.int32, device="cuda"),
+        torch.as_tensor(csr.degrees(), device="cuda"))
+    raw_nbr = torch.as_tensor(csr.indices, device="cuda")
+    feats = torch.as_tensor(g.pop("feats"), device="cuda")
+    labels = torch.as_tensor(g.pop("labels"), device="cuda")
+    params = gnn.init_params(cfg, seed=args.seed, device="cuda")
+    gaps = comp["gaps"]
+    emit("gin_build", nodes=N, edges=E, d_feat=cfg.d_feat,
+         n_classes=cfg.n_classes, n_layers=cfg.n_layers,
+         d_hidden=cfg.d_hidden, max_in_degree=int(csr.degrees().max()),
+         gap_blocks=gaps.n_blocks, gap_stride=gaps.stride,
+         bits_per_edge=round(comp["_bits_per_edge"], 4),
+         gap_bits_per_int=round(gaps.bits_per_int, 4),
+         resident_gap_bytes=gaps.resident_bytes,
+         graph_seconds=round(t_graph, 3), compress_seconds=round(t_comp, 3))
+    batch = {"feats": feats, "labels": labels,
+             **{k: v for k, v in comp.items() if not k.startswith("_")}}
+    args_dec = (gaps, comp["row_offsets"], E)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    decode_compressed_edges(*args_dec, row_gap_bases=comp["row_gap_bases"])
+    counters = _launch_counters()
+    _reset(torch, counters)
+    (nbr_f, own_f), t_fused = timed(lambda: decode_compressed_edges(
+        *args_dec, row_gap_bases=comp["row_gap_bases"]))
+    (nbr_l, own_l), t_legacy = timed(lambda: decode_compressed_edges(
+        *args_dec))
+    with torch.inference_mode():
+        logits, t_fwd = timed(lambda: gnn.forward(params, batch, cfg))
+        (loss, metrics), t_loss = timed(lambda: gnn.loss_fn(params, batch,
+                                                            cfg))
+    launches = _read(torch, counters)
+    peak = torch.cuda.max_memory_allocated()
+    by = launches["fused_decode_by"]
+    emit("gin_path", decode_fused_ms=round(t_fused * 1e3, 3),
+         decode_legacy_ms=round(t_legacy * 1e3, 3),
+         forward_ms=round(t_fwd * 1e3, 3),
+         loss_fn_ms=round(t_loss * 1e3, 3), loss=float(loss),
+         accuracy=float(metrics["accuracy"]), peak_device_bytes=peak,
+         launches=launches)
+    if not by.get("vbyte/adjacency_rebase") or not launches[
+            "vbyte_decode_blocked"]:
+        die(f"gin did not launch kernel 2's adjacency_rebase and kernel 1: "
+            f"{launches}")
+
+    # checks: both decodes equal the raw CSR bit for bit; the plain torch
+    # plan decodes the same edges; logits over the compressed and the raw
+    # adjacency agree within the stated tolerance
+    t0 = time.perf_counter()
+    for label, (nb_, ow_) in (("fused", (nbr_f, own_f)),
+                              ("legacy", (nbr_l, own_l))):
+        if not (torch.equal(nb_, raw_nbr) and torch.equal(ow_, own)):
+            die(f"gin: {label} decode differs from the raw adjacency")
+    del nbr_l, own_l
+    for rgb in (comp["row_gap_bases"], None):
+        nb_, ow_ = decode_compressed_edges(*args_dec, row_gap_bases=rgb,
+                                           plan="torch")
+        if not (torch.equal(nb_, nbr_f) and torch.equal(ow_, own_f)):
+            die("gin: the kernel plan and the torch plan decode different "
+                "edges")
+        del nb_, ow_
+    raw = {"feats": feats, "labels": labels, "edge_src": raw_nbr,
+           "edge_dst": own}
+    raw_cfg = dataclasses.replace(cfg, compressed_adjacency=False)
+    with torch.inference_mode():
+        logits_raw = gnn.forward(params, raw, raw_cfg)
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(loss))
+    row_max = logits_raw.abs().amax(dim=1).clamp(min=1e-6)
+    rel = float(((logits - logits_raw).abs().amax(dim=1) / row_max).max())
+    if not finite or logits.shape != (N, cfg.n_classes) or rel > GIN_RTOL:
+        die(f"gin: logits finite={finite} shape={tuple(logits.shape)}, "
+            f"compressed vs raw adjacency rel err {rel} > {GIN_RTOL}")
+    emit("gin_parity", edges_equal=True, plans_equal=True,
+         logits_rel_err=rel, logits_rtol=GIN_RTOL,
+         logits_max_abs=float(logits_raw.abs().max()),
+         seconds=round(time.perf_counter() - t0, 3))
+    del logits_raw, raw
+    with torch.inference_mode():
+        share = _profile(torch, "gin",
+                         lambda: gnn.forward(params, batch, cfg), 1,
+                         unit="forwards")
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="gin", seconds=round(seconds, 3))
+    del params, batch, comp, gaps, feats, labels, logits, nbr_f, own_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": seconds, "peak": peak,
+            "busy_share": share}
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the kernels line
 # ---------------------------------------------------------------------------
@@ -621,31 +1211,45 @@ def kernels_line(records, max_err, paths):
     src = "src/repro_torch/kernels/vbyte_decode/csrc/"
     ref = "src/repro/kernels/vbyte_decode/"
     by = Counter()
-    for p in paths.values():
+    by_path = {}
+    for name, p in paths.items():
         by.update(p["launches"]["fused_decode_by"])
+        for k, v in p["launches"]["fused_decode_by"].items():
+            by_path.setdefault(k, {})[name] = v
     timed = records["fused_decode"]
     head = max(timed, key=lambda k: (by.get(k, 0), k))
 
     def entry(name, source, replaces, rec):
-        by_path = {p: v["launches"][name] for p, v in paths.items()}
+        launches = {p: v["launches"][name] for p, v in paths.items()}
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": ref + replaces,
-                "launches": sum(by_path.values()),
-                "launches_by_path": by_path, "max_abs_err": max_err[name],
+                "launches": sum(launches.values()),
+                "launches_by_path": launches, "max_abs_err": max_err[name],
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": None}
+
+    def variant(r):
+        return {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "unfused_chain_ms",
+                                  "max_bf16_ulps") if f in r}
 
     line = {"kernels": [
         entry("vbyte_decode_blocked", "vbyte_decode.cu", "kernel.py:167",
               records["vbyte_decode_blocked"]["S128/diff=1"]),
         dict(entry("fused_decode", "fused_decode.cu", "epilogues.py:383",
                    timed[head]),
+             max_abs_err=max(max_err["fused_decode"],
+                             max_err["fused_decode_float"]),
+             max_abs_err_integer_epilogues=max_err["fused_decode"],
+             max_abs_err_float_epilogues=max_err["fused_decode_float"],
+             float_tolerance="bf16 tables: 1 bf16 ulp; f32: rtol=atol=1e-5",
              timed_epilogue=head,
-             epilogues={k: {"launches": by.get(k, 0),
-                            **{f: r[f] for f in ("ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "max_abs_err")}}
-                        for k, r in timed.items()}),
+             # times per timed variant (format/epilogue[/table/query rows]);
+             # launches per format/epilogue, which is what the count keys on
+             epilogues={k: variant(r) for k, r in timed.items()},
+             launches_by_epilogue={k: {"total": v, "by_path": by_path[k]}
+                                   for k, v in sorted(by.items())}),
         entry("stream_decode_blocked", "stream_decode.cu",
               "stream_kernel.py:234",
               records["stream_decode_blocked"]["S128/diff=1"]),
@@ -653,8 +1257,10 @@ def kernels_line(records, max_err, paths):
               "binpack_kernel.py:119",
               records["binpack_decode_blocked"]["S128/diff=1"]),
     ], "library_ms_note": "no single PyTorch call computes any of these "
-                          "decodes",
-        "shapes": "B=128, stride 128, 4096 blocks, differential, cold L2"}
+                          "decodes; the gather epilogues' unfused_chain_ms "
+                          "is decode kernel + one PyTorch call",
+        "shapes": "B=128, stride 128, 4096 blocks, differential, cold L2; "
+                  "gather tables [8389120, 256] bf16 and [8389120, 128] f32"}
     print(json.dumps(line), flush=True)
 
 
@@ -662,14 +1268,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", type=int, default=100,
                     help="queries of the format='auto' path")
-    ap.add_argument("--svb-queries", type=int, default=50,
+    ap.add_argument("--svb-queries", type=int, default=25,
                     help="queries of the format='streamvbyte' path")
-    ap.add_argument("--vbyte-queries", type=int, default=50,
+    ap.add_argument("--vbyte-queries", type=int, default=25,
                     help="queries of the format='vbyte' path")
     ap.add_argument("--k20-lists", type=int, default=16,
                     help="K=20 lists of every path")
     ap.add_argument("--profile-queries", type=int, default=5,
-                    help="queries per path traced by torch.profiler")
+                    help="queries per search path traced by torch.profiler")
+    ap.add_argument("--tt-requests", type=int, default=256,
+                    help="requests of the two_tower path")
+    ap.add_argument("--tt-bags", type=int, default=64,
+                    help="embedding bags of the two_tower path")
+    ap.add_argument("--gin-scale", type=float, default=1.0,
+                    help="fraction of ogbn-products' nodes and edges in the "
+                         "gin path's graph")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -685,8 +1298,12 @@ def main(argv=None) -> int:
     timer = ColdTimer(torch)
     records, max_err = phase_parity(np, torch, timer)
     del timer
+    gc.collect()
+    torch.cuda.empty_cache()
     emit("parity_done", seconds=round(time.perf_counter() - t_start, 3))
     paths = phase_main_paths(np, torch, args)
+    paths["two_tower"] = run_two_tower(np, torch, args)
+    paths["gin"] = run_gin(np, torch, args)
     emit("done", seconds=round(time.perf_counter() - t_start, 3),
          path_seconds={k: round(v["seconds"], 3) for k, v in paths.items()})
     print(card, flush=True)

@@ -1,14 +1,17 @@
-"""Carry state across from the JAX package: the compressed index.
+"""Carry state across from the JAX package: compressed arrays, the
+compressed index, and the two-tower and GIN parameters.
 
-This system has no weights; its state is the compressed inverted index.
 These functions build the port's objects from plain numpy leaves, so an
 index built by the reference (or saved from it) serves on the card with
-identical bytes. The port never imports the reference: the caller hands
-over numpy arrays and integers.
+identical bytes, and a model initialised by the reference computes the
+same thing in the port. The port never imports the reference: the caller
+hands over numpy arrays, nested dicts of them with the reference's key
+names, and integers.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.compressed_array import CompressedIntArray
@@ -66,3 +69,51 @@ def index_from_numpy(terms: dict, *, n_docs: int, block_size: int,
                      if st.get("impacts") is not None else None),
             max_impact=np.asarray(st["max_impact"], np.int32))
     return index
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
+
+
+def _mlp(tree: dict, dev):
+    from repro_torch.nn.layers import MLP
+
+    return MLP([(_tensor(tree[f"layer_{i}"]["w"], dev),
+                 _tensor(tree[f"layer_{i}"]["b"], dev))
+                for i in range(len(tree))])
+
+
+def recsys_params_from_numpy(params: dict, cfg, device=None):
+    """The port's :class:`~repro_torch.models.recsys.TwoTower` from the
+    reference's two-tower parameter tree as numpy arrays: ``user_emb/emb``,
+    ``item_id_emb/emb``, ``user_mlp/layer_i/{w,b}``, ``item_mlp/...``."""
+    from repro_torch.models.recsys import TwoTower
+
+    if cfg.kind != "two_tower":
+        raise NotImplementedError(f"recsys kind {cfg.kind!r} is not ported "
+                                  "yet (ROADMAP queue 1 item 14)")
+    dev = resolve_device(device)
+    return TwoTower(_tensor(params["user_emb"]["emb"], dev),
+                    _tensor(params["item_id_emb"]["emb"], dev),
+                    _mlp(params["user_mlp"], dev),
+                    _mlp(params["item_mlp"], dev))
+
+
+def gnn_params_from_numpy(params: dict, cfg, device=None):
+    """The port's :class:`~repro_torch.models.gnn.GIN` from the reference's
+    GIN parameter tree as numpy arrays:
+    ``layers/gin_i/{eps, mlp1/w, b1, mlp2/w, b2}`` and ``head/{w, b}``."""
+    from repro_torch.models.gnn import GIN
+    from repro_torch.nn.gnn import GINLayer
+
+    dev = resolve_device(device)
+    layers = []
+    for i in range(cfg.n_layers):
+        lp = params["layers"][f"gin_{i}"]
+        layers.append(GINLayer(_tensor(lp["eps"], dev),
+                               _tensor(lp["mlp1"]["w"], dev),
+                               _tensor(lp["b1"], dev),
+                               _tensor(lp["mlp2"]["w"], dev),
+                               _tensor(lp["b2"], dev)))
+    return GIN(layers, _tensor(params["head"]["w"], dev),
+               _tensor(params["head"]["b"], dev))

@@ -1,8 +1,9 @@
-"""Synthetic posting-list data (numpy; the same generators as the reference).
+"""Synthetic data (numpy; the same generators as the reference).
 
 ``posting_list_group`` mirrors the paper's ClueWeb09 experiment: sorted
 document ids drawn from a 50M-document universe, grouped by list length
 2^K..2^{K+1}-1 — shorter lists have larger gaps and compress worse.
+``random_graph`` makes a graph with skewed in-degrees for the GNN.
 """
 from __future__ import annotations
 
@@ -46,3 +47,21 @@ def posting_tfs(rng: np.random.Generator, length: int, *,
     indistinguishable after quantization)."""
     z = rng.zipf(zipf_a, size=length)
     return np.minimum(z, max_tf).astype(np.int64)
+
+
+def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int,
+                 d_feat: int, n_classes: int, power: float = 0.8):
+    """Random graph with skewed degrees; returns dict of numpy arrays."""
+    # preferential-attachment-ish: destination prob ∝ rank^-power
+    ranks = np.arange(1, n_nodes + 1, dtype=np.float64) ** -power
+    p = ranks / ranks.sum()
+    dst = rng.choice(n_nodes, size=n_edges, p=p)
+    src = rng.integers(0, n_nodes, size=n_edges)
+    feats = rng.standard_normal((n_nodes, d_feat), dtype=np.float32)
+    labels = rng.integers(0, n_classes, size=n_nodes).astype(np.int32)
+    return {
+        "edge_src": src.astype(np.int32),
+        "edge_dst": dst.astype(np.int32),
+        "feats": feats,
+        "labels": labels,
+    }

@@ -48,9 +48,12 @@ SIGNATURES = {
     "fused_decode": {
         # format, epilogue, bytes, meta, S, counts, bases, nb, B,
         # differential, probe, P, impact, w_format, w_bytes, w_meta, S_w,
-        # out, out2, stream
+        # table, V, d, table_bf16, query, nq, round_bf16, edge_base,
+        # out, out2, fout, stream
         "fused_decode_launch": [_I, _I, _P, _P, _I, _P, _P, _LL, _I, _I, _P,
-                                _I, _P, _I, _P, _P, _I, _P, _P, _P],
+                                _I, _P, _I, _P, _P, _I,
+                                _P, _LL, _I, _I, _P, _I, _I, _P,
+                                _P, _P, _P, _P],
     },
 }
 ERROR_STRING = {"vbyte_decode": "vbyte_error_string",

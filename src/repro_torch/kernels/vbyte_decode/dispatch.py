@@ -120,11 +120,14 @@ def decode(
     ``operands`` is either a ``CompressedIntArray`` (format/block_size/
     differential come from it) or the raw operand dict (``payload`` |
     ``control``/``data`` | ``widths``/``data``, + ``counts``/``bases``), in
-    which case the three metadata kwargs are required. Returns the epilogue's output: the int32 (uint32 bits)
-    ``[n_blocks, block_size]`` grid for ``epilogue="stream"``, the
+    which case the three metadata kwargs are required. Returns the
+    epilogue's output: the int32 (uint32 bits) ``[n_blocks, block_size]``
+    grid for ``epilogue="stream"`` and ``"adjacency_rebase"``, the
     ``(grid, checksum column)`` pair for ``"checksum"``, ``[n_blocks, P]``
-    or ``[n_blocks, 1]`` for the probe epilogues. Results stay on the
-    operands' device; nothing here synchronises.
+    or ``[n_blocks, 1]`` for the probe epilogues, ``[n_blocks, d]`` in the
+    table's dtype for ``"bag_sum"`` and the ``(ids, float32 scores)`` pair
+    for ``"dot_score"``. Every plan returns the same structure. Results
+    stay on the operands' device; nothing here synchronises.
     """
     from repro_torch.core.compressed_array import CompressedIntArray
 

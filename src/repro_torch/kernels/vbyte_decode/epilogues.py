@@ -8,7 +8,7 @@ The port of ``repro/kernels/vbyte_decode/epilogues.py``. An
 Its torch ``apply`` body, run on a whole decoded grid by :func:`apply_grid`,
 is the plain version of the fused kernel: :func:`fused_decode` launches the
 CUDA kernel for operands on the card and runs decode + ``apply`` for
-operands on the CPU. The epilogues the search path runs are ported:
+operands on the CPU. All 11 of the reference's epilogues are ported:
 
 * ``stream``     — the decoded integers;
 * ``checksum``   — the integers plus ``cs[t] = Σ_j vals[t,j]·(2j+1) mod 2^32``;
@@ -20,13 +20,29 @@ operands on the CPU. The epilogues the search path runs are ported:
   ``w_widths`` + ``w_data`` (binpack), ``w_payload`` (vbyte), ``w_control``
   + ``w_data`` (streamvbyte);
 * ``*_rows`` — the block-aligned variants: ``probe`` is a tiled
-  ``[T, 1]`` extra, block t compared against its own probe only.
+  ``[T, 1]`` extra, block t compared against its own probe only;
+* ``bag_sum``    — ``[T, d]`` Σ over valid slots of ``table[clip(id)]``,
+  in the table's dtype (the embedding-bag consumer);
+* ``dot_score``  — ``(ids [T, B], scores)``: ``ids`` are the decoded
+  values (0 in pad slots) and ``scores`` f32 ``table[clip(id)] · query``,
+  ``[T, B]`` for a one-row query, ``[T, B, nq]`` otherwise. Pad slots
+  score row 0 (the retrieval consumer masks id 0);
+* ``adjacency_rebase`` — differential only: ``vals − edge_base`` mod 2^32
+  per slot, 0 in pad slots (the GNN consumer's per-edge list rebase).
 
 Masked slots compare as -1 and only probes ``>= 0`` count. Sums wrap mod
 2^32 exactly like the reference's int32 arithmetic. The main stream may be
 any of the three formats (the kernel's decode core is a template
-parameter). The ``bag_sum``, ``dot_score`` and ``adjacency_rebase``
-consumers are still to port (ROADMAP queue 1 item 12).
+parameter).
+
+The float epilogues gather with ``mode="clip"`` (ids clamped to
+``[0, V-1]``) and sum in float32, rounded once to the result dtype:
+the table's for ``bag_sum``, the promoted type of table and query for
+``dot_score`` (bf16 only when both are bf16), then cast to float32. That
+is what the reference's bf16 ``sum`` and ``einsum`` compute on the CPU.
+The kernel sums in another order than these plain versions, so the two
+agree within one bf16 ulp (bf16) or float32 rounding (f32), not bit for
+bit.
 """
 from __future__ import annotations
 
@@ -58,6 +74,8 @@ CHECK_OPERANDS = {"vbyte": kernel.check_operands,
 FORMAT_IDS = {"vbyte": 0, "streamvbyte": 1, "binpack": 2}
 WEIGHT_OPERANDS = ("w_payload", "w_control", "w_data", "w_widths")
 MAX_PROBE_WIDTH = 4096  # broadcast probe set held in shared memory per CTA
+MAX_QUERY_ELEMS = 8192  # dot_score's f32 query matrix in shared memory per CTA
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 
 launches = LaunchCounter()
 
@@ -70,6 +88,36 @@ _CHUNK_ELEMS = 1 << 24
 # ---------------------------------------------------------------------------
 def _stream_apply(vals, valid):
     return vals
+
+
+def _gather_rows(table, ids):
+    """``table[clip(ids)]``: the reference's ``take(..., mode="clip")``."""
+    idx = ids.reshape(-1).clamp(0, table.shape[0] - 1).to(torch.int64)
+    return table.index_select(0, idx).reshape(*ids.shape, table.shape[1])
+
+
+def _bag_sum_apply(vals, valid, *, table):
+    vecs = _gather_rows(table, torch.where(valid, vals, 0)).float()
+    vecs = vecs.masked_fill_(~valid[:, :, None], 0)  # masked slots add 0
+    return vecs.sum(dim=1).to(table.dtype)  # [T, d]
+
+
+def _dot_score_apply(vals, valid, *, table, query):
+    T, B = vals.shape
+    ids = torch.where(valid, vals, 0)  # pad slots score id 0 (the pad row)
+    q = query.reshape(-1, query.shape[-1])  # [n_queries, d]
+    vecs = _gather_rows(table, ids).reshape(T * B, -1)
+    scores = vecs.float() @ q.float().T  # [T·B, n_queries], f32 sums
+    scores = scores.to(torch.promote_types(table.dtype, query.dtype)).float()
+    if q.shape[0] == 1:  # single query: scores [T, B]
+        return ids, scores.reshape(T, B)
+    return ids, scores.reshape(T, B, q.shape[0])  # [T, B, n_queries]
+
+
+def _adjacency_rebase_apply(vals, valid, *, edge_base):
+    # uint32 wrap-around subtraction, as the reference's int32 one
+    return torch.where(valid, to_i32_bits(vals.to(torch.int64)
+                                          - edge_base.to(torch.int64)), 0)
 
 
 def _checksum_apply(vals, valid):
@@ -214,16 +262,17 @@ EPILOGUES = {
                                    extras=("probe",),
                                    optional_extras=WEIGHT_OPERANDS,
                                    tiled_extras=("probe",) + WEIGHT_OPERANDS),
+    "bag_sum": Epilogue("bag_sum", _bag_sum_apply, 8, extras=("table",)),
+    "dot_score": Epilogue("dot_score", _dot_score_apply, 9,
+                          extras=("table", "query")),
+    "adjacency_rebase": Epilogue("adjacency_rebase", _adjacency_rebase_apply,
+                                 10, extras=("edge_base",),
+                                 tiled_extras=("edge_base",),
+                                 requires_differential=True),
 }
-# consumers of the same decode core that are still to port (ROADMAP queue 1
-# item 12, slice D)
-UNPORTED_EPILOGUES = ("bag_sum", "dot_score", "adjacency_rebase")
 
 
 def get_epilogue(name: str) -> Epilogue:
-    if name in UNPORTED_EPILOGUES:
-        raise NotImplementedError(
-            f"epilogue {name!r} is not ported yet (ROADMAP queue 1 item 12)")
     if name not in EPILOGUES:
         raise ValueError(f"unknown epilogue {name!r}; "
                          f"expected one of {tuple(EPILOGUES)}")
@@ -301,14 +350,51 @@ def _fused_decode_cuda(format: str, ops: dict, extras: dict, *,
         w_meta = w_leaves[0] if len(w_leaves) == 2 else None
         S_w = w_bytes.shape[1]
 
-    if ep.name in ("stream", "checksum"):
+    table, query, edge_base = (extras.get(k) for k in
+                               ("table", "query", "edge_base"))
+    V = d = nq = round_bf16 = 0
+    if table is not None:
+        if (table.dtype not in TABLE_DTYPES or table.dim() != 2
+                or table.device != dev or not table.is_contiguous()
+                or min(table.shape) < 1):
+            raise ValueError(f"table must be a contiguous float32 or "
+                             f"bfloat16 [V ≥ 1, d ≥ 1] tensor on {dev}; got "
+                             f"{table.dtype} {tuple(table.shape)} on "
+                             f"{table.device}")
+        V, d = table.shape
+    if query is not None:
+        if (query.dtype not in TABLE_DTYPES or query.shape[-1] != d
+                or query.device != dev):
+            raise ValueError(f"query must be float32 or bfloat16 [..., {d}] "
+                             f"on {dev}; got {query.dtype} "
+                             f"{tuple(query.shape)} on {query.device}")
+        round_bf16 = int(torch.promote_types(table.dtype, query.dtype)
+                         == torch.bfloat16)
+        query = query.reshape(-1, d).to(torch.float32).contiguous()
+        nq = query.shape[0]
+        chunk = 8 if table.dtype == torch.bfloat16 else 4  # 16-byte chunks
+        if not 1 <= nq * (-(-d // chunk) * chunk) <= MAX_QUERY_ELEMS:
+            raise ValueError(f"query rows × d (rounded up to a multiple of "
+                             f"{chunk}) must be in [1, {MAX_QUERY_ELEMS}], "
+                             f"got {nq} × {d}")
+    if edge_base is not None:
+        _check_i32("edge_base", edge_base, (nb, B), dev)
+
+    out = out2 = fout = None
+    if ep.name == "bag_sum":
+        fout = torch.empty((nb, d), dtype=table.dtype, device=dev)
+    elif ep.name == "dot_score":
+        out = torch.empty((nb, B), dtype=torch.int32, device=dev)
+        fout = torch.empty((nb, B) if nq == 1 else (nb, B, nq),
+                           dtype=torch.float32, device=dev)
+    elif ep.name in ("stream", "checksum", "adjacency_rebase"):
         out = torch.empty((nb, B), dtype=torch.int32, device=dev)
     elif "probe" in ep.tiled_extras:
         out = torch.empty((nb, 1), dtype=torch.int32, device=dev)
     else:
         out = torch.empty((nb, P), dtype=torch.int32, device=dev)
-    out2 = (torch.empty((nb, 1), dtype=torch.int32, device=dev)
-            if ep.name == "checksum" else None)
+    if ep.name == "checksum":
+        out2 = torch.empty((nb, 1), dtype=torch.int32, device=dev)
     if nb:
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -320,8 +406,15 @@ def _fused_decode_cuda(format: str, ops: dict, extras: dict, *,
                 main.data_ptr(), ptr(meta), S, counts.data_ptr(),
                 bases.data_ptr(), nb, B, int(differential), ptr(probe), P,
                 ptr(impact), w_format, ptr(w_bytes), ptr(w_meta), S_w,
-                out.data_ptr(), ptr(out2), stream)
+                ptr(table), V, d, int(table is not None
+                                      and table.dtype == torch.bfloat16),
+                ptr(query), nq, round_bf16, ptr(edge_base),
+                ptr(out), ptr(out2), ptr(fout), stream)
         launches.bump(f"{format}/{ep.name}")
+    if ep.name == "bag_sum":
+        return fout
+    if ep.name == "dot_score":
+        return out, fout
     return (out, out2) if out2 is not None else out
 
 
