@@ -95,6 +95,10 @@ GATHER_ROWS = -(-((1 << 23) + 2) // 512) * 512
 QUERY_ROWS = (1, 8)  # dot_score query rows: the smallest and largest bucket
 BAG_BLOCK = 50  # embed_bags: one bag of seq_len = 50 slots per block
 GATHER_EPILOGUES = ("bag_sum", "dot_score", "adjacency_rebase")
+# kernel 2's broadcast epilogues, and the block counts of their launches on
+# the search path: 1-16 gathered hit blocks per probe chunk, and 512
+PROBE_EPILOGUES = ("membership", "bm25_accum", "bm25_weighted")
+PATH_ROWS = (1, 4, 16, 512)
 # GIN logits over compressed vs raw adjacency, per node, relative to the
 # node's largest |logit|: the two forwards sum the same messages in
 # another order (index_add_ atomics on the card), and a changed f32 sum
@@ -468,7 +472,11 @@ def phase_parity(np, torch, timer):
                     rec = {"format": fmt, "epilogue": name, "n_blocks": nb,
                            "stride": S, "differential": differential,
                            "max_abs_err": err}
-                    if differential and label == datasets[0][0]:
+                    # timed: every epilogue on sorted rows, and the
+                    # broadcast ones on unsorted rows (their slot-by-slot
+                    # branch)
+                    if label == datasets[0][0] and (
+                            differential or name in PROBE_EPILOGUES):
                         P = (extras["probe"].shape[-1] if "probe" in extras
                              else 0)
                         outs_t = outs if isinstance(outs, tuple) else (outs,)
@@ -488,7 +496,8 @@ def phase_parity(np, torch, timer):
                                 lambda: epilogues.fused_decode_plain(
                                     ops, extras, **kw2), reps=5),
                             bound_ms=bound, bound_by=by)
-                        records["fused_decode"][f"{fmt}/{name}"] = rec
+                        suffix = "" if differential else "/unsorted"
+                        records["fused_decode"][f"{fmt}/{name}{suffix}"] = rec
                     emit("parity_fused_decode", dataset=label, **rec)
                 # the gather epilogues on these values as ids: most lie
                 # past the table or below 0 as int32 and are clamped
@@ -515,6 +524,7 @@ def phase_parity(np, torch, timer):
                          differential=differential, max_abs_err=err,
                          max_bf16_ulps=ulps)
     phase_gather(np, torch, timer, tables, queries, records, max_err)
+    phase_probe_path(np, torch, timer, records, max_err)
     return records, max_err
 
 
@@ -637,6 +647,126 @@ def phase_gather(np, torch, timer, tables, queries, records, max_err):
             suffix = "" if B == BLOCK else f"/B{B}"
             records["fused_decode"][f"{fmt}/{key}{suffix}"] = rec
             emit("parity_fused_decode_gather", **rec)
+
+
+def _gap_bytes(np, fmt: str, gaps, counts) -> int:
+    """Compressed bytes a decode of ``fmt`` reads for ``gaps`` (uint64
+    [nb, B], 0 past each count): VByte 1-5 bytes per value, Stream VByte
+    1-4 data bytes per value plus B/4 control bytes per block, binpack one
+    width byte plus count x width bits per block."""
+    B = gaps.shape[1]
+    valid = np.arange(B)[None, :] < counts[:, None]
+    if fmt == "vbyte":
+        n = 1 + sum((gaps >= 1 << (7 * k)).astype(np.int64)
+                    for k in range(1, 5))
+        return int(n[valid].sum())
+    if fmt == "streamvbyte":
+        n = 1 + sum((gaps >= 1 << (8 * k)).astype(np.int64)
+                    for k in range(1, 4))
+        return int(n[valid].sum()) + gaps.shape[0] * (B // 4)
+    widths = np.array([int(x).bit_length() for x in
+                       np.where(valid, gaps, 0).max(axis=1)], np.int64)
+    return int(gaps.shape[0] + ((counts * widths + 7) // 8).sum())
+
+
+def probe_path_cases(np, torch, rng):
+    """Kernel 2's broadcast launches at the search path's shapes, per core:
+    a K=20 posting list (as the search paths draw them, ClueWeb09-sized
+    universe) and its per-posting impacts (< 2^8, as the index's) encoded
+    in the core's format (d-gaps, block 128) on the card; for each of
+    ``PATH_ROWS`` block counts, that many distinct blocks gathered from it
+    in ascending order (``take_blocks``, as ``_probe_pass`` gathers its hit
+    blocks), and a 512-wide probe set: 256 docids drawn from the gathered
+    blocks and 256 from the docid window they span, sorted, distinct,
+    padded with -1. Yields ``(fmt, nb, ops, extras by epilogue, bytes in
+    by epilogue, values decoded)``."""
+    from repro_torch.core import CompressedIntArray
+    from repro_torch.data.synthetic import CLUEWEB_DOCS, posting_list_group
+    from repro_torch.kernels.vbyte_decode.ops import normalize_probe
+
+    docs = posting_list_group(rng, 20, 1, universe=CLUEWEB_DOCS)[0]
+    docs = docs.astype(np.uint64)
+    impacts = rng.integers(1, 256, docs.size).astype(np.uint64)
+    n_blocks = -(-docs.size // BLOCK)
+    gaps = np.diff(docs, prepend=np.uint64(0))  # block bases: the docid before
+    pad = n_blocks * BLOCK - docs.size
+    blocks = {k: np.pad(v, (0, pad)).reshape(n_blocks, BLOCK)
+              for k, v in (("docs", docs), ("gaps", gaps), ("imp", impacts))}
+    counts = np.minimum(BLOCK, docs.size - BLOCK * np.arange(n_blocks))
+    for fmt in ("vbyte", "streamvbyte", "binpack"):
+        arr = CompressedIntArray.encode(docs, format=fmt, block_size=BLOCK,
+                                        differential=True, device="cuda")
+        imp = CompressedIntArray.encode(impacts, format=fmt,
+                                        block_size=BLOCK, device="cuda")
+        for nb in PATH_ROWS:
+            rows = np.sort(rng.choice(n_blocks, nb, replace=False))
+            c = counts[rows]
+            host = blocks["docs"][rows]
+            sub = arr.take_blocks(rows)
+            ops = sub.device_operands()
+            grid = sub.decode_blocked(plan="cuda")
+            valid = np.arange(BLOCK)[None, :] < c[:, None]
+            if not np.array_equal(grid.cpu().numpy().view(np.uint32)[valid],
+                                  host[valid].astype(np.uint32)):
+                die(f"probe path data: {fmt} blocks decode to other docids")
+            ids = host[valid]
+            lo, hi = int(ids.min()), int(ids.max())
+            probe = np.unique(np.concatenate([rng.choice(ids, 256),
+                                              rng.integers(lo, hi + 1, 256)]))
+            probe = torch.as_tensor(normalize_probe(probe[:512], 512),
+                                    device="cuda")
+            w_ops = {f"w_{k}": v for k, v in
+                     imp.take_blocks(rows).device_operands().items()
+                     if k in ("payload", "control", "data", "widths")}
+            main = _gap_bytes(np, fmt, blocks["gaps"][rows], c) + 8 * nb
+            extras = {
+                "membership": {"probe": probe},
+                "bm25_accum": {"probe": probe, "impact": torch.tensor(
+                    [[7]], dtype=torch.int32, device="cuda")},
+                "bm25_weighted": {"probe": probe, **w_ops}}
+            in_bytes = {"membership": main + 4 * 512,
+                        "bm25_accum": main + 4 * 512 + 4,
+                        "bm25_weighted": main + 4 * 512 + _gap_bytes(
+                            np, fmt, blocks["imp"][rows], c)}
+            yield fmt, nb, ops, extras, in_bytes, int(c.sum())
+
+
+def phase_probe_path(np, torch, timer, records, max_err):
+    """The broadcast epilogues at the search path's shapes
+    (:func:`probe_path_cases`): held bit for bit against their plain
+    versions and timed (L2 cold) beside the bound and the plain version."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+
+    rng = np.random.default_rng(3)
+    records["probe_path"] = {}
+    for fmt, nb, ops, extras, in_bytes, n_ints in probe_path_cases(np, torch,
+                                                                 rng):
+        for name in PROBE_EPILOGUES:
+            ex = extras[name]
+            kw = dict(format=fmt, epilogue=name, block_size=BLOCK,
+                      differential=True)
+            out = epilogues.fused_decode(ops, ex, **kw)
+            ref = epilogues.fused_decode_plain(ops, ex, **kw)
+            torch.cuda.synchronize()
+            err = _max_err(out, ref)
+            max_err["fused_decode"] = max(max_err["fused_decode"], abs(err))
+            if err or not torch.equal(out, ref):
+                die(f"kernel 2 [{fmt}/{name}] differs from its plain version "
+                    f"at the path's shape: nb={nb} max_abs_err={err}")
+            P = ex["probe"].shape[-1]
+            bound, by = _bound(bytes_moved=in_bytes[name] + 4 * nb * P,
+                               ops=in_bytes[name] + nb * P + n_ints)
+            rec = {"format": fmt, "epilogue": name, "n_blocks": nb,
+                   "P": P, "hits": int((ref != 0).sum()),
+                   "max_abs_err": err,
+                   "ms": timer.ms(lambda: epilogues.fused_decode(ops, ex,
+                                                                 **kw),
+                                  reps=50),
+                   "plain_ms": timer.ms(lambda: epilogues.fused_decode_plain(
+                       ops, ex, **kw), reps=5),
+                   "bound_ms": bound, "bound_by": by}
+            records["probe_path"][f"{fmt}/{name}/nb{nb}"] = rec
+            emit("parity_probe_path", **rec)
 
 
 # ---------------------------------------------------------------------------
@@ -1248,6 +1378,9 @@ def kernels_line(records, max_err, paths):
              # times per timed variant (format/epilogue[/table/query rows]);
              # launches per format/epilogue, which is what the count keys on
              epilogues={k: variant(r) for k, r in timed.items()},
+             # the broadcast epilogues at the search path's block counts
+             probe_path={k: variant(r)
+                         for k, r in records["probe_path"].items()},
              launches_by_epilogue={k: {"total": v, "by_path": by_path[k]}
                                    for k, v in sorted(by.items())}),
         entry("stream_decode_blocked", "stream_decode.cu",

@@ -10,22 +10,48 @@
 //
 // What bounds it on an H100: bytes for the row-aligned epilogues (the
 // decoded block never leaves shared memory; each block writes one int32),
-// integer compares for the broadcast ones, which check every decoded slot
-// against every probe (B x P per block), and the gathered table rows for
-// bag_sum and dot_score (one d-wide row per valid id, or per slot).
+// for the broadcast ones (membership, bm25_accum, bm25_weighted) the
+// [nb, P] int32 output they write, and the gathered table rows for bag_sum
+// and dot_score (one d-wide row per valid id, or per slot).
 //
 // What the design does about it: the warp-per-block decode cores that
 // kernels 1, 3 and 4 run (vbyte_core.cuh, svb_core.cuh, binpack_core.cuh),
 // then the optional scan, then an epilogue — the reference's
 // core-plus-epilogue shape, with the main stream's format and the
-// epilogue as template parameters (3 x 8 instantiations). The weighted
+// epilogue as template parameters (3 x 11 instantiations). The weighted
 // epilogues' impact stream may have another format than the main stream,
 // as in the reference's API; it is decoded dense, non-differential, with
 // the main row's count, through a branch on a run-time format argument
 // that is uniform across the grid. The decoded row and the impact row stay
-// in shared memory; the broadcast probe set is loaded into shared memory
-// once per CTA. The compare is brute force in this first version; a
-// binary search over the sorted block is a later optimisation.
+// in shared memory.
+//
+// The broadcast epilogues run their own kernel (probe_kernel). Comparing
+// every slot with every probe (B x P per block, as the reference does) is
+// what held the first version at 3-5% of its bound, yet on the search path
+// both sides are sorted: the d-gap coded block ascends and the probe set is
+// a sorted run padded with -1. So the kernel checks that on the card — the
+// row's valid slots non-decreasing as uint32 (one __all_sync), the probe
+// set a non-decreasing run of values >= 0 followed only by negative ones
+// (one __syncthreads_and) — and where both hold, two binary searches cut
+// the probes to [a, b), those inside [slot 0, slot cnt-1]; each of those
+// takes a lower bound over the row and walks the run of equal slots there
+// (a gap of 0 repeats a docid), and every other probe writes 0. A row that
+// is not sorted (garbage, differential=False, a prefix sum that wraps mod
+// 2^32) compares every slot with every probe in the same kernel: that is
+// the contract on such input, and both branches give the same bits on
+// sorted input (integer sums mod 2^32 do not depend on their order). The
+// path's launches carry 1-16 rows, where one warp per row leaves the card
+// nearly empty: while every row has an SM of its own, a CTA of 4 warps
+// serves one row (the weights decode on a second warp beside the
+// main stream, and all four split the probes and the stores); larger
+// launches keep one warp per row. Once the compare was gone, a launch took
+// the same time for 1 block as for 4096: the chain of dependent reads
+// (probes, count, bytes, control or width, weights), one device-memory
+// round trip each, set the pace. So every read of the CTA is issued at once
+// at the start (cp.async into shared memory, 16 bytes at a time where
+// aligned) and the decode cores read the staged copies; what remains is
+// the launch, that one round trip and the decode. Each lane writes 4
+// consecutive outputs with one 16-byte store where P % 4 == 0.
 //
 // The gather epilogues read the table (f32 or bf16, a uniform run-time
 // branch) in 16-byte chunks: lane l owns chunk l of a row (8 bf16 or 4
@@ -63,6 +89,8 @@ enum Epilogue : int {
 };
 
 constexpr int kQueryGroup = 8;  // dot_score query rows per register pass
+// probe_kernel's shared memory when it stages the rows' bytes as well
+constexpr size_t kMaxProbeSmem = 96u << 10;
 
 struct FusedParams {
   const uint8_t* bytes;  // vbyte payload or streamvbyte/binpack data [nb, S]
@@ -302,24 +330,18 @@ __device__ __forceinline__ void dot_score_row(const FusedParams& p,
   }
 }
 
+// Every epilogue but the broadcast ones (probe_kernel below).
 template <int FMT, int EP>
 __global__ void fused_decode_kernel(FusedParams p) {
-  constexpr bool kBroadcast =
-      EP == kMembership || EP == kBm25Accum || EP == kBm25Weighted;
-  constexpr bool kWeighted = EP == kBm25Weighted || EP == kBm25WeightedRows;
+  constexpr bool kWeighted = EP == kBm25WeightedRows;
   extern __shared__ uint32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int B = p.B;
   uint32_t* slots = smem + warp * B;
   uint32_t* wslots = smem + (vbyte::kWarpsPerCta + warp) * B;
-  int* probe_s = reinterpret_cast<int*>(
+  float* query_s = reinterpret_cast<float*>(
       smem + (kWeighted ? 2 : 1) * vbyte::kWarpsPerCta * B);
-  float* query_s = reinterpret_cast<float*>(probe_s);
-  if constexpr (kBroadcast) {
-    for (int i = threadIdx.x; i < p.P; i += blockDim.x) probe_s[i] = p.probe[i];
-    __syncthreads();
-  }
   if constexpr (EP == kDotScore) {
     // chunk-major: element c = k*N + 4h + e of query q at
     // q*nk*N + (h*nk + k)*4 + e, zero past d (see dot_score_row)
@@ -345,7 +367,7 @@ __global__ void fused_decode_kernel(FusedParams p) {
   if (kWeighted)  // dense, non-differential, with the main row's count
     decode_any(p.w_format, p.w_bytes, p.w_meta, row, p.S_w, cnt, wslots, B,
                lane);
-  const int impact = (EP == kBm25Accum || EP == kBm25AccumRows) ? *p.impact : 1;
+  const int impact = EP == kBm25AccumRows ? *p.impact : 1;
 
   if constexpr (EP == kBagSum) {
     if (p.table_bf16) {
@@ -377,26 +399,6 @@ __global__ void fused_decode_kernel(FusedParams p) {
       cs = warp_sum(cs);
       if (lane == 0) p.out2[row] = static_cast<int>(cs);
     }
-  } else if constexpr (kBroadcast) {
-    // masked slots (j >= cnt) compare as -1, and only probes >= 0 count
-    int* o = p.out + row * p.P;
-    for (int i = lane; i < p.P; i += 32) {
-      const int pi = probe_s[i];
-      uint32_t acc = 0u;
-      if (pi >= 0) {
-        for (int j = 0; j < cnt; ++j) {
-          if (static_cast<int>(slots[j]) == pi) {
-            if (kWeighted) {
-              acc += wslots[j];
-            } else {
-              acc = 1u;
-              break;
-            }
-          }
-        }
-      }
-      o[i] = kWeighted ? static_cast<int>(acc) : static_cast<int>(acc) * impact;
-    }
   } else {  // *_rows: block `row` against its own probe
     const int pr = p.probe[row];
     uint32_t acc = 0u;
@@ -413,6 +415,267 @@ __global__ void fused_decode_kernel(FusedParams p) {
   }
 }
 
+// First index in [lo, hi) of the non-decreasing s whose value is >= v
+// (kUpper: > v), as uint32.
+template <bool kUpper>
+__device__ __forceinline__ int search_u32(const uint32_t* s, int lo, int hi,
+                                          uint32_t v) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (kUpper ? s[mid] <= v : s[mid] < v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Probe v against a sorted row: the lower bound from `lo` (updated, so the
+// next, larger probe starts there), then the run of slots equal to v.
+template <bool kWeighted>
+__device__ __forceinline__ uint32_t match_sorted(const uint32_t* slots,
+                                                 const uint32_t* wslots,
+                                                 int cnt, uint32_t v, int& lo) {
+  lo = search_u32<false>(slots, lo, cnt, v);
+  uint32_t acc = 0u;
+  for (int j = lo; j < cnt && slots[j] == v; ++j) {
+    if (!kWeighted) return 1u;
+    acc += wslots[j];  // mod 2^32
+  }
+  return acc;
+}
+
+// Probe pi against any row: every valid slot, as the reference does.
+// Masked slots (j >= cnt) never match, and only probes >= 0 count.
+template <bool kWeighted>
+__device__ __forceinline__ uint32_t match_all(const uint32_t* slots,
+                                              const uint32_t* wslots, int cnt,
+                                              int pi) {
+  uint32_t acc = 0u;
+  if (pi < 0) return acc;
+  for (int j = 0; j < cnt; ++j) {
+    if (static_cast<int>(slots[j]) == pi) {
+      if (!kWeighted) return 1u;
+      acc += wslots[j];
+    }
+  }
+  return acc;
+}
+
+// Copy n bytes from global src to shared dst with threads t of T: 16- or
+// 4-byte cp.async where both ends and n allow (dst is 16-byte aligned by
+// construction), plain byte loads otherwise. Completes at
+// cp.async.wait_all.
+__device__ __forceinline__ void stage_async(uint8_t* dst, const uint8_t* src,
+                                            int n, int t, int T) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (a % 16 == 0 && n % 16 == 0) {
+    for (int i = 16 * t; i < n; i += 16 * T)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + i),
+                   "l"(src + i));
+  } else if (a % 4 == 0 && n % 4 == 0) {
+    for (int i = 4 * t; i < n; i += 4 * T)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + i),
+                   "l"(src + i));
+  } else {
+    for (int i = t; i < n; i += T) dst[i] = src[i];
+  }
+}
+
+// Control or width bytes per row of a format's stream.
+__host__ __device__ __forceinline__ int meta_bytes(int fmt, int B) {
+  return fmt == kStreamVbyte ? B >> 2 : (fmt == kBinpack ? 1 : 0);
+}
+
+__host__ __device__ __forceinline__ int round16(int n) {
+  return (n + 15) & ~15;
+}
+
+// Staged bytes per row: main stream, its control or width, then the
+// weight stream's, each rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int stage_row_bytes(const FusedParams& p,
+                                                        int fmt,
+                                                        bool weighted) {
+  return round16(p.S) + round16(meta_bytes(fmt, p.B)) +
+         (weighted ? round16(p.S_w) + round16(meta_bytes(p.w_format, p.B))
+                   : 0);
+}
+
+// The broadcast epilogues: out[row, i] for every probe i (see the note at
+// the top). `rows` rows per CTA of kWarpsPerCta warps, 1 or kWarpsPerCta,
+// uniform across the grid; `vec4`: P % 4 == 0 and `out` 16-byte aligned;
+// `stage`: the rows' bytes are copied to shared memory first (they fit).
+template <int FMT, int EP>
+__global__ void __launch_bounds__(vbyte::kWarpsPerCta * 32)
+    probe_kernel(FusedParams p, int rows, int vec4, int stage) {
+  constexpr bool kWeighted = EP == kBm25Weighted;
+  // [staged bytes per row][probes P][slots rows x B][weights rows x B]
+  extern __shared__ __align__(16) uint8_t probe_smem[];
+  __shared__ int s_run;  // probes before the first negative one
+  __shared__ int s_sorted[vbyte::kWarpsPerCta];  // per row of the CTA
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int B = p.B;
+  const int P = p.P;
+  const int W = vbyte::kWarpsPerCta / rows;  // warps per row
+  const int r = warp / W;                    // this warp's row in the CTA
+  const int sub = warp - r * W;              // and its place among them
+  const int t = sub * 32 + lane;             // thread of the row, of T
+  const int T = W * 32;
+  const int row_bytes = stage ? stage_row_bytes(p, FMT, kWeighted) : 0;
+  uint8_t* staged = probe_smem + r * row_bytes;
+  int* probe_s = reinterpret_cast<int*>(probe_smem + rows * row_bytes);
+  uint32_t* slots = reinterpret_cast<uint32_t*>(probe_s + P) + r * B;
+  uint32_t* wslots = reinterpret_cast<uint32_t*>(probe_s + P) + (rows + r) * B;
+
+  // every read from device memory issued at once: the probe set, the
+  // row's count and base, its bytes and control or width, the weights'
+  const long long row = static_cast<long long>(blockIdx.x) * rows + r;
+  const bool live = row < p.nb;  // uniform over the row's warps
+  const long long at_row = live ? row : 0;
+  const int m = meta_bytes(FMT, B);
+  const int mw = kWeighted ? meta_bytes(p.w_format, B) : 0;
+  const uint8_t* bytes = p.bytes + at_row * p.S;
+  const uint8_t* meta = m ? p.meta + at_row * m : p.meta;
+  const uint8_t* w_bytes = kWeighted ? p.w_bytes + at_row * p.S_w : nullptr;
+  const uint8_t* w_meta = mw ? p.w_meta + at_row * mw : p.w_meta;
+  if (threadIdx.x == 0) s_run = P;
+  stage_async(reinterpret_cast<uint8_t*>(probe_s),
+              reinterpret_cast<const uint8_t*>(p.probe), 4 * P, threadIdx.x,
+              blockDim.x);
+  if (live && stage) {
+    uint8_t* at = staged;
+    stage_async(at, bytes, p.S, t, T);
+    bytes = at;
+    at += round16(p.S);
+    if (m) {
+      stage_async(at, meta, m, t, T);
+      meta = at;
+      at += round16(m);
+    }
+    if (kWeighted) {
+      stage_async(at, w_bytes, p.S_w, t, T);
+      w_bytes = at;
+      at += round16(p.S_w);
+      if (mw) {
+        stage_async(at, w_meta, mw, t, T);
+        w_meta = at;
+      }
+    }
+  }
+  const int cnt = live ? vbyte::clamp_count(p.counts[row], B) : 0;
+  const uint32_t base =
+      live && p.differential ? static_cast<uint32_t>(p.bases[row]) : 0u;
+  const uint32_t scale =
+      EP == kBm25Accum ? static_cast<uint32_t>(*p.impact) : 1u;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // the probe set: a non-decreasing run of values >= 0 followed only by
+  // negative ones? (s_run then marks where the run ends)
+  int ok = 1;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const int cur = probe_s[i];
+    const int prev = i ? probe_s[i - 1] : 0;
+    if (cur >= 0) {
+      ok &= prev >= 0 && prev <= cur;
+    } else if (prev >= 0) {
+      s_run = i;  // one writer when the set is sorted
+    }
+  }
+  if (live && sub == 0) {
+    decode_any(FMT, bytes, meta, 0, p.S, cnt, slots, B, lane);
+    if (p.differential) vbyte::prefix_row(slots, B, cnt, base, lane);
+    bool up = true;  // the valid slots non-decreasing as uint32
+    for (int j = lane + 1; j < cnt; j += 32) up &= slots[j - 1] <= slots[j];
+    up = __all_sync(vbyte::kFull, up);
+    if (lane == 0) s_sorted[r] = up;
+  }
+  // dense, non-differential, with the main row's count; beside the main
+  // stream when the row has a second warp
+  if (kWeighted && live && sub == (W > 1 ? 1 : 0))
+    decode_any(p.w_format, w_bytes, w_meta, 0, p.S_w, cnt, wslots, B, lane);
+  const bool probes_sorted = __syncthreads_and(ok);
+  if (!live) return;
+
+  int* o = p.out + row * P;
+  if (probes_sorted && s_sorted[r]) {
+    // only probes in [a, b) lie inside [slots[0], slots[cnt - 1]]; a row
+    // whose first value is >= 2^31 has none (probes are < 2^31)
+    const uint32_t* pu = reinterpret_cast<const uint32_t*>(probe_s);
+    int a = 0, b = 0;
+    if (cnt > 0) {
+      a = search_u32<false>(pu, 0, s_run, slots[0]);
+      b = search_u32<true>(pu, a, s_run, slots[cnt - 1]);
+    }
+    if (vec4) {
+      for (int q = t; q < (P >> 2); q += T) {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        const int i0 = q << 2;
+        if (i0 + 3 >= a && i0 < b) {
+          int lo = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = i0 + e;
+            if (i >= a && i < b)
+              v[e] = match_sorted<kWeighted>(slots, wslots, cnt, pu[i], lo) *
+                     scale;
+          }
+        }
+        reinterpret_cast<int4*>(o)[q] =
+            make_int4(static_cast<int>(v[0]), static_cast<int>(v[1]),
+                      static_cast<int>(v[2]), static_cast<int>(v[3]));
+      }
+    } else {
+      for (int i = t; i < P; i += T) {
+        int lo = 0;
+        o[i] = i >= a && i < b
+                   ? static_cast<int>(match_sorted<kWeighted>(
+                                          slots, wslots, cnt, pu[i], lo) *
+                                      scale)
+                   : 0;
+      }
+    }
+  } else {
+    for (int i = t; i < P; i += T)
+      o[i] = static_cast<int>(
+          match_all<kWeighted>(slots, wslots, cnt, probe_s[i]) * scale);
+  }
+}
+
+template <int FMT, int EP>
+int launch_probe(const FusedParams& p, cudaStream_t stream) {
+  constexpr bool kWeighted = EP == kBm25Weighted;
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // one CTA per row while every row has an SM of its own; one warp per
+  // row beyond
+  const int rows = p.nb <= n_sm ? 1 : vbyte::kWarpsPerCta;
+  const dim3 grid(static_cast<unsigned>((p.nb + rows - 1) / rows));
+  const dim3 block(vbyte::kWarpsPerCta * 32);
+  const size_t work = sizeof(uint32_t) * (p.P + (kWeighted ? 2 : 1) * rows * p.B);
+  // the rows' bytes go to shared memory too while they fit beside it
+  const size_t staged =
+      static_cast<size_t>(rows) * stage_row_bytes(p, FMT, kWeighted);
+  const int stage = work + staged <= kMaxProbeSmem;
+  const size_t smem = work + (stage ? staged : 0);
+  if (smem > (48u << 10)) {
+    e = cudaFuncSetAttribute(probe_kernel<FMT, EP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int vec4 =
+      p.P % 4 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
+  probe_kernel<FMT, EP><<<grid, block, smem, stream>>>(p, rows, vec4, stage);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // floats per query row in shared memory: d rounded up to whole chunks
 inline int query_width(const FusedParams& p) {
   const int n = p.table_bf16 ? 8 : 4;
@@ -421,18 +684,20 @@ inline int query_width(const FusedParams& p) {
 
 template <int FMT, int EP>
 int launch(const FusedParams& p, cudaStream_t stream) {
-  constexpr bool kBroadcast =
-      EP == kMembership || EP == kBm25Accum || EP == kBm25Weighted;
-  constexpr bool kWeighted = EP == kBm25Weighted || EP == kBm25WeightedRows;
-  const dim3 grid(static_cast<unsigned>((p.nb + vbyte::kWarpsPerCta - 1) /
-                                        vbyte::kWarpsPerCta));
-  const dim3 block(vbyte::kWarpsPerCta * 32);
-  const size_t smem =
-      sizeof(uint32_t) * (kWeighted ? 2 : 1) * vbyte::kWarpsPerCta * p.B +
-      (kBroadcast ? sizeof(int) * p.P : 0) +
-      (EP == kDotScore ? sizeof(float) * p.nq * query_width(p) : 0);
-  fused_decode_kernel<FMT, EP><<<grid, block, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (EP == kMembership || EP == kBm25Accum ||
+                EP == kBm25Weighted) {
+    return launch_probe<FMT, EP>(p, stream);
+  } else {
+    constexpr bool kWeighted = EP == kBm25WeightedRows;
+    const dim3 grid(static_cast<unsigned>((p.nb + vbyte::kWarpsPerCta - 1) /
+                                          vbyte::kWarpsPerCta));
+    const dim3 block(vbyte::kWarpsPerCta * 32);
+    const size_t smem =
+        sizeof(uint32_t) * (kWeighted ? 2 : 1) * vbyte::kWarpsPerCta * p.B +
+        (EP == kDotScore ? sizeof(float) * p.nq * query_width(p) : 0);
+    fused_decode_kernel<FMT, EP><<<grid, block, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <int FMT>

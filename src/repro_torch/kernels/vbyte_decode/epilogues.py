@@ -200,6 +200,82 @@ def _bm25_weighted_apply(vals, valid, *, probe, **weights):
     return out  # [T, P]
 
 
+# ---------------------------------------------------------------------------
+# the plain twin of the broadcast kernel's algorithm (tests hold it against
+# the reference and against _probe_hits; the apply bodies above stay the
+# plain versions)
+# ---------------------------------------------------------------------------
+def probe_search(vals, valid, probe, w=None):
+    """``[T, P]`` int32 as kernel 2's broadcast branch computes it: 0/1
+    membership, or with ``w`` (uint32 weights ``[T, B]``, int64) the sum
+    mod 2^32 of the weights of every matching slot.
+
+    Where the probe set is a non-decreasing run of values ≥ 0 followed only
+    by negative ones and a row's valid slots are non-decreasing as uint32,
+    the probes are cut to ``[a, b)``, those inside ``[slot 0, slot
+    cnt-1]``, and each is matched by a lower and an upper bound over the
+    row (the run of equal slots between them); every other row is compared
+    slot by slot with every probe (:func:`_probe_hits`).
+    """
+    p = probe.reshape(-1).to(torch.int64)
+    u = to_u32(vals)
+    w = None if w is None else torch.where(valid, w, 0)
+    out = torch.zeros((vals.shape[0], p.numel()), dtype=torch.int64,
+                      device=vals.device)
+    pos = p >= 0
+    probes_sorted = bool((~pos[1:] | (pos[:-1] & (p[:-1] <= p[1:]))).all())
+    row_sorted = ((u[:, 1:] >= u[:, :-1]) | ~valid[:, 1:]).all(dim=1)
+    brute = ~row_sorted if probes_sorted else torch.ones_like(row_sorted)
+    rows = (~brute).nonzero().reshape(-1)
+    if rows.numel():
+        run = int(pos.sum())
+        pr = p[:run].contiguous()
+        # masked slots sort past every probe (< 2^31), so the whole row is
+        # sorted and searchsorted never lands on one
+        key = torch.where(valid, u, 1 << 32)[rows].contiguous()
+        c = valid[rows].sum(dim=1)
+        a = torch.searchsorted(pr, key[:, 0].contiguous())
+        b = torch.searchsorted(pr, key.gather(1, (c - 1).clamp(min=0)[:, None])
+                               [:, 0], right=True)
+        b = torch.where(c > 0, b, a)  # a count-0 row has no range
+        i = torch.arange(run, device=vals.device)
+        inside = (i[None, :] >= a[:, None]) & (i[None, :] < b[:, None])
+        q = pr.expand(len(rows), run).contiguous()
+        lo = torch.searchsorted(key, q)
+        hi = torch.searchsorted(key, q, right=True)
+        if w is None:
+            s = (hi > lo).to(torch.int64)
+        else:  # Σ over the run of equal slots
+            csum = torch.nn.functional.pad(w[rows].cumsum(dim=1), (1, 0))
+            s = csum.gather(1, hi) - csum.gather(1, lo)
+        out[rows, :run] = torch.where(inside, s, 0)
+    rows = brute.nonzero().reshape(-1)
+    if rows.numel():
+        for sl, hit in _probe_hits(vals[rows], valid[rows], probe):
+            out[rows[sl]] = (hit.any(dim=1).to(torch.int64) if w is None
+                             else (hit * w[rows][sl, :, None]).sum(dim=1))
+    return to_i32_bits(out)
+
+
+def _membership_search(vals, valid, *, probe):
+    return probe_search(vals, valid, probe)
+
+
+def _bm25_accum_search(vals, valid, *, probe, impact):
+    return probe_search(vals, valid, probe) * impact.reshape(())
+
+
+def _bm25_weighted_search(vals, valid, *, probe, **weights):
+    w = to_u32(_decode_weight_tile(valid, **weights))
+    return probe_search(vals, valid, probe, w)
+
+
+# the twin of each broadcast epilogue, with its apply body's signature
+PROBE_SEARCH = {"membership": _membership_search,
+                "bm25_accum": _bm25_accum_search,
+                "bm25_weighted": _bm25_weighted_search}
+
+
 def _bm25_weighted_rows_apply(vals, valid, *, probe, **weights):
     w = to_u32(_decode_weight_tile(valid, **weights))
     v = torch.where(valid, vals, -1)

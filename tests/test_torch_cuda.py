@@ -25,7 +25,8 @@ from repro_torch.kernels.vbyte_decode import (binpack_kernel, epilogues,
 from repro_torch.kernels.vbyte_decode.ops import normalize_probe
 from repro_torch.launch.serve import SearchEngine, search_queries
 
-from torch_parity import bf16_ulps, float_close
+from torch_parity import (bf16_ulps, float_close, probe_rows, probe_set,
+                          probe_weights)
 
 pytestmark = pytest.mark.cuda
 
@@ -259,6 +260,91 @@ def test_kernel2_new_cores_garbage_match_plain(dev, fmt):
                          ("bm25_weighted_rows", {"probe": probe, **w_ex})):
         for differential in (False, True):
             _kernel2_matches_plain(ops, ex, fmt, epilogue, B, differential)
+
+
+# (blocks, probe width P, probe set): 1 and 5 blocks take a CTA of 4 warps
+# each, 777 a warp each; P % 4 == 0 stores 4 outputs at a time
+BROADCAST_CASES = [(1, 1, "sorted"), (5, 3, "sorted"), (777, 33, "neg_middle"),
+                   (5, 512, "sorted"), (777, 512, "sorted"),
+                   (1, 4096, "sorted"), (777, 4096, "unsorted"),
+                   (5, 33, "all_neg")]
+ENCODERS = {"vbyte": venc, "streamvbyte": svb, "binpack": bpk}
+
+
+@pytest.mark.parametrize("nb,P,probe_kind", BROADCAST_CASES)
+@pytest.mark.parametrize("differential", [False, True])
+@pytest.mark.parametrize("epilogue", ["membership", "bm25_accum",
+                                      "bm25_weighted"])
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_kernel2_broadcast_branches_match_plain(dev, fmt, epilogue,
+                                                differential, nb, P,
+                                                probe_kind):
+    """Kernel 2's broadcast epilogues on both of their branches: blocks of
+    ascending docids with repeats (gap 0) take the sorted search where the
+    probe set is sorted; blocks that wrap mod 2^32 partway, garbage blocks
+    and every block under an unsorted probe set compare slot by slot.
+    Values >= 2^31 and count-0 blocks in every case; the same values
+    decode from d-gaps (differential) and as stored."""
+    rng = np.random.default_rng(nb * 31 + P + 7 * len(fmt + epilogue))
+    B = 128
+    bases, gaps, vals = probe_rows(rng, nb, B)
+    enc = ENCODERS[fmt].encode_ragged_blocked(gaps if differential else vals,
+                                              block_size=B)
+    ops = {k: torch.as_tensor(np.ascontiguousarray(getattr(enc, k)),
+                              device=dev)
+           for k in epilogues.FORMAT_OPERANDS[fmt] + ("counts",)}
+    ops["bases"] = torch.as_tensor(bases.astype(np.uint32).view(np.int32),
+                                   device=dev)
+    grid = epilogues.fused_decode_plain(
+        ops, {}, format=fmt, epilogue="stream", block_size=B,
+        differential=differential).cpu().numpy()
+    for t, v in enumerate(vals):  # the plain decode gives the rows' values
+        assert np.array_equal(grid[t, :v.size].view(np.uint32), v)
+    ex = {"probe": torch.as_tensor(probe_set(rng, probe_kind, grid,
+                                             enc.counts, P), device=dev)}
+    if epilogue == "bm25_accum":
+        ex["impact"] = torch.tensor([[9]], dtype=torch.int32, device=dev)
+    if epilogue == "bm25_weighted":
+        w_fmt = ("vbyte", "streamvbyte", "binpack")[nb % 3]
+        w_arr = CompressedIntArray.encode_ragged(
+            probe_weights(rng, enc.counts), format=w_fmt, block_size=B,
+            device=dev)
+        ex.update({f"w_{k}": v for k, v in w_arr.device_operands().items()
+                   if k not in ("counts", "bases")})
+    _kernel2_matches_plain(ops, ex, fmt, epilogue, B, differential)
+
+
+@pytest.mark.parametrize("pad", [3, 99_999])
+@pytest.mark.parametrize("nb", [5, 777])
+def test_kernel2_broadcast_odd_and_wide_strides_match_plain(dev, nb, pad):
+    """Rows ``pad`` bytes wider than encoded: a stride that is not a
+    multiple of 4 (copied to shared memory a byte at a time), or rows too
+    wide to copy there at all (read from device memory). The same values
+    as the plain version."""
+    rng = np.random.default_rng(nb + pad)
+    B = 128
+    bases, gaps, vals = probe_rows(rng, nb, B)
+    enc = venc.encode_ragged_blocked(gaps, block_size=B)
+    w_enc = venc.encode_ragged_blocked(probe_weights(rng, enc.counts),
+                                       block_size=B)
+
+    def widen(payload):
+        return torch.as_tensor(np.pad(payload, ((0, 0), (0, pad))),
+                               device=dev)
+
+    ops = {"payload": widen(enc.payload),
+           "counts": torch.as_tensor(enc.counts, device=dev),
+           "bases": torch.as_tensor(bases.astype(np.uint32).view(np.int32),
+                                    device=dev)}
+    grid = epilogues.fused_decode_plain(
+        ops, {}, format="vbyte", epilogue="stream", block_size=B,
+        differential=True).cpu().numpy()
+    probe = torch.as_tensor(probe_set(rng, "sorted", grid, enc.counts, 512),
+                            device=dev)
+    for epilogue, ex in (("membership", {"probe": probe}),
+                         ("bm25_weighted", {"probe": probe,
+                                            "w_payload": widen(w_enc.payload)})):
+        _kernel2_matches_plain(ops, ex, "vbyte", epilogue, B, True)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

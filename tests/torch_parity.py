@@ -61,3 +61,90 @@ def float_close(o, r, *, bf16: bool, terms: int, s_abs, ulps: int = 1) -> bool:
         ulp = 1e-5 + 1e-5 * rf.abs()
     return bool((diff <= ulp + 2.0 * terms * 2.0**-24 * s_abs.float()
                  * 1.01).all())
+
+
+# ---------------------------------------------------------------------------
+# kernel 2's broadcast epilogues: rows and probe sets that reach both of its
+# branches (the sorted search and the slot-by-slot compare)
+# ---------------------------------------------------------------------------
+ROW_KINDS = ("docids", "runs", "wrap", "high", "garbage", "empty", "single",
+             "full")
+PROBE_KINDS = ("sorted", "neg_middle", "unsorted", "all_neg")
+_U32 = np.uint64(2**32)
+
+
+def probe_row(rng, kind, B):
+    """``(base, gaps)`` of one block of ``kind``, both uint64 < 2^32; its
+    values are ``(base + cumsum(gaps)) mod 2^32``, as a d-gap decode gives
+    them. ``docids`` ascend with runs of gap 0 (repeated docids), ``runs``
+    repeat each docid many times, ``wrap`` passes 2^32 at slot n // 2,
+    ``high`` crosses 2^31 (its upper values never match a probe),
+    ``garbage`` is random and ``empty`` has count 0."""
+    n = {"empty": 0, "single": 1, "full": B}.get(kind)
+    n = int(rng.integers(2, B + 1)) if n is None else n
+    gaps = rng.choice(np.array([0] * 14 + [1, 9] if kind == "runs"
+                               else [0, 0, 1, 2, 37, 1000], np.uint64), n)
+    cs = np.cumsum(gaps, dtype=np.uint64)
+    if kind == "garbage":
+        vals = rng.integers(0, 2**32, n, dtype=np.uint64)
+        base = np.uint64(rng.integers(0, 2**32))
+        prev = np.concatenate([[base], vals[:-1]]).astype(np.uint64)
+        return base, (vals + _U32 - prev) % _U32
+    if kind == "wrap":
+        start = _U32 - cs[n // 2] if cs[n // 2] else _U32 - np.uint64(1)
+    elif kind == "high":
+        start = np.uint64(rng.integers(2**31 - 3000, 2**31 + 3000))
+    else:
+        start = np.uint64(rng.integers(0, 2**31 - 2**20))
+    return start % _U32, gaps
+
+
+def probe_rows(rng, nb, B, kind="mixed"):
+    """``(bases uint64 [nb], gap lists, value lists)`` of ``nb`` blocks of
+    ``kind``; ``mixed`` cycles through every row kind from a random one."""
+    k0 = int(rng.integers(len(ROW_KINDS)))
+    bases, gaps, vals = np.zeros(nb, np.uint64), [], []
+    for t in range(nb):
+        k = kind if kind != "mixed" else ROW_KINDS[(k0 + t) % len(ROW_KINDS)]
+        base, g = probe_row(rng, k, B)
+        bases[t] = base
+        gaps.append(g)
+        vals.append((base + np.cumsum(g, dtype=np.uint64)) % _U32)
+    return bases, gaps, vals
+
+
+def probe_set(rng, kind, grid, counts, P):
+    """int32 ``[1, P]``: 3/4 of it real probes (< 2^31, half drawn from the
+    rows' values, some repeated), then -1 — a ``sorted`` set as the search
+    path builds it; or with -1 in its middle (``neg_middle``), shuffled
+    (``unsorted``) or all negative (``all_neg``)."""
+    if kind == "all_neg":
+        out = np.full((1, P), -1, np.int32)
+        out[0, ::3] = -(2**31)
+        return out
+    grid = np.asarray(grid).view(np.uint32)
+    pool = grid[np.arange(grid.shape[1])[None, :] < counts[:, None]]
+    pool = pool[pool < 2**31].astype(np.int64)
+    n = P - P // 4
+    half = (n + 1) // 2 if pool.size else 0
+    lo, hi = (int(pool.min()), int(pool.max()) + 1) if pool.size else (0,
+                                                                       2**31)
+    picks = np.concatenate([rng.choice(pool, half) if half
+                            else np.zeros(0, np.int64),
+                            rng.integers(lo, hi, n - half)])
+    if n >= 8:  # repeated probes
+        picks[: n // 8] = picks[n - n // 8:]
+    out = np.full((1, P), -1, np.int32)
+    out[0, :n] = np.sort(picks).astype(np.int32)
+    if kind == "neg_middle":
+        out[0, n // 2] = -1
+    elif kind == "unsorted":
+        out[0] = rng.permutation(out[0])
+    return out
+
+
+def probe_weights(rng, counts):
+    """Per-block weight lists of every byte length up to 32 bits, so sums
+    over repeated docids wrap mod 2^32."""
+    return [rng.integers(0, 2**32, int(c), dtype=np.uint64)
+            >> rng.integers(0, 32, int(c)).astype(np.uint64) for c in counts]

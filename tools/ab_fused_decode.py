@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""Kernel 2 (``csrc/fused_decode.cu``) of this tree against another
+revision's, on one NVIDIA GPU, on the same inputs in one process.
+
+    git archive <rev> src/repro_torch/kernels/vbyte_decode/csrc \\
+        | tar -x -C _checkout/<rev>
+    python3 tools/ab_fused_decode.py \\
+        --other _checkout/<rev>/src/repro_torch/kernels/vbyte_decode/csrc
+
+The other revision's ``fused_decode.cu`` (with the decode cores it
+includes) is compiled with this tree's nvcc flags into a temporary
+directory and loaded beside this tree's library; the wrapper
+(``epilogues.fused_decode``) is pointed at one or the other before each
+timing, so both take the same checks and launch arguments. Cases:
+
+* parity shape — the inputs of ``chip_smoke.py``'s kernel parity phase
+  (4096 blocks of B = 128, stride 128, ragged counts): the broadcast
+  epilogues (membership, bm25_accum, bm25_weighted) on sorted rows
+  (differential) and on unsorted ones, and kernel 2's other search
+  epilogues on sorted rows, on each of the three cores;
+* path shapes — ``chip_smoke.probe_path_cases``: the broadcast epilogues
+  over 1, 4, 16 and 512 blocks gathered from a posting list, 512 probes.
+
+Every case first holds both libraries' outputs bit for bit against the
+plain version, then times them with the L2 flushed before every launch
+(``chip_smoke.ColdTimer``) in the order other, this, this, other. One JSON
+line per case, then the card line; ``--out FILE`` writes the lines there
+too.
+Exits non-zero without a card or on any disagreement.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+SEARCH_EPILOGUES = ("stream", "checksum", "membership_rows", "bm25_accum_rows",
+                    "bm25_weighted_rows")
+
+
+def _other_library(_build, csrc: Path, tmp: Path):
+    for f in csrc.glob("*.cu*"):
+        shutil.copy(f, tmp)
+    lib = tmp / "libfused_decode_other.so"
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                           str(tmp / "fused_decode.cu")],
+                          capture_output=True, text=True)
+    if done.returncode:
+        cs.die(f"nvcc failed for the other fused_decode.cu:\n{done.stdout}"
+               f"{done.stderr}")
+    return _build._Library("fused_decode", lib)
+
+
+def _parity_cases(np, torch, rng):
+    """(label, fmt, epilogue, differential, ops, extras, bytes in, ints)
+    at ``chip_smoke.py``'s parity shape."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+
+    dev = torch.device("cuda")
+    for fmt, _, datasets in cs._parity_plan(rng):
+        _, bits = datasets[0]
+        enc, w_enc, bases = cs._dataset(np, rng, fmt,
+                                        n_blocks=cs.N_PARITY_BLOCKS, bits=bits)
+        names = epilogues.FORMAT_OPERANDS[fmt]
+        leaves = [torch.as_tensor(np.ascontiguousarray(getattr(enc, k)),
+                                  device=dev) for k in names]
+        ops = dict(zip(names, leaves),
+                   counts=torch.as_tensor(enc.counts, device=dev),
+                   bases=torch.as_tensor(bases, device=dev))
+        w_ops = {k: np.ascontiguousarray(getattr(w_enc, k)) for k in names}
+        for differential in (False, True):
+            grid = epilogues.fused_decode_plain(
+                ops, {}, format=fmt, epilogue="stream", block_size=cs.BLOCK,
+                differential=differential).cpu().numpy()
+            ex = cs._extras(np, torch, rng, grid, enc.counts, w_ops, dev)
+            todo = cs.PROBE_EPILOGUES + (SEARCH_EPILOGUES if differential
+                                         else ())
+            for name in todo:
+                ep = epilogues.EPILOGUES[name]
+                extras = {}
+                if "probe" in ep.extras:
+                    extras["probe"] = (ex["probe_r"] if "probe" in
+                                       ep.tiled_extras else ex["probe_b"])
+                if "impact" in ep.extras:
+                    extras["impact"] = ex["impact"]
+                if name.startswith("bm25_weighted"):
+                    extras.update(ex["weights"])
+                need = enc.payload_bytes + 8 * len(enc.counts) + sum(
+                    4 * v.numel() for k, v in extras.items() if k in
+                    ("probe", "impact")) + (w_enc.payload_bytes
+                                            if "weighted" in name else 0)
+                label = "parity" if differential else "parity/unsorted"
+                yield (label, fmt, name, differential, ops, extras, need,
+                       int(enc.counts.sum()))
+
+
+def _path_cases(np, torch, rng):
+    for fmt, nb, ops, extras, in_bytes, n_ints in cs.probe_path_cases(
+            np, torch, rng):
+        for name in cs.PROBE_EPILOGUES:
+            yield (f"nb{nb}", fmt, name, True, ops, extras[name],
+                   in_bytes[name], n_ints)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, type=Path,
+                    help="the other revision's csrc directory")
+    ap.add_argument("--reps", type=int, default=50,
+                    help="timed launches per library and turn")
+    ap.add_argument("--out", type=Path,
+                    help="also write the JSON lines to this file")
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.vbyte_decode import _build, epilogues
+
+    card = cs.phase_device(torch)
+    this = _build.library("fused_decode")
+    tmp = Path(tempfile.mkdtemp(prefix="ab_fused_decode_"))
+    lines = []
+    try:
+        other = _other_library(_build, args.other.resolve(), tmp)
+        timer = cs.ColdTimer(torch)
+        # the least a launch takes under this timer: one 4-byte add
+        tiny = torch.zeros(1, device="cuda")
+        floor = {"shape": "floor", "op": "one-element add_",
+                 "ms": timer.ms(lambda: tiny.add_(1), reps=args.reps),
+                 "card": card}
+        lines.append(floor)
+        print(json.dumps(floor), flush=True)
+        cases = list(_parity_cases(np, torch, np.random.default_rng(1)))
+        cases += list(_path_cases(np, torch, np.random.default_rng(3)))
+        for label, fmt, name, differential, ops, extras, need, n_ints in cases:
+            kw = dict(format=fmt, epilogue=name, block_size=cs.BLOCK,
+                      differential=differential)
+            ref = epilogues.fused_decode_plain(ops, extras, **kw)
+            outs = {}
+            for tag, lib in (("other", other), ("this", this)):
+                _build._LOADED["fused_decode"] = lib
+                outs[tag] = epilogues.fused_decode(ops, extras, **kw)
+                torch.cuda.synchronize()
+                if cs._max_err(outs[tag], ref):
+                    cs.die(f"{tag} kernel 2 [{fmt}/{name}] {label} differs "
+                           f"from its plain version")
+            turns = []
+            for tag, lib in (("other", other), ("this", this),
+                             ("this", this), ("other", other)):
+                _build._LOADED["fused_decode"] = lib
+                turns.append((tag, timer.ms(
+                    lambda: epilogues.fused_decode(ops, extras, **kw),
+                    reps=args.reps)))
+            out = outs["this"]
+            out = out if isinstance(out, tuple) else (out,)
+            out_bytes = sum(4 * o.numel() for o in out)
+            nb = ops["counts"].shape[0]
+            P = extras["probe"].shape[-1] if "probe" in extras else 0
+            bound, by = cs._bound(bytes_moved=need + out_bytes,
+                                  ops=need + nb * P + n_ints)
+            other_ms = [t for tag, t in turns if tag == "other"]
+            this_ms = [t for tag, t in turns if tag == "this"]
+            rec = {"shape": label, "format": fmt, "epilogue": name,
+                   "n_blocks": nb, "P": P, "other_ms": other_ms,
+                   "this_ms": this_ms,
+                   "other_mean_ms": sum(other_ms) / 2,
+                   "this_mean_ms": sum(this_ms) / 2,
+                   "speedup": sum(other_ms) / sum(this_ms),
+                   "bound_ms": bound, "bound_by": by, "card": card}
+            lines.append(rec)
+            print(json.dumps(rec), flush=True)
+    finally:
+        _build._LOADED.pop("fused_decode", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("".join(json.dumps(r) + "\n" for r in lines))
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
