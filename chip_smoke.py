@@ -27,8 +27,11 @@ fault. One JSON line per phase:
    ulp / 1e-5, or the f32 sums' rounding bound where a sum cancels, on
    garbage ids (clamped) and, timed, on sorted item ids — beside the
    bound, the plain version and the unfused chain (the decode kernel,
-   then one PyTorch call); ``bag_sum`` also at B=50. Times from CUDA
-   events with the L2 flushed before every launch.
+   then one PyTorch call); ``bag_sum`` also at B=50; ``dot_score`` also
+   at the two_tower path's shape (phase ``parity_dot_score_path``: the
+   serving corpus of 2^20 distinct sorted ids, 8,192 full blocks, every
+   query bucket 1, 2, 4, 8 on the bf16 table and 8 rows on the f32 one).
+   Times from CUDA events with the L2 flushed before every launch.
 4. search paths — a ClueWeb09-sized posting index (50M-doc universe, 16
    lists from each of the paper's length groups K=12, 16, 20, Zipf tfs,
    block_size 128) built onto the card three ways, each served by
@@ -93,6 +96,7 @@ PATH_KERNELS = {"vbyte": ("vbyte_decode_blocked", "vbyte"),
 GATHER_TABLES = (("bf16", "bfloat16", 256), ("f32", "float32", 128))
 GATHER_ROWS = -(-((1 << 23) + 2) // 512) * 512
 QUERY_ROWS = (1, 8)  # dot_score query rows: the smallest and largest bucket
+DOT_PATH_ROWS = (1, 2, 4, 8)  # and every bucket, at the path's shape
 BAG_BLOCK = 50  # embed_bags: one bag of seq_len = 50 slots per block
 GATHER_EPILOGUES = ("bag_sum", "dot_score", "adjacency_rebase")
 # kernel 2's broadcast epilogues, and the block counts of their launches on
@@ -524,6 +528,7 @@ def phase_parity(np, torch, timer):
                          differential=differential, max_abs_err=err,
                          max_bf16_ulps=ulps)
     phase_gather(np, torch, timer, tables, queries, records, max_err)
+    phase_dot_score_path(np, torch, timer, tables, queries, records, max_err)
     phase_probe_path(np, torch, timer, records, max_err)
     return records, max_err
 
@@ -542,20 +547,137 @@ def _id_lists(np, rng, n_blocks: int, B: int):
     return out
 
 
-def phase_gather(np, torch, timer, tables, queries, records, max_err):
-    """bag_sum, dot_score (1- and 8-row queries) and adjacency_rebase on
-    each core over realistic ids (the retrieval corpus's layout: sorted item
-    ids, per-bag differential, 4096 blocks of B = 128, count-0 blocks and
-    ragged tails), plus bag_sum over the embedding-bag endpoint's B = 50
-    bags: held against their plain versions and timed (L2 cold) beside
-    the bound, the plain version and the unfused chain — the format's
-    decode kernel, then one PyTorch call (``F.embedding_bag``; index +
-    ``einsum``; the torch body of adjacency_rebase)."""
+def gather_stats(np, torch, fmt, ops, payload_bytes: int, B: int,
+                 differential: bool) -> dict:
+    """What the gather epilogues' bounds count over these blocks: the
+    compressed bytes + 8 B a block (count and base), the valid ids, the
+    distinct valid ids, and those plus row 0 where any slot is a pad."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+    from repro_torch.kernels.vbyte_decode.dispatch import CUDA_DECODERS
+
+    leaves = [ops[k] for k in epilogues.FORMAT_OPERANDS[fmt]]
+    c, b = ops["counts"], ops["bases"]
+    nb = c.shape[0]
+    grid = CUDA_DECODERS[fmt](*leaves, c, b, block_size=B,
+                              differential=differential)
+    valid = torch.arange(B, device=grid.device)[None, :] < c[:, None]
+    n_valid = int(valid.sum())
+    distinct = int(torch.unique(grid[valid]).numel())
+    return {"fmt": fmt, "B": B, "differential": differential, "nb": nb,
+            "stride": leaves[-1].shape[1], "need": payload_bytes + 8 * nb,
+            "valid": valid, "n_valid": n_valid, "distinct_valid": distinct,
+            "distinct_all": distinct + int(n_valid < nb * B)}
+
+
+def gather_bound(name, extras, tl, st) -> tuple[float, str]:
+    """The least time of one gather epilogue launch: every compressed byte
+    and count/base, each distinct table row and the query read once, the
+    outputs written once; or its products at the table type's peak rate."""
+    t = extras.get("table")
+    es = t.element_size() if t is not None else 0
+    d = t.shape[1] if t is not None else 0
+    nb, B = st["nb"], st["B"]
+    if name == "bag_sum":
+        return _bound(bytes_moved=st["need"] + (st["distinct_valid"] + nb)
+                      * d * es, ops=st["n_valid"] * d,
+                      ops_per_s=F32_FLOPS_PER_S)
+    if name == "dot_score":
+        nq = extras["query"].shape[0]
+        return _bound(bytes_moved=st["need"] + st["distinct_all"] * d * es
+                      + nq * d * es + nb * B * 4 * (1 + nq),
+                      ops=2 * nb * B * nq * d,
+                      ops_per_s=(BF16_FLOPS_PER_S if tl == "bf16"
+                                 else F32_FLOPS_PER_S))
+    return _bound(bytes_moved=st["need"] + 2 * nb * B * 4, ops=st["n_valid"])
+
+
+def gather_chain(torch, name, extras, ops, st):
+    """The unfused chain: the format's decode kernel, then one PyTorch call
+    (``F.embedding_bag``; index + ``einsum``; the torch body of
+    adjacency_rebase). A yardstick, never called by the port."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.vbyte_decode import epilogues
     from repro_torch.kernels.vbyte_decode.dispatch import (CUDA_DECODERS,
                                                            DecodePlan, decode)
+
+    fmt = st["fmt"]
+    kw = dict(block_size=st["B"], differential=st["differential"])
+    leaves = [ops[k] for k in epilogues.FORMAT_OPERANDS[fmt]]
+    c, b = ops["counts"], ops["bases"]
+    t = extras.get("table")
+    if name == "bag_sum":
+        w = st["valid"].to(t.dtype)
+        return lambda: F.embedding_bag(
+            CUDA_DECODERS[fmt](*leaves, c, b, **kw), t, mode="sum",
+            per_sample_weights=w)
+    if name == "dot_score":
+        q = extras["query"]
+        eq = "tbd,d->tb" if q.shape[0] == 1 else "tbd,qd->tbq"
+        qq = q[0] if q.shape[0] == 1 else q
+        return lambda: torch.einsum(
+            eq, t[CUDA_DECODERS[fmt](*leaves, c, b, **kw)], qq)
+    return lambda: decode(ops, format=fmt, epilogue=name,
+                          epilogue_operands=extras,
+                          plan=DecodePlan("cuda", fused=False), **kw)
+
+
+def hold_gather(torch, key, name, extras, tl, ops, st, fused, plain):
+    """A gather epilogue's launch against its plain version (ids bit for
+    bit, floats by :func:`_float_close`); returns (max abs err, ulps)."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+
+    kw1 = dict(format=st["fmt"], block_size=st["B"],
+               differential=st["differential"])
+    return _hold(torch, fused(), plain(), tl,
+                 f"kernel 2 [{st['fmt']}/{key}] B={st['B']} nb={st['nb']}",
+                 terms=_terms(name, extras, st["B"]),
+                 s_abs=(_abs_sums(epilogues, ops, name, extras, kw1)
+                        if tl else None))
+
+
+def time_gather(torch, timer, key, name, extras, tl, ops, st,
+                max_err) -> dict:
+    """Hold one gather variant against its plain version, then time it (L2
+    cold) beside the bound, the plain version and the unfused chain."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+
+    kw2 = dict(format=st["fmt"], epilogue=name, block_size=st["B"],
+               differential=st["differential"])
+    fused = lambda: epilogues.fused_decode(ops, extras, **kw2)  # noqa: E731
+    plain = lambda: epilogues.fused_decode_plain(ops, extras, **kw2)  # noqa: E731
+    err, ulps = hold_gather(torch, key, name, extras, tl, ops, st, fused,
+                            plain)
+    max_err["fused_decode_float"] = max(max_err["fused_decode_float"], err)
+    chain = gather_chain(torch, name, extras, ops, st)
+    # the yardstick computes the same function (recorded, not held: it is
+    # not the port's)
+    want = plain()
+    want = want[1] if name == "dot_score" else want
+    got = chain()
+    chain_err = (float((got.float() - want.float()).abs().max())
+                 if got.is_floating_point() else float((got != want).sum()))
+    del want, got
+    bound, by = gather_bound(name, extras, tl, st)
+    return {"format": st["fmt"], "epilogue": key, "block_size": st["B"],
+            "n_blocks": st["nb"], "stride": st["stride"],
+            "differential": st["differential"], "n_ids": st["n_valid"],
+            "distinct_ids": st["distinct_valid"], "max_abs_err": err,
+            "max_bf16_ulps": ulps,
+            "ms": timer.ms(fused, reps=30),
+            "plain_ms": timer.ms(plain, reps=5),
+            "unfused_chain_ms": timer.ms(chain, reps=10),
+            "unfused_chain_max_abs_err": chain_err,
+            "bound_ms": bound, "bound_by": by}
+
+
+def gather_parity_cases(np, torch, tables, queries):
+    """bag_sum, dot_score (1- and 8-row queries) and adjacency_rebase over
+    realistic ids (the retrieval corpus's layout: sorted item ids, per-bag
+    differential, 4096 blocks of B = 128, count-0 blocks and ragged tails)
+    on each core, plus bag_sum over the embedding-bag endpoint's B = 50
+    bags. Yields ``(ops, stats, variants)``."""
+    from repro_torch.kernels.vbyte_decode import epilogues
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
@@ -566,87 +688,82 @@ def phase_gather(np, torch, timer, tables, queries, records, max_err):
         lists = _id_lists(np, rng, N_PARITY_BLOCKS, B)
         enc = _encoders()[fmt](lists, block_size=B, differential=differential)
         names = epilogues.FORMAT_OPERANDS[fmt]
-        leaves = [torch.as_tensor(np.ascontiguousarray(getattr(enc, k)),
-                                  device=dev) for k in names]
-        c = torch.as_tensor(enc.counts, device=dev)
-        b = torch.as_tensor(enc.bases.view(np.int32), device=dev)
-        ops = dict(zip(names, leaves), counts=c, bases=b)
-        nb = c.shape[0]
-        kw = dict(block_size=B, differential=differential)
-        grid = CUDA_DECODERS[fmt](*leaves, c, b, **kw)
-        valid = torch.arange(B, device=dev)[None, :] < c[:, None]
-        n_valid = int(valid.sum())
-        distinct_valid = int(torch.unique(grid[valid]).numel())
-        distinct_all = distinct_valid + int(n_valid < nb * B)  # + pad row 0
-        need = enc.payload_bytes + 8 * nb
-        eb = torch.as_tensor(rng.integers(0, 2**31, (nb, B)).astype(np.int32),
-                             device=dev)
+        ops = {k: torch.as_tensor(np.ascontiguousarray(getattr(enc, k)),
+                                  device=dev) for k in names}
+        ops["counts"] = torch.as_tensor(enc.counts, device=dev)
+        ops["bases"] = torch.as_tensor(enc.bases.view(np.int32), device=dev)
+        st = gather_stats(np, torch, fmt, ops, enc.payload_bytes, B,
+                          differential)
+        eb = torch.as_tensor(rng.integers(0, 2**31, (st["nb"], B))
+                             .astype(np.int32), device=dev)
         variants = _gather_variants(tables, queries,
                                     eb if differential else None)
         if B == BAG_BLOCK:
             variants = [v for v in variants if v[1] == "bag_sum"]
+        yield ops, st, variants
+
+
+def phase_gather(np, torch, timer, tables, queries, records, max_err):
+    """The gather epilogues at the parity shape (:func:`gather_parity_cases`),
+    held against their plain versions and timed (:func:`time_gather`)."""
+    for ops, st, variants in gather_parity_cases(np, torch, tables, queries):
         for key, name, extras, tl in variants:
-            kw1 = dict(format=fmt, **kw)
-            kw2 = dict(epilogue=name, **kw1)
-            fused = lambda: epilogues.fused_decode(ops, extras, **kw2)  # noqa: E731
-            plain = lambda: epilogues.fused_decode_plain(ops, extras, **kw2)  # noqa: E731
-            err, ulps = _hold(torch, fused(), plain(), tl,
-                              f"kernel 2 [{fmt}/{key}] B={B}",
-                              terms=_terms(name, extras, B),
-                              s_abs=(_abs_sums(epilogues, ops, name, extras,
-                                               kw1) if tl else None))
-            max_err["fused_decode_float"] = max(
-                max_err["fused_decode_float"], err)
-            t = extras.get("table")
-            es = t.element_size() if t is not None else 0
-            d = t.shape[1] if t is not None else 0
-            if name == "bag_sum":
-                w = valid.to(t.dtype)
-                chain = lambda: F.embedding_bag(  # noqa: E731
-                    CUDA_DECODERS[fmt](*leaves, c, b, **kw), t, mode="sum",
-                    per_sample_weights=w)
-                bytes_moved = need + (distinct_valid + nb) * d * es
-                n_ops, rate = n_valid * d, F32_FLOPS_PER_S
-            elif name == "dot_score":
-                q = extras["query"]
-                nq = q.shape[0]
-                eq = "tbd,d->tb" if nq == 1 else "tbd,qd->tbq"
-                qq = q[0] if nq == 1 else q
-                chain = lambda: torch.einsum(  # noqa: E731
-                    eq, t[CUDA_DECODERS[fmt](*leaves, c, b, **kw)], qq)
-                bytes_moved = (need + distinct_all * d * es + nq * d * es
-                               + nb * B * 4 * (1 + nq))
-                n_ops = 2 * nb * B * nq * d
-                rate = BF16_FLOPS_PER_S if tl == "bf16" else F32_FLOPS_PER_S
-            else:
-                chain = lambda: decode(  # noqa: E731
-                    ops, format=fmt, epilogue=name, epilogue_operands=extras,
-                    plan=DecodePlan("cuda", fused=False), **kw)
-                bytes_moved = need + 2 * nb * B * 4
-                n_ops, rate = n_valid, INT_OPS_PER_S
-            # the yardstick computes the same function (recorded, not held:
-            # it is not the port's)
-            want = plain()
-            want = want[1] if name == "dot_score" else want
-            got = chain()
-            chain_err = (float((got.float() - want.float()).abs().max())
-                         if got.is_floating_point() else
-                         float((got != want).sum()))
-            bound, by = _bound(bytes_moved=bytes_moved, ops=n_ops,
-                               ops_per_s=rate)
-            rec = {"format": fmt, "epilogue": key, "block_size": B,
-                   "n_blocks": nb, "stride": leaves[-1].shape[1],
-                   "differential": differential, "n_ids": n_valid,
-                   "distinct_ids": distinct_valid, "max_abs_err": err,
-                   "max_bf16_ulps": ulps,
-                   "ms": timer.ms(fused, reps=30),
-                   "plain_ms": timer.ms(plain, reps=5),
-                   "unfused_chain_ms": timer.ms(chain, reps=10),
-                   "unfused_chain_max_abs_err": chain_err,
-                   "bound_ms": bound, "bound_by": by}
-            suffix = "" if B == BLOCK else f"/B{B}"
-            records["fused_decode"][f"{fmt}/{key}{suffix}"] = rec
+            rec = time_gather(torch, timer, key, name, extras, tl, ops, st,
+                              max_err)
+            suffix = "" if st["B"] == BLOCK else f"/B{st['B']}"
+            records["fused_decode"][f"{st['fmt']}/{key}{suffix}"] = rec
             emit("parity_fused_decode_gather", **rec)
+
+
+def dot_path_case(np, torch, tables, queries):
+    """``dot_score`` at the two_tower path's shape: the serving corpus as
+    :func:`run_two_tower` builds it (2^20 distinct sorted candidate ids in
+    [1, GATHER_ROWS), vbyte, differential, block 128: 8,192 full blocks)
+    against the bf16 item table ``[GATHER_ROWS, 256]`` with every query
+    bucket (1, 2, 4, 8 rows) and the f32 table with 8 rows. Returns
+    ``(ops, stats, variants)``."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.core import CompressedIntArray
+
+    rng = np.random.default_rng(4)
+    n_cand = RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"]
+    cands = np.sort(rng.choice(np.arange(1, GATHER_ROWS, dtype=np.int64),
+                               n_cand, replace=False)).astype(np.uint64)
+    arr = CompressedIntArray.encode(cands, differential=True, device="cuda")
+    ops = arr.device_operands()
+    st = gather_stats(np, torch, "vbyte", ops, arr.payload_bytes, BLOCK, True)
+    if st["nb"] * BLOCK != n_cand or st["distinct_valid"] != n_cand:
+        die("dot_score path data: not 2^20 distinct ids in full blocks")
+    variants = [(f"dot_score/bf16/q{nq}", "dot_score",
+                 {"table": tables["bf16"], "query": queries["bf16"][:nq]},
+                 "bf16") for nq in DOT_PATH_ROWS]
+    variants.append(("dot_score/f32/q8", "dot_score",
+                     {"table": tables["f32"], "query": queries["f32"][:8]},
+                     "f32"))
+    return ops, st, variants
+
+
+def phase_dot_score_path(np, torch, timer, tables, queries, records,
+                         max_err):
+    """``dot_score`` at the two_tower path's shape (:func:`dot_path_case`),
+    held against its plain version and timed (:func:`time_gather`)."""
+    from repro_torch.kernels.vbyte_decode.dispatch import CUDA_DECODERS
+
+    ops, st, variants = dot_path_case(np, torch, tables, queries)
+    ids = CUDA_DECODERS["vbyte"](ops["payload"], ops["counts"], ops["bases"],
+                                 block_size=BLOCK, differential=True)
+    ids = ids.reshape(-1).long()
+    # a yardstick for the row gather alone: one index_select of the same
+    # rows (reads them and writes them once), per table
+    gather_ms = {tl: timer.ms(lambda t=t: t.index_select(0, ids), reps=10)
+                 for tl, t in tables.items()}
+    records["dot_score_path"] = {}
+    for key, name, extras, tl in variants:
+        rec = time_gather(torch, timer, key, name, extras, tl, ops, st,
+                          max_err)
+        rec["index_select_ms"] = gather_ms[tl]
+        records["dot_score_path"][key] = rec
+        emit("parity_dot_score_path", **rec)
 
 
 def _gap_bytes(np, fmt: str, gaps, counts) -> int:
@@ -1362,7 +1479,8 @@ def kernels_line(records, max_err, paths):
     def variant(r):
         return {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "max_abs_err", "unfused_chain_ms",
-                                  "max_bf16_ulps") if f in r}
+                                  "index_select_ms", "max_bf16_ulps")
+                if f in r}
 
     line = {"kernels": [
         entry("vbyte_decode_blocked", "vbyte_decode.cu", "kernel.py:167",
@@ -1378,6 +1496,9 @@ def kernels_line(records, max_err, paths):
              # times per timed variant (format/epilogue[/table/query rows]);
              # launches per format/epilogue, which is what the count keys on
              epilogues={k: variant(r) for k, r in timed.items()},
+             # dot_score at the two_tower path's corpus and buckets
+             dot_score_path={k: variant(r)
+                             for k, r in records["dot_score_path"].items()},
              # the broadcast epilogues at the search path's block counts
              probe_path={k: variant(r)
                          for k, r in records["probe_path"].items()},

@@ -53,18 +53,59 @@
 // the launch, that one round trip and the decode. Each lane writes 4
 // consecutive outputs with one 16-byte store where P % 4 == 0.
 //
-// The gather epilogues read the table (f32 or bf16, a uniform run-time
-// branch) in 16-byte chunks: lane l owns chunk l of a row (8 bf16 or 4
-// f32 values), so one d = 256 bf16 row is one coalesced 512-byte load by
-// the warp. Ids are clamped to [0, V-1] (the reference's mode="clip").
-// bag_sum accumulates each column in f32 over the block's valid slots in
-// ascending order; dot_score loads four slots' rows at a time, multiplies
-// each with every query row (held in shared memory as f32) and reduces
-// across the warp with shuffles. Each sum is rounded once, to the table's
-// type for bag_sum and to bf16 for dot_score when both operands are bf16 —
-// as the reference's bf16 sum and einsum are. wgmma, TMA and more rows in
-// flight are later work.
+// bag_sum reads the table (f32 or bf16, a uniform run-time branch) in
+// 16-byte chunks: lane l owns chunk l of a row (8 bf16 or 4 f32 values),
+// so one d = 256 bf16 row is one coalesced 512-byte load by the warp, and
+// accumulates each column in f32 over the block's valid slots in ascending
+// order. Ids are clamped to [0, V-1] (the reference's mode="clip"). Each
+// sum is rounded once, to the table's type for bag_sum and to bf16 for
+// dot_score when both operands are bf16, as the reference's bf16 sum and
+// einsum are.
+//
+// dot_score runs its own kernel (dot_kernel). What bounds it is the
+// gathered rows: one d-wide table row per slot (pad slots read row 0), 512
+// bytes at the retrieval path's bf16 d = 256, so its 2^20 slots move 512
+// MiB, 0.16 ms at 3.35 TB/s, though scattered 512-byte rows do not stream
+// at that rate (index_select of the same rows, which reads and writes
+// them, moves ~1.7 TB/s: chip_smoke.py's parity_dot_score_path). A warp
+// that loads a few rows, computes and loads again waits one round trip
+// per step, so a CTA of 4 warps serves one block: the block's bytes and the query are copied to shared memory
+// at once (cp.async), warp 0 decodes the block while the others lay out
+// the query, then each warp takes every 4th tile of 16 slots and streams
+// the tiles' rows through a ring of kDotStages stages of its own (cp.async
+// 16 bytes a lane where the rows allow, so one warp instruction moves one
+// 512-byte row; 4-byte copies or plain 2-byte loads otherwise; pad rows
+// through L1), issuing the next stages' copies before it computes on the
+// current one. At B = 128 each warp has both of its tiles in flight: 16 KB
+// a warp, 64 KB a CTA, and three CTAs of ~72 KB of shared memory fit an SM,
+// so an SM keeps up to ~190 KB of rows in flight where Little's law asks
+// ~25 KB (3.35 TB/s x ~1 us over 132 SMs). Rows wider than 512 bytes are
+// staged in chunks of at most 512 bytes (columns past d zero-filled); a
+// sum over several chunks is carried in the f32 output and rounded after
+// the last. Each staged row is padded by 16 bytes, so the 8 rows one
+// ldmatrix reads fall on different banks.
+//
+// The products run on the tensor cores (mma.sync, f32 accumulation), for
+// every pair of types. A is 16 staged rows x 32 bytes (ldmatrix.x4 from
+// the ring), B the query's slice for 8 query rows, C 16 slots x 8 query
+// rows in f32, stored as [j, q] straight from the fragment; query rows
+// past nq and columns past d are zero. bf16 table and bf16 query
+// (round_bf16, the path's case): one m16n8k16 bf16 mma a k-step, the
+// sums rounded once to bf16; where one n-tile and one chunk cover the
+// query (nq <= 8, d <= 256) its B fragments (16 k-steps x 2 registers a
+// lane at d = 256) stay in registers for the whole CTA. bf16 table, f32
+// query: the query split in three bf16 parts, three mma, every product
+// exact in f32. f32 table: rows and query split in hi + lo tf32 parts,
+// three m16n8k8 mma (hi*hi + hi*lo + lo*hi), each product to ~2^-21
+// relative, inside the f32 sums' rounding bound the scores are held to;
+// one TF32 mma alone would not be, and scalar f32 FMAs on the CUDA cores
+// held the f32 table at 1.4-1.7x the bf16 table's time at 12 warps an SM.
+// At nq <= 8 the product does ~8 flop a byte, far below the ~295 where the
+// tensor cores would bind, so mma.sync suffices (no wgmma).
+
 #include <cuda_bf16.h>
+
+#include <algorithm>
 
 #include "binpack_core.cuh"
 #include "svb_core.cuh"
@@ -88,7 +129,11 @@ enum Epilogue : int {
   kAdjacencyRebase = 10,
 };
 
-constexpr int kQueryGroup = 8;  // dot_score query rows per register pass
+constexpr int kDotTile = 16;    // dot_score slots per tile (mma's m16)
+constexpr int kDotStages = 2;   // dot_score ring stages per warp
+constexpr int kDotChunk = 512;  // dot_score staged bytes per row and stage
+constexpr int kDotCtasPerSm = 3;  // dot_score: registers for 3 CTAs an SM
+constexpr int kDotMaxStaged = 8192;  // dot_score: a block's bytes to stage
 // probe_kernel's shared memory when it stages the rows' bytes as well
 constexpr size_t kMaxProbeSmem = 96u << 10;
 
@@ -138,12 +183,6 @@ __device__ __forceinline__ void decode_any(int fmt, const uint8_t* bytes,
 }
 
 __device__ __forceinline__ uint32_t warp_sum(uint32_t x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(vbyte::kFull, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum_f(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(vbyte::kFull, x, off);
   return x;
@@ -222,115 +261,8 @@ __device__ __forceinline__ void bag_sum_row(const FusedParams& p,
   }
 }
 
-// Sum each of a lane's kQueryGroup partial dots over the warp: a
-// transposing reduction (4 + 2 + 1 shuffles split the queries between lane
-// halves, 2 more finish the sums), 9 shuffles where 8 butterflies take 40.
-// Lane l ends with query ((l >> 4) & 1) * 4 + ((l >> 3) & 1) * 2 +
-// ((l >> 2) & 1); the four lanes of a group hold the same sum.
-__device__ __forceinline__ float reduce_queries(float a[kQueryGroup], int lane) {
-  bool hi = lane & 16;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float send = hi ? a[t] : a[t + 4];
-    const float keep = hi ? a[t + 4] : a[t];
-    a[t] = keep + __shfl_xor_sync(vbyte::kFull, send, 16);
-  }
-  hi = lane & 8;
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const float send = hi ? a[t] : a[t + 2];
-    const float keep = hi ? a[t + 2] : a[t];
-    a[t] = keep + __shfl_xor_sync(vbyte::kFull, send, 8);
-  }
-  hi = lane & 4;
-  float x = (hi ? a[1] : a[0]) +
-            __shfl_xor_sync(vbyte::kFull, hi ? a[0] : a[1], 4);
-  x += __shfl_xor_sync(vbyte::kFull, x, 2);
-  x += __shfl_xor_sync(vbyte::kFull, x, 1);
-  return x;
-}
-
-// dot_score: ids[row, j] = slot j (0 past the count); scores[row, j, q] =
-// table[clip(id)] . query[q], an f32 sum rounded once to bf16 when
-// round_bf16. Pad slots score row 0, as the reference's do. kSlots rows
-// are loaded before any is used, so a warp keeps that many gathers in
-// flight. The query matrix sits in shared memory chunk-major (for query
-// q: [N/4][n_chunks][4] floats), so lane k's float4 reads of its chunk
-// fall on consecutive banks.
-constexpr int kSlots = 4;
-
-template <int N>
-__device__ __forceinline__ void dot_score_row(const FusedParams& p,
-                                              const uint32_t* slots, int cnt,
-                                              const float* q_s, long long row,
-                                              int lane) {
-  const int B = p.B;
-  const int nq = p.nq;
-  const int nk = (p.d + N - 1) / N;
-  int* ids = p.out + row * B;
-  float* sc = static_cast<float*>(p.fout) + row * B * nq;
-  for (int j = lane; j < B; j += 32)
-    ids[j] = j < cnt ? static_cast<int>(slots[j]) : 0;
-  for (int j0 = 0; j0 < B; j0 += kSlots) {
-    const char* r[kSlots];
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int j = j0 + s;
-      r[s] = table_row(p, j < cnt ? static_cast<int>(slots[j]) : 0);
-    }
-    for (int q0 = 0; q0 < nq; q0 += kQueryGroup) {
-      float acc[kSlots][kQueryGroup];
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s)
-#pragma unroll
-        for (int qi = 0; qi < kQueryGroup; ++qi) acc[s][qi] = 0.f;
-      for (int k = lane; k < nk; k += 32) {
-        float v[kSlots][N];
-#pragma unroll
-        for (int s = 0; s < kSlots; ++s) load_chunk<N>(p, r[s], k, v[s]);
-#pragma unroll
-        for (int qi = 0; qi < kQueryGroup; ++qi) {
-          if (q0 + qi >= nq) break;
-          const float4* qr =
-              reinterpret_cast<const float4*>(q_s + (q0 + qi) * nk * N);
-          float qv[N];
-#pragma unroll
-          for (int h = 0; h < N / 4; ++h) {
-            const float4 f = qr[h * nk + k];
-            qv[4 * h] = f.x;
-            qv[4 * h + 1] = f.y;
-            qv[4 * h + 2] = f.z;
-            qv[4 * h + 3] = f.w;
-          }
-#pragma unroll
-          for (int s = 0; s < kSlots; ++s)
-#pragma unroll
-            for (int i = 0; i < N; ++i)
-              acc[s][qi] = fmaf(v[s][i], qv[i], acc[s][qi]);
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        const int j = j0 + s;
-        if (j >= B) break;  // warp-uniform
-        float* o = sc + static_cast<long long>(j) * nq + q0;
-        if (nq == 1) {
-          float x = warp_sum_f(acc[s][0]);
-          if (p.round_bf16) x = __bfloat162float(__float2bfloat16_rn(x));
-          if (lane == 0) o[0] = x;
-        } else {
-          float x = reduce_queries(acc[s], lane);
-          if (p.round_bf16) x = __bfloat162float(__float2bfloat16_rn(x));
-          const int q = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
-                        ((lane >> 2) & 1);
-          if ((lane & 3) == 0 && q0 + q < nq) o[q] = x;
-        }
-      }
-    }
-  }
-}
-
-// Every epilogue but the broadcast ones (probe_kernel below).
+// Every epilogue but the broadcast ones (probe_kernel) and dot_score
+// (dot_kernel).
 template <int FMT, int EP>
 __global__ void fused_decode_kernel(FusedParams p) {
   constexpr bool kWeighted = EP == kBm25WeightedRows;
@@ -340,26 +272,9 @@ __global__ void fused_decode_kernel(FusedParams p) {
   const int B = p.B;
   uint32_t* slots = smem + warp * B;
   uint32_t* wslots = smem + (vbyte::kWarpsPerCta + warp) * B;
-  float* query_s = reinterpret_cast<float*>(
-      smem + (kWeighted ? 2 : 1) * vbyte::kWarpsPerCta * B);
-  if constexpr (EP == kDotScore) {
-    // chunk-major: element c = k*N + 4h + e of query q at
-    // q*nk*N + (h*nk + k)*4 + e, zero past d (see dot_score_row)
-    const int n = p.table_bf16 ? 8 : 4;
-    const int nk = (p.d + n - 1) / n;
-    for (int i = threadIdx.x; i < p.nq * nk * n; i += blockDim.x) {
-      const int q = i / (nk * n);
-      const int rem = i - q * nk * n;
-      const int h = rem / (nk * 4);
-      const int k = (rem - h * nk * 4) >> 2;
-      const int c = k * n + h * 4 + (rem & 3);
-      query_s[i] = c < p.d ? p.query[q * p.d + c] : 0.f;
-    }
-    __syncthreads();
-  }
   const long long row =
       static_cast<long long>(blockIdx.x) * vbyte::kWarpsPerCta + warp;
-  if (row >= p.nb) return;  // whole warp, after the CTA-wide barrier
+  if (row >= p.nb) return;  // whole warp
   const int cnt = vbyte::clamp_count(p.counts[row], B);
   decode_any(FMT, p.bytes, p.meta, row, p.S, cnt, slots, B, lane);
   if (p.differential)
@@ -374,12 +289,6 @@ __global__ void fused_decode_kernel(FusedParams p) {
       bag_sum_row<8>(p, slots, cnt, row, lane);
     } else {
       bag_sum_row<4>(p, slots, cnt, row, lane);
-    }
-  } else if constexpr (EP == kDotScore) {
-    if (p.table_bf16) {
-      dot_score_row<8>(p, slots, cnt, query_s, row, lane);
-    } else {
-      dot_score_row<4>(p, slots, cnt, query_s, row, lane);
     }
   } else if constexpr (EP == kAdjacencyRebase) {
     // differential only: the decoded id minus the edge's row base, mod 2^32
@@ -676,10 +585,435 @@ int launch_probe(const FusedParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// floats per query row in shared memory: d rounded up to whole chunks
-inline int query_width(const FusedParams& p) {
-  const int n = p.table_bf16 ? 8 : 4;
-  return (p.d + n - 1) / n * n;
+// dot_score's shared-memory plan, computed on the host (see the note at the
+// top). A staged row is `cb` bytes of a table row (a multiple of 32: whole
+// mma k-steps, and two 16-byte-aligned halves) plus 16 bytes of padding.
+struct DotLayout {
+  int cb;         // staged bytes per row and stage, <= kDotChunk
+  int nchunk;     // stages per tile: the row's bytes over cb, rounded up
+  int ksteps;     // mma k-steps (16 bf16 columns) per chunk: cb / 32
+  int qw;         // query columns: nchunk * cb / element, zero past d
+  int qs;         // query row stride in shared memory, elements: qw + 8
+  int ntiles;     // mma n-tiles (8 query rows each)
+  int copy;       // bytes per copy: 16 or 4 (cp.async), 2 (plain loads)
+  int stage;      // the block's compressed bytes are staged in shared memory
+  int off_bytes;  // byte offsets in shared memory
+  int off_query;
+  int off_ring;
+};
+
+// dot_score's product (see dot_mma_tile); kDotBf16Hold holds the query's
+// fragments in registers for the whole CTA (one n-tile, one chunk)
+enum DotMode : int {
+  kDotBf16Hold = 0,
+  kDotBf16 = 1,
+  kDotBf16x3 = 2,
+  kDotTf32x3 = 3,
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+// Stage chunk `chunk` of the table rows of tile `tile`'s 16 slots into
+// `dst` (rows cb + 16 bytes apart). Slots past the count read row 0 (as the
+// pad slots score it) through L1, where every pad slot of the SM finds it,
+// since every CTA asking the same L2 line at once would queue on it; the
+// other rows stream past L1. Slots past B and bytes past the row end read
+// 0. The cp.async copies complete at the warp's next cp.async.wait_group.
+__device__ __forceinline__ void dot_stage(const FusedParams& p,
+                                          const DotLayout& L,
+                                          const uint32_t* slots, int cnt,
+                                          int tile, int chunk, uint8_t* dst,
+                                          int lane) {
+  const int rs = L.cb + 16;
+  const long long row_bytes =
+      static_cast<long long>(p.d) * (p.table_bf16 ? 2 : 4);
+  const long long off0 = static_cast<long long>(chunk) * L.cb;
+  const char* base = static_cast<const char*>(p.table);
+#pragma unroll 4
+  for (int r = 0; r < kDotTile; ++r) {
+    const int j = tile * kDotTile + r;
+    const char* src =
+        j < p.B ? table_row(p, j < cnt ? static_cast<int>(slots[j]) : 0)
+                : nullptr;
+    uint8_t* drow = dst + r * rs;
+    if (L.copy == 16 && j < cnt) {
+      for (int i = 16 * lane; i < L.cb; i += 16 * 32) {
+        const long long o = off0 + i;
+        const int n = o < row_bytes ? 16 : 0;  // row_bytes % 16 == 0
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(drow + i)),
+                     "l"(n ? src + o : base), "r"(n));
+      }
+    } else if (L.copy == 16) {
+      for (int i = 16 * lane; i < L.cb; i += 16 * 32) {
+        const long long o = off0 + i;
+        const int n = src && o < row_bytes ? 16 : 0;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(drow + i)),
+                     "l"(n ? src + o : base), "r"(n));
+      }
+    } else if (L.copy == 4) {
+      for (int i = 4 * lane; i < L.cb; i += 4 * 32) {
+        const long long o = off0 + i;
+        const int n = src && o < row_bytes ? 4 : 0;  // row_bytes % 4 == 0
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                         smem_addr(drow + i)),
+                     "l"(n ? src + o : base), "r"(n));
+      }
+    } else {  // a bf16 table at an odd element offset, or an odd d
+      for (int i = 2 * lane; i < L.cb; i += 2 * 32) {
+        const long long o = off0 + i;
+        *reinterpret_cast<uint16_t*>(drow + i) =
+            src && o < row_bytes
+                ? __ldg(reinterpret_cast<const unsigned short*>(src + o))
+                : static_cast<uint16_t>(0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + mid + lo in bf16, exact to ~2^-24 relative: each part is the
+// rounding of what the parts before it left (an exact f32 difference)
+__device__ __forceinline__ void split_bf16(float x, float (&part)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    part[i] = __bfloat162float(__float2bfloat16_rn(x));
+    x -= part[i];
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The query's B fragment for n-tile nt and k-step ks (32 staged bytes:
+// 16 bf16 or 8 f32 columns from `col`) of lane (g, t) = (lane / 4,
+// lane % 4), from the query rows in shared memory (`qsm`, rows L.qs
+// elements apart, zero past d; rows past nq read as zero). NP = 1 (bf16
+// query): columns 2t, 2t + 1 and 8 + 2t, 8 + 2t + 1 of query row nt*8 + g,
+// two bf16 pairs read as two words from bf16 rows. NP = 3 (f32 query, bf16
+// table): the same columns' hi, mid and lo bf16 parts. tf32 (f32 table):
+// columns t and t + 4, as hi and lo tf32 parts.
+template <int MODE, int NP>
+__device__ __forceinline__ void query_frag(const DotLayout& L,
+                                           const void* qsm, int nq, int nt,
+                                           int col, int lane,
+                                           uint32_t (&b)[NP][2]) {
+  const int n = nt * 8 + (lane >> 2);
+  const int t = lane & 3;
+  const bool on = n < nq;
+  if constexpr (NP == 1) {
+    const uint32_t* r = reinterpret_cast<const uint32_t*>(
+        static_cast<const __nv_bfloat16*>(qsm) + n * L.qs + col);
+    b[0][0] = on ? r[t] : 0u;
+    b[0][1] = on ? r[t + 4] : 0u;
+    return;
+  }
+  const float* r = static_cast<const float*>(qsm) + n * L.qs + col;
+  if constexpr (MODE == kDotTf32x3) {
+    const float x[2] = {on ? r[t] : 0.f, on ? r[t + 4] : 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      b[0][e] = to_tf32(x[e]);
+      b[1][e] = to_tf32(x[e] - __uint_as_float(b[0][e]));
+    }
+  } else {
+    const int k = 2 * t;
+    const float x[4] = {on ? r[k] : 0.f, on ? r[k + 1] : 0.f,
+                        on ? r[k + 8] : 0.f, on ? r[k + 9] : 0.f};
+    float part[4][3];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_bf16(x[e], part[e]);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      b[i][0] = pack_bf16(part[0][i], part[1][i]);
+      b[i][1] = pack_bf16(part[2][i], part[3][i]);
+    }
+  }
+}
+
+// scores[row, j, q] for one staged tile and chunk, on the tensor cores:
+// per n-tile, a C fragment (16 slots x 8 queries) over the chunk's k-steps,
+// started from the earlier chunks' sum; rounded to bf16 after the last
+// chunk in the bf16 x bf16 modes.
+//   kDotBf16Hold / kDotBf16: bf16 table, bf16 query, one mma per k-step.
+//   kDotBf16x3: bf16 table, f32 query split in 3 bf16 parts: 3 mma, every
+//     product exact in f32, so the sum is as an f32 sum is.
+//   kDotTf32x3: f32 table (either query): rows and query split in hi + lo
+//     tf32 parts, hi*hi + hi*lo + lo*hi in 3 mma (m16n8k8): each product to
+//     ~2^-21 relative, inside the f32 sums' rounding bound; one TF32 mma
+//     alone (2^-11) would not be.
+template <int MODE>
+__device__ __forceinline__ void dot_mma_tile(const FusedParams& p,
+                                             const DotLayout& L,
+                                             const void* qs,
+                                             const uint32_t (&breg)[16][2],
+                                             const uint8_t* stage, int tile,
+                                             int chunk, float* sc, int lane) {
+  constexpr bool kTf32 = MODE == kDotTf32x3;
+  constexpr int NP = MODE == kDotBf16x3 ? 3 : (kTf32 ? 2 : 1);
+  constexpr bool kRound = MODE == kDotBf16Hold || MODE == kDotBf16;
+  const int rs = L.cb + 16;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m = lane >> 3;  // ldmatrix: lane l addresses row l % 8 of matrix m
+  const uint32_t a_addr =
+      smem_addr(stage + ((lane & 7) + (m & 1) * 8) * rs + (m >> 1) * 16);
+  const bool last = chunk == L.nchunk - 1;
+  const int col0 = chunk * L.cb / (kTf32 ? 4 : 2);  // the chunk's first column
+  for (int nt = 0; nt < L.ntiles; ++nt) {
+    float c[4], c2[4] = {0.f, 0.f, 0.f, 0.f};  // c2: the split's small terms
+    int idx[4];
+    bool ok[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = tile * kDotTile + g + (e >> 1) * 8;
+      const int q = nt * 8 + 2 * t + (e & 1);
+      ok[e] = j < p.B && q < p.nq;
+      idx[e] = j * p.nq + q;
+      c[e] = chunk > 0 && ok[e] ? sc[idx[e]] : 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) {
+      if (ks >= L.ksteps) break;  // uniform
+      uint32_t a[4];
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+          : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+          : "r"(a_addr + ks * 32));
+      uint32_t b[NP][2];
+      if constexpr (MODE == kDotBf16Hold) {
+        b[0][0] = breg[ks][0];
+        b[0][1] = breg[ks][1];
+      } else {
+        query_frag<MODE, NP>(L, qs, p.nq, nt,
+                             col0 + ks * (kTf32 ? 8 : 16), lane, b);
+      }
+      if constexpr (kTf32) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = __uint_as_float(a[e]);
+          hi[e] = to_tf32(x);
+          lo[e] = to_tf32(x - __uint_as_float(hi[e]));
+        }
+        mma_tf32(c2, lo, b[0][0], b[0][1]);
+        mma_tf32(c2, hi, b[1][0], b[1][1]);
+        mma_tf32(c, hi, b[0][0], b[0][1]);
+      } else {
+#pragma unroll
+        for (int i = NP - 1; i > 0; --i) mma_bf16(c2, a, b[i][0], b[i][1]);
+        mma_bf16(c, a, b[0][0], b[0][1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!ok[e]) continue;
+      const float x = c[e] + c2[e];
+      sc[idx[e]] = kRound && last ? __bfloat162float(__float2bfloat16_rn(x))
+                                  : x;
+    }
+  }
+}
+
+// dot_score: ids[row, j] = slot j (0 past the count); scores[row, j, q] =
+// table[clip(id)] . query[q], an f32 sum rounded once to bf16 when
+// round_bf16 (MODE kDotBf16Hold / kDotBf16), else left f32. Pad slots
+// score row 0, as the reference's do. One CTA of kWarpsPerCta warps
+// per block (see the note at the top).
+template <int FMT, int MODE>
+__global__ void __launch_bounds__(vbyte::kWarpsPerCta * 32, kDotCtasPerSm)
+    dot_kernel(FusedParams p, DotLayout L) {
+  // [slots B][staged bytes][query f32 [nq][qs]][ring per warp]
+  extern __shared__ __align__(16) uint8_t dot_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int B = p.B;
+  const long long row = blockIdx.x;
+  uint32_t* slots = reinterpret_cast<uint32_t*>(dot_smem);
+  void* qs = dot_smem + L.off_query;
+  // every read from device memory issued at once: the block's bytes and
+  // control or width (so the decode reads shared memory, not one round
+  // trip per 32 bytes), and the query as given, into the ring's space
+  // until the ring fills (so its layout below is built from shared memory)
+  const int m = meta_bytes(FMT, B);
+  const uint8_t* bytes = p.bytes + row * p.S;
+  const uint8_t* meta = m ? p.meta + row * m : p.meta;
+  if (L.stage) {
+    uint8_t* at = dot_smem + L.off_bytes;
+    stage_async(at, bytes, p.S, threadIdx.x, blockDim.x);
+    bytes = at;
+    if (m) {
+      stage_async(at + round16(p.S), meta, m, threadIdx.x, blockDim.x);
+      meta = at + round16(p.S);
+    }
+  }
+  const float* raw = reinterpret_cast<const float*>(dot_smem + L.off_ring);
+  stage_async(dot_smem + L.off_ring,
+              reinterpret_cast<const uint8_t*>(p.query), 4 * p.nq * p.d,
+              threadIdx.x, blockDim.x);
+  const int cnt = vbyte::clamp_count(p.counts[row], B);
+  const uint32_t base = p.differential ? static_cast<uint32_t>(p.bases[row])
+                                       : 0u;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // the query in rows L.qs elements apart, 0 past d: bf16 for a bf16
+  // query (its values are bf16), f32 otherwise; warps 1-3 lay it out
+  // while warp 0 decodes
+  constexpr bool kBf16Query = MODE == kDotBf16Hold || MODE == kDotBf16;
+  if (warp == 0) {
+    decode_any(FMT, bytes, meta, 0, p.S, cnt, slots, B, lane);
+    if (p.differential) vbyte::prefix_row(slots, B, cnt, base, lane);
+  } else {  // two columns a thread and step (qw is even)
+    for (int q = 0; q < p.nq; ++q) {
+      const float* src = raw + q * p.d;
+      for (int c = 2 * (threadIdx.x - 32); c < L.qw;
+           c += 2 * (blockDim.x - 32)) {
+        const float x0 = c < p.d ? src[c] : 0.f;
+        const float x1 = c + 1 < p.d ? src[c + 1] : 0.f;
+        if constexpr (kBf16Query) {
+          reinterpret_cast<uint32_t*>(qs)[(q * L.qs + c) >> 1] =
+              pack_bf16(x0, x1);
+        } else {
+          reinterpret_cast<float2*>(qs)[(q * L.qs + c) >> 1] =
+              make_float2(x0, x1);
+        }
+      }
+    }
+  }
+  __syncthreads();  // the copied query lies in the ring's space
+  uint32_t breg[16][2];  // kDotBf16Hold: the query's B fragments
+  if constexpr (MODE == kDotBf16Hold) {
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) {
+      uint32_t b[1][2] = {{0u, 0u}};
+      if (ks < L.ksteps) query_frag<MODE, 1>(L, qs, p.nq, 0, ks * 16, lane, b);
+      breg[ks][0] = b[0][0];
+      breg[ks][1] = b[0][1];
+    }
+  }
+  int* ids = p.out + row * B;
+  for (int j = threadIdx.x; j < B; j += blockDim.x)
+    ids[j] = j < cnt ? static_cast<int>(slots[j]) : 0;
+
+  // this warp's tiles: warp, warp + 4, ...; each in nchunk stages
+  const int n_tiles = (B + kDotTile - 1) / kDotTile;
+  const int my_tiles =
+      warp < n_tiles ? (n_tiles - warp + vbyte::kWarpsPerCta - 1) /
+                           vbyte::kWarpsPerCta
+                     : 0;
+  const int n_items = my_tiles * L.nchunk;
+  const int stage_bytes = kDotTile * (L.cb + 16);
+  uint8_t* ring = dot_smem + L.off_ring + warp * kDotStages * stage_bytes;
+  float* sc = static_cast<float*>(p.fout) + row * B * p.nq;
+  auto tile_of = [&](int i) {
+    return warp + vbyte::kWarpsPerCta * (i / L.nchunk);
+  };
+#pragma unroll
+  for (int s = 0; s < kDotStages; ++s) {
+    if (s < n_items)
+      dot_stage(p, L, slots, cnt, tile_of(s), s % L.nchunk,
+                ring + s * stage_bytes, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int i = 0; i < n_items; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDotStages - 1) : "memory");
+    __syncwarp();
+    const uint8_t* stage = ring + (i % kDotStages) * stage_bytes;
+    dot_mma_tile<MODE>(p, L, qs, breg, stage, tile_of(i), i % L.nchunk, sc,
+                       lane);
+    __syncwarp();  // every lane is done with the stage before it refills
+    const int next = i + kDotStages;
+    if (next < n_items)
+      dot_stage(p, L, slots, cnt, tile_of(next), next % L.nchunk,
+                ring + (i % kDotStages) * stage_bytes, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+}
+
+template <int FMT, int MODE>
+int launch_dot_mode(const FusedParams& p, const DotLayout& L, size_t smem,
+                    cudaStream_t stream) {
+  if (smem > (48u << 10)) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dot_kernel<FMT, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    // all of L1 to shared memory: the rows stream past L1, and three CTAs
+    // of ~72 KB fit an SM only so
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dot_kernel<FMT, MODE>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dot_kernel<FMT, MODE><<<static_cast<unsigned>(p.nb),
+                          vbyte::kWarpsPerCta * 32, smem, stream>>>(p, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int FMT>
+int launch_dot(const FusedParams& p, cudaStream_t stream) {
+  const int es = p.table_bf16 ? 2 : 4;
+  if (p.round_bf16 && !p.table_bf16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long row_bytes = static_cast<long long>(p.d) * es;
+  DotLayout L;
+  L.nchunk = static_cast<int>((row_bytes + kDotChunk - 1) / kDotChunk);
+  L.cb = (static_cast<int>((row_bytes + L.nchunk - 1) / L.nchunk) + 31) & ~31;
+  L.ksteps = L.cb / 32;
+  L.qw = L.nchunk * (L.cb / es);
+  L.qs = L.qw + 8;
+  L.ntiles = (p.nq + 7) / 8;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p.table);
+  L.copy = p.table_vec16 ? 16 : (a % 4 == 0 && row_bytes % 4 == 0 ? 4 : 2);
+  const int staged = round16(p.S) + round16(meta_bytes(FMT, p.B));
+  L.stage = staged <= kDotMaxStaged;
+  L.off_bytes = round16(p.B * 4);
+  // the query's rows in shared memory, bf16 for a bf16 query: rows
+  // (qw + 8) / 2 = 4 x odd words apart (qw / 2 is a multiple of 8), so the
+  // 8 rows one fragment read touches start on banks 4 x odd x g, and the
+  // words of lanes (g, t) fall on 32 different banks; the ring's space
+  // holds the query as given until the ring fills
+  const bool hold = p.round_bf16 && L.ntiles == 1 && L.nchunk == 1;
+  L.off_query = L.off_bytes + (L.stage ? staged : 0);
+  L.off_ring =
+      L.off_query + round16((p.round_bf16 ? 2 : 4) * p.nq * L.qs);
+  const int ring = vbyte::kWarpsPerCta * kDotStages * kDotTile * (L.cb + 16);
+  const size_t smem = L.off_ring + std::max(ring, round16(4 * p.nq * p.d));
+  if (!p.table_bf16)
+    return launch_dot_mode<FMT, kDotTf32x3>(p, L, smem, stream);
+  if (!p.round_bf16)
+    return launch_dot_mode<FMT, kDotBf16x3>(p, L, smem, stream);
+  if (hold) return launch_dot_mode<FMT, kDotBf16Hold>(p, L, smem, stream);
+  return launch_dot_mode<FMT, kDotBf16>(p, L, smem, stream);
 }
 
 template <int FMT, int EP>
@@ -687,14 +1021,15 @@ int launch(const FusedParams& p, cudaStream_t stream) {
   if constexpr (EP == kMembership || EP == kBm25Accum ||
                 EP == kBm25Weighted) {
     return launch_probe<FMT, EP>(p, stream);
+  } else if constexpr (EP == kDotScore) {
+    return launch_dot<FMT>(p, stream);
   } else {
     constexpr bool kWeighted = EP == kBm25WeightedRows;
     const dim3 grid(static_cast<unsigned>((p.nb + vbyte::kWarpsPerCta - 1) /
                                           vbyte::kWarpsPerCta));
     const dim3 block(vbyte::kWarpsPerCta * 32);
     const size_t smem =
-        sizeof(uint32_t) * (kWeighted ? 2 : 1) * vbyte::kWarpsPerCta * p.B +
-        (EP == kDotScore ? sizeof(float) * p.nq * query_width(p) : 0);
+        sizeof(uint32_t) * (kWeighted ? 2 : 1) * vbyte::kWarpsPerCta * p.B;
     fused_decode_kernel<FMT, EP><<<grid, block, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }

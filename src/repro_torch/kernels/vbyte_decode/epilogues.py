@@ -40,9 +40,10 @@ The float epilogues gather with ``mode="clip"`` (ids clamped to
 the table's for ``bag_sum``, the promoted type of table and query for
 ``dot_score`` (bf16 only when both are bf16), then cast to float32. That
 is what the reference's bf16 ``sum`` and ``einsum`` compute on the CPU.
-The kernel sums in another order than these plain versions, so the two
-agree within one bf16 ulp (bf16) or float32 rounding (f32), not bit for
-bit.
+The kernel sums in another order than these plain versions (``dot_score``
+on the tensor cores: an f32 table's products split in two TF32 parts,
+each to ~2^-21 relative), so the two agree within one bf16 ulp (bf16) or
+float32 rounding (f32), not bit for bit.
 """
 from __future__ import annotations
 

@@ -477,6 +477,142 @@ def test_kernel2_dot_score_mixed_types_and_many_queries(dev):
                             extras={"table": table, "query": q}, kw=kw)
 
 
+# dot_score's kernel (dot_kernel): the tensor-core path (bf16 table and
+# query), the f32 path (any other pair), every copy width of its ring
+DOT_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+DOT_D = (16, 36, 64, 100, 128, 256, 264)
+DOT_NQ = (1, 2, 3, 5, 8, 9, 16, 20)
+DOT_V = 5000
+
+
+def _dot_operands(dev, fmt, nb, B, *, seed, differential):
+    """Ragged blocks of ``fmt`` (every 7th count 0). Not differential: ids
+    drawn from [-40, V + 40) as uint32, so some lie below 0 and at or past
+    V; differential: sorted ids in [0, V) plus a base per block in
+    [-100, 100), so a few are clamped."""
+    rng = np.random.default_rng(seed)
+    lists = []
+    for i in range(nb):
+        n = 0 if i % 7 == 0 else int(rng.integers(1, B + 1))
+        if differential:
+            lists.append(np.sort(rng.integers(0, DOT_V, n)).astype(np.uint64))
+        else:
+            lists.append(rng.integers(-40, DOT_V + 40, n).astype(np.int64)
+                         .astype(np.uint32).astype(np.uint64))
+    enc = {"vbyte": venc, "streamvbyte": svb, "binpack": bpk}[fmt] \
+        .encode_ragged_blocked(lists, block_size=B, differential=differential)
+    ops = {k: torch.as_tensor(np.ascontiguousarray(getattr(enc, k)),
+                              device=dev)
+           for k in epilogues.FORMAT_OPERANDS[fmt] + ("counts",)}
+    bases = (rng.integers(-100, 100, nb) if differential
+             else np.zeros(nb)).astype(np.int32)
+    ops["bases"] = torch.as_tensor(bases, device=dev)
+    return ops
+
+
+def _dot_table(dev, dtype, d, *, seed, offset=0, cancel=False):
+    """``[V, d]`` on the card; ``offset`` elements into a larger buffer (so
+    the rows are not 16-byte aligned); ``cancel``: the second half of each
+    row is minus the first."""
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn(DOT_V * d + offset, generator=g)
+    t = flat[offset:].view(DOT_V, d)
+    if cancel:
+        t[:, d - d // 2:] = -t[:, :d // 2]
+    buf = flat.to(dtype).to(dev)
+    return buf[offset:].view(DOT_V, d)
+
+
+def _dot_query(dev, dtype, nq, d, *, seed, cancel=False):
+    q = torch.randn(nq, d, generator=torch.Generator().manual_seed(seed))
+    if cancel:  # halves equal: Σ x·q − Σ x·q
+        q[:, d - d // 2:] = q[:, :d // 2]
+    return q.to(dtype).to(dev)
+
+
+def _dot_matches_plain(ops, table, query, fmt, B, differential, what):
+    ex = {"table": table, "query": query}
+    kw = dict(format=fmt, epilogue="dot_score", block_size=B,
+              differential=differential)
+    before = epilogues.launches.count
+    ids, sc = epilogues.fused_decode(ops, ex, **kw)
+    assert epilogues.launches.count == before + 1, what
+    r_ids, r_sc = epilogues.fused_decode_plain(ops, ex, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, r_ids), what
+    both_bf16 = table.dtype == query.dtype == torch.bfloat16
+    _assert_float_close(sc, r_sc, torch.bfloat16 if both_bf16
+                        else torch.float32, what, ops=ops, extras=ex, kw=kw)
+
+
+@pytest.mark.parametrize("d", DOT_D)
+@pytest.mark.parametrize("pair", DOT_PAIRS, ids=lambda p: "{}-{}".format(
+    *(str(t).split(".")[-1] for t in p)))
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_kernel2_dot_score_types_widths_and_query_rows(dev, fmt, pair, d):
+    """Every core, every pair of table and query types, widths that are and
+    are not whole 16-byte chunks or 32-byte mma k-steps (264: two staged
+    chunks), 1-20 query rows (several n-tiles and query groups), ids below
+    0 and at or past V, count-0 blocks."""
+    table_dt, query_dt = pair
+    ops = _dot_operands(dev, fmt, 777, 128, seed=d, differential=False)
+    table = _dot_table(dev, table_dt, d, seed=d)
+    for nq in DOT_NQ:
+        if nq * d > epilogues.MAX_QUERY_ELEMS:
+            continue
+        q = _dot_query(dev, query_dt, nq, d, seed=nq)
+        _dot_matches_plain(ops, table, q, fmt, 128, False,
+                           (fmt, pair, d, nq))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 36, 100, 256, 264])
+def test_kernel2_dot_score_unaligned_table(dev, dtype, d):
+    """A table view one element into its buffer: rows are not 16-byte
+    aligned, so the ring is filled by 4-byte copies (f32) or 2-byte loads
+    (bf16)."""
+    ops = _dot_operands(dev, "vbyte", 300, 128, seed=5, differential=True)
+    table = _dot_table(dev, dtype, d, seed=d, offset=1)
+    assert table.is_contiguous() and table.data_ptr() % 16
+    for nq in (1, 8, 9):
+        q = _dot_query(dev, dtype, nq, d, seed=nq)
+        _dot_matches_plain(ops, table, q, "vbyte", 128, True,
+                           (dtype, d, nq))
+
+
+@pytest.mark.parametrize("nb", [1, 7, 777, 8192])
+@pytest.mark.parametrize("fmt,B", [("vbyte", 50), ("vbyte", 128),
+                                   ("streamvbyte", 52), ("streamvbyte", 128),
+                                   ("binpack", 50), ("binpack", 128)])
+def test_kernel2_dot_score_blocks_and_block_sizes(dev, fmt, B, nb):
+    """1 to 8192 blocks of B = 50 (a part tile; 52 for Stream VByte, whose
+    blocks hold a multiple of 4) and 128, differential, both paths at the
+    serving widths."""
+    ops = _dot_operands(dev, fmt, nb, B, seed=nb + B, differential=True)
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 128)):
+        table = _dot_table(dev, dtype, d, seed=1)
+        for nq in (1, 8):
+            q = _dot_query(dev, dtype, nq, d, seed=2)
+            _dot_matches_plain(ops, table, q, fmt, B, True,
+                               (fmt, B, nb, dtype, nq))
+
+
+@pytest.mark.parametrize("pair", DOT_PAIRS, ids=lambda p: "{}-{}".format(
+    *(str(t).split(".")[-1] for t in p)))
+def test_kernel2_dot_score_cancelling_sums(dev, pair):
+    """Rows and queries whose products sum to about 0: held by the f32
+    sums' rounding bound, as the plain version's own order differs."""
+    table_dt, query_dt = pair
+    ops = _dot_operands(dev, "vbyte", 300, 128, seed=11, differential=False)
+    for d in (64, 256, 264):
+        table = _dot_table(dev, table_dt, d, seed=d, cancel=True)
+        for nq in (1, 8, 9):
+            q = _dot_query(dev, query_dt, nq, d, seed=nq, cancel=True)
+            _dot_matches_plain(ops, table, q, "vbyte", 128, False,
+                               (pair, d, nq))
+
+
 def test_kernel2_bag_sum_block_50(dev):
     """The embedding-bag endpoint's layout: one bag per block of seq_len =
     50 slots (not a multiple of 32), ragged, vbyte, not differential."""

@@ -280,10 +280,10 @@ def _assert_float_parity(ref, out, dtype, msg):
                                    err_msg=msg)
 
 
-def _tables(dtype):
+def _tables(dtype, d=D, nq=3):
     rng = np.random.default_rng(42)
-    table = rng.standard_normal((VOCAB, D)).astype(np.float32)
-    query = rng.standard_normal((3, D)).astype(np.float32)
+    table = rng.standard_normal((VOCAB, d)).astype(np.float32)
+    query = rng.standard_normal((nq, d)).astype(np.float32)
     jt, tt = jnp.asarray(table), torch.tensor(table)
     jq, tq = jnp.asarray(query), torch.tensor(query)
     if dtype == "bf16":
@@ -313,30 +313,33 @@ def test_bag_sum_parity(fmt, n, zero_blocks, dtype):
         _assert_float_parity(ref, out, dtype, f"{fmt} {plan}")
 
 
-@pytest.mark.parametrize("nq", [1, 3])
+@pytest.mark.parametrize("nq", [1, 2, 3, 8, 9])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("n,zero_blocks", [(2 * B + 7, 0), (B, 2)])
 def test_dot_score_parity(fmt, n, zero_blocks, dtype, nq):
     """ids bit for bit (0 in pad slots); scores f32 within 1e-5 or bf16
     within one ulp; ``[nb, B]`` for a one-row query, ``[nb, B, nq]``
-    otherwise."""
+    otherwise; at d = 16 (whole mma k-steps) and d = 20 (not)."""
     ops, vals = _id_operands(np.random.default_rng(n + zero_blocks), fmt, n,
                              zero_blocks)
-    (jt, jq), (tt, tq) = _tables(dtype)
     kw = dict(format=fmt, block_size=B, differential=True)
-    ref_ids, ref_s = Rdispatch.decode(
-        {k: jnp.asarray(v) for k, v in ops.items()}, epilogue="dot_score",
-        epilogue_operands={"table": jt, "query": jq[:nq]}, plan="unfused",
-        **kw)
     t_ops, _ = _port(ops, {})
-    for plan in _port_plans(fmt):
-        ids, scores = Tdispatch.decode(
-            t_ops, epilogue="dot_score",
-            epilogue_operands={"table": tt, "query": tq[:nq]}, plan=plan, **kw)
-        assert_same(ref_ids, ids, f"{fmt} {plan}")
-        assert scores.dtype == torch.float32
-        _assert_float_parity(ref_s, scores, dtype, f"{fmt} {plan}")
+    for d in (D, D + 4):
+        (jt, jq), (tt, tq) = _tables(dtype, d, nq)
+        ref_ids, ref_s = Rdispatch.decode(
+            {k: jnp.asarray(v) for k, v in ops.items()}, epilogue="dot_score",
+            epilogue_operands={"table": jt, "query": jq}, plan="unfused",
+            **kw)
+        for plan in _port_plans(fmt):
+            ids, scores = Tdispatch.decode(
+                t_ops, epilogue="dot_score",
+                epilogue_operands={"table": tt, "query": tq}, plan=plan, **kw)
+            assert_same(ref_ids, ids, f"{fmt} {plan} d={d}")
+            assert scores.dtype == torch.float32
+            assert scores.shape == ((ids.shape[0], B) if nq == 1
+                                    else (ids.shape[0], B, nq))
+            _assert_float_parity(ref_s, scores, dtype, f"{fmt} {plan} d={d}")
     flat = ids.numpy().reshape(-1)
     np.testing.assert_array_equal(flat[:len(vals)], vals.astype(np.int32))
     assert not flat[len(vals):].any()  # pad slots are id 0

@@ -19,10 +19,17 @@ timing, so both take the same checks and launch arguments. Cases:
   (differential) and on unsorted ones, and kernel 2's other search
   epilogues on sorted rows, on each of the three cores;
 * path shapes — ``chip_smoke.probe_path_cases``: the broadcast epilogues
-  over 1, 4, 16 and 512 blocks gathered from a posting list, 512 probes.
+  over 1, 4, 16 and 512 blocks gathered from a posting list, 512 probes;
+* gather, parity shape — ``chip_smoke.gather_parity_cases``, vbyte core:
+  ``dot_score`` on the bf16 d = 256 and f32 d = 128 tables with 1 and 8
+  query rows, and ``bag_sum`` (both tables) and ``adjacency_rebase`` as
+  controls;
+* gather, path shape — ``chip_smoke.dot_path_case``: ``dot_score`` over
+  the two_tower corpus (8,192 full blocks) at every query bucket.
 
-Every case first holds both libraries' outputs bit for bit against the
-plain version, then times them with the L2 flushed before every launch
+Every case first holds both libraries' outputs against the plain version
+(integer outputs bit for bit, float ones within ``chip_smoke._float_close``),
+then times them with the L2 flushed before every launch
 (``chip_smoke.ColdTimer``) in the order other, this, this, other. One JSON
 line per case, then the card line; ``--out FILE`` writes the lines there
 too.
@@ -61,9 +68,30 @@ def _other_library(_build, csrc: Path, tmp: Path):
     return _build._Library("fused_decode", lib)
 
 
+def _search_case(torch, label, fmt, name, differential, ops, extras, need,
+                 n_ints):
+    kw = dict(format=fmt, epilogue=name, block_size=cs.BLOCK,
+              differential=differential)
+    nb = ops["counts"].shape[0]
+    P = extras["probe"].shape[-1] if "probe" in extras else 0
+
+    def hold(out, ref):
+        if cs._max_err(out, ref):
+            cs.die(f"kernel 2 [{fmt}/{name}] {label} differs from its plain "
+                   f"version")
+
+    def bound(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return cs._bound(bytes_moved=need + sum(4 * o.numel() for o in out),
+                         ops=need + nb * P + n_ints)
+
+    return {"shape": label, "format": fmt, "epilogue": name, "n_blocks": nb,
+            "P": P, "kw": kw, "ops": ops, "extras": extras, "hold": hold,
+            "bound": bound}
+
+
 def _parity_cases(np, torch, rng):
-    """(label, fmt, epilogue, differential, ops, extras, bytes in, ints)
-    at ``chip_smoke.py``'s parity shape."""
+    """The search epilogues at ``chip_smoke.py``'s parity shape."""
     from repro_torch.kernels.vbyte_decode import epilogues
 
     dev = torch.device("cuda")
@@ -100,16 +128,46 @@ def _parity_cases(np, torch, rng):
                     ("probe", "impact")) + (w_enc.payload_bytes
                                             if "weighted" in name else 0)
                 label = "parity" if differential else "parity/unsorted"
-                yield (label, fmt, name, differential, ops, extras, need,
-                       int(enc.counts.sum()))
+                yield _search_case(torch, label, fmt, name, differential, ops,
+                                   extras, need, int(enc.counts.sum()))
 
 
 def _path_cases(np, torch, rng):
     for fmt, nb, ops, extras, in_bytes, n_ints in cs.probe_path_cases(
             np, torch, rng):
         for name in cs.PROBE_EPILOGUES:
-            yield (f"nb{nb}", fmt, name, True, ops, extras[name],
-                   in_bytes[name], n_ints)
+            yield _search_case(torch, f"nb{nb}", fmt, name, True, ops,
+                               extras[name], in_bytes[name], n_ints)
+
+
+def _gather_case(torch, label, key, name, extras, tl, ops, st):
+    kw = dict(format=st["fmt"], epilogue=name, block_size=st["B"],
+              differential=st["differential"])
+
+    def hold(out, ref):
+        cs.hold_gather(torch, key, name, extras, tl, ops, st, lambda: out,
+                       lambda: ref)
+
+    return {"shape": label, "format": st["fmt"], "epilogue": key,
+            "n_blocks": st["nb"], "P": 0, "kw": kw, "ops": ops,
+            "extras": extras, "hold": hold,
+            "bound": lambda out: cs.gather_bound(name, extras, tl, st)}
+
+
+def _gather_cases(np, torch):
+    """dot_score and its controls on the vbyte core at the parity shape,
+    then dot_score at the path shape."""
+    tables, queries = cs._gather_tables(torch)
+    for ops, st, variants in cs.gather_parity_cases(np, torch, tables,
+                                                    queries):
+        if st["fmt"] != "vbyte" or st["B"] != cs.BLOCK:
+            continue
+        for key, name, extras, tl in variants:
+            yield _gather_case(torch, "parity", key, name, extras, tl, ops,
+                               st)
+    ops, st, variants = cs.dot_path_case(np, torch, tables, queries)
+    for key, name, extras, tl in variants:
+        yield _gather_case(torch, "path", key, name, extras, tl, ops, st)
 
 
 def main(argv=None) -> int:
@@ -142,18 +200,17 @@ def main(argv=None) -> int:
         print(json.dumps(floor), flush=True)
         cases = list(_parity_cases(np, torch, np.random.default_rng(1)))
         cases += list(_path_cases(np, torch, np.random.default_rng(3)))
-        for label, fmt, name, differential, ops, extras, need, n_ints in cases:
-            kw = dict(format=fmt, epilogue=name, block_size=cs.BLOCK,
-                      differential=differential)
+        cases += list(_gather_cases(np, torch))
+        for case in cases:
+            ops, extras, kw = case["ops"], case["extras"], case["kw"]
             ref = epilogues.fused_decode_plain(ops, extras, **kw)
-            outs = {}
             for tag, lib in (("other", other), ("this", this)):
                 _build._LOADED["fused_decode"] = lib
-                outs[tag] = epilogues.fused_decode(ops, extras, **kw)
+                out = epilogues.fused_decode(ops, extras, **kw)
                 torch.cuda.synchronize()
-                if cs._max_err(outs[tag], ref):
-                    cs.die(f"{tag} kernel 2 [{fmt}/{name}] {label} differs "
-                           f"from its plain version")
+                case["hold"](out, ref)
+            bound, by = case["bound"](out)
+            del ref, out
             turns = []
             for tag, lib in (("other", other), ("this", this),
                              ("this", this), ("other", other)):
@@ -161,22 +218,15 @@ def main(argv=None) -> int:
                 turns.append((tag, timer.ms(
                     lambda: epilogues.fused_decode(ops, extras, **kw),
                     reps=args.reps)))
-            out = outs["this"]
-            out = out if isinstance(out, tuple) else (out,)
-            out_bytes = sum(4 * o.numel() for o in out)
-            nb = ops["counts"].shape[0]
-            P = extras["probe"].shape[-1] if "probe" in extras else 0
-            bound, by = cs._bound(bytes_moved=need + out_bytes,
-                                  ops=need + nb * P + n_ints)
             other_ms = [t for tag, t in turns if tag == "other"]
             this_ms = [t for tag, t in turns if tag == "this"]
-            rec = {"shape": label, "format": fmt, "epilogue": name,
-                   "n_blocks": nb, "P": P, "other_ms": other_ms,
-                   "this_ms": this_ms,
-                   "other_mean_ms": sum(other_ms) / 2,
-                   "this_mean_ms": sum(this_ms) / 2,
-                   "speedup": sum(other_ms) / sum(this_ms),
-                   "bound_ms": bound, "bound_by": by, "card": card}
+            rec = {k: case[k] for k in ("shape", "format", "epilogue",
+                                        "n_blocks", "P")}
+            rec.update({"other_ms": other_ms, "this_ms": this_ms,
+                        "other_mean_ms": sum(other_ms) / 2,
+                        "this_mean_ms": sum(this_ms) / 2,
+                        "speedup": sum(other_ms) / sum(this_ms),
+                        "bound_ms": bound, "bound_by": by, "card": card})
             lines.append(rec)
             print(json.dumps(rec), flush=True)
     finally:
