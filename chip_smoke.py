@@ -11,9 +11,9 @@ calls, on the card, and fails (exit code ≠ 0, no result line) on any
 fault. One JSON line per phase:
 
 1. device — the card's name, count and power limit; no card: exit 2.
-2. build — the four CUDA libraries compiled from ``csrc/`` in parallel
-   (one nvcc per source), with the compiler's register / shared-memory
-   report.
+2. build — the five CUDA libraries compiled from the kernel packages'
+   ``csrc/`` in parallel (one nvcc per source), with the compiler's
+   register / shared-memory report.
 3. kernel parity — each kernel against its plain torch version on the
    same device tensors at the main path's block layout (B=128, 4096
    blocks, count-0 blocks, ragged tails, differential both ways): kernel 1
@@ -31,7 +31,10 @@ fault. One JSON line per phase:
    at the two_tower path's shape (phase ``parity_dot_score_path``: the
    serving corpus of 2^20 distinct sorted ids, 8,192 full blocks, every
    query bucket 1, 2, 4, 8 on the bf16 table and 8 rows on the f32 one).
-   Times from CUDA events with the L2 flushed before every launch.
+   Then phase ``parity_decode_scale``: kernels 1, 3 and 4 over every
+   posting of the search index (the lists of phase 4) in one launch each,
+   held bit for bit and timed beside the bound, in billions of integers a
+   second. Times from CUDA events with the L2 flushed before every launch.
 4. search paths — a ClueWeb09-sized posting index (50M-doc universe, 16
    lists from each of the paper's length groups K=12, 16, 20, Zipf tfs,
    block_size 128) built onto the card three ways, each served by
@@ -53,9 +56,16 @@ fault. One JSON line per phase:
    engine's, 5 requests against scores computed on the host.
 6. path ``gin`` — gin-tu at full width over an ogbn-products-sized graph
    made from ``--seed``, adjacency compressed: both decodes of
-   ``decode_compressed_edges``, ``forward`` and ``loss_fn``; edges held
-   bit for bit against the raw CSR and the plain plan, logits against a
-   forward over the raw adjacency.
+   ``decode_compressed_edges``, ``forward`` and ``loss_fn`` (GIN's
+   aggregation through ``owner_sum``); edges held bit for bit against the
+   raw CSR and the plain plan, a second forward's logits bit for bit
+   against the first, and the logits over the raw adjacency (the same
+   edges in CSR order) bit for bit against the compressed one's. Then
+   ``owner_sum`` at the graph's layer shapes, held bit for bit against
+   its plain version on the CPU over a sample of owners (the 64 with the
+   most edges and 2^16 more) and timed beside its bound, the plain
+   version's ops on the card and cuSPARSE SpMM; and kernel 1 over the
+   graph's gap stream.
 7. the ``kernels`` line, the card line, and the result line.
 """
 from __future__ import annotations
@@ -104,10 +114,17 @@ GATHER_EPILOGUES = ("bag_sum", "dot_score", "adjacency_rebase")
 PROBE_EPILOGUES = ("membership", "bm25_accum", "bm25_weighted")
 PATH_ROWS = (1, 4, 16, 512)
 # GIN logits over compressed vs raw adjacency, per node, relative to the
-# node's largest |logit|: the two forwards sum the same messages in
-# another order (index_add_ atomics on the card), and a changed f32 sum
-# can move a bf16 rounding by one ulp (2^-8 relative) in each of 5 layers
+# node's largest |logit|: printed as the bound a changed order of the f32
+# sums would be held to (a bf16 rounding moved by one ulp, 2^-8 relative,
+# in each of 5 layers); the run requires 0, since both forwards give
+# owner_sum the same edges in the same (CSR) order
 GIN_RTOL = 2.0**-4
+# owner_sum's plain version on the CPU over these owners of the full graph:
+# the top GIN_SAMPLE_TOP by in-degree and GIN_SAMPLE_OTHERS more
+GIN_SAMPLE_TOP = 64
+GIN_SAMPLE_OTHERS = 1 << 16
+# the search index's length groups (K -> lists; K=20's count is a flag)
+SEARCH_GROUPS = {12: 16, 16: 16}
 
 
 def emit(phase: str, **fields):
@@ -146,10 +163,11 @@ def phase_device(torch):
 # phase 2: build
 # ---------------------------------------------------------------------------
 def phase_build():
+    from repro_torch.kernels import segment_sum
     from repro_torch.kernels.vbyte_decode import _build
 
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build((*_build.SOURCES, segment_sum.SOURCE))
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          libraries={n: {"seconds": round(r.seconds, 3), "ptxas": r.ptxas}
                     for n, r in built.items()})
@@ -180,6 +198,27 @@ class ColdTimer:
         for _ in range(warmup):
             fn()
         return sum(self._once(fn) for _ in range(reps)) / reps
+
+    def ms_sync(self, fn, reps: int, warmup: int = 1) -> float:
+        """CUDA events around each call of a function that synchronises
+        with the host inside (a plain version that sizes an output from
+        device data): device time plus the host's gaps, the L2 flushed
+        before each call. For yardsticks that take milliseconds."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        total = 0.0
+        for _ in range(reps):
+            self.flush.zero_()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
 
     def _once(self, fn) -> float:
         torch = self.torch
@@ -886,6 +925,112 @@ def phase_probe_path(np, torch, timer, records, max_err):
             emit("parity_probe_path", **rec)
 
 
+DECODE_KERNELS = (("vbyte", "vbyte_decode_blocked"),
+                  ("streamvbyte", "stream_decode_blocked"),
+                  ("binpack", "binpack_decode_blocked"))
+
+
+def search_index_lists(np, seed: int, k20_lists: int) -> dict:
+    """The search paths' posting lists (``phase_main_paths`` draws the same
+    ones from the same seed): term -> sorted uint32 docids."""
+    from repro_torch.data.synthetic import CLUEWEB_DOCS
+    from repro_torch.launch.serve import search_lists
+
+    lists, _ = search_lists(np.random.default_rng(seed),
+                            {**SEARCH_GROUPS, 20: k20_lists},
+                            universe=CLUEWEB_DOCS)
+    return lists
+
+
+def decode_stats(fmt: str, ops: dict, payload_bytes: int,
+                 n_ints: int) -> dict:
+    """What a decode kernel's bound counts over these blocks: the
+    compressed bytes (``payload_bytes``: Stream VByte's control bytes and
+    binpack's width bytes included), 8 B a block of count and base, 4·B
+    output bytes a block; one operation per compressed byte (vbyte) or
+    value."""
+    nb = ops["counts"].shape[0]
+    main = ops["payload" if fmt == "vbyte" else "data"]
+    bound, by = _bound(bytes_moved=payload_bytes + 8 * nb + 4 * nb * BLOCK,
+                       ops=payload_bytes if fmt == "vbyte" else n_ints)
+    return {"format": fmt, "n_blocks": nb, "stride": main.shape[1],
+            "n_ints": n_ints, "payload_bytes": payload_bytes,
+            "bound_ms": bound, "bound_by": by}
+
+
+def scale_case(np, torch, fmt: str, lists: dict, *, stride: int = 0):
+    """Every posting of the search index in one operand set on the card:
+    each list encoded in ``fmt`` on its own (d-gaps, block 128, the docid
+    before a block as its base, as the index stores it), the lists' blocks
+    concatenated and every row padded to the widest list's stride (or to
+    ``stride``, if wider). Returns ``(ops, stats)``."""
+    from repro_torch.core import CompressedIntArray
+    from repro_torch.kernels.vbyte_decode import epilogues
+
+    names = epilogues.FORMAT_OPERANDS[fmt]
+    main = names[-1]
+    parts, payload_bytes, n_ints = [], 0, 0
+    for t in sorted(lists):
+        arr = CompressedIntArray.encode(lists[t].astype(np.uint64),
+                                        format=fmt, block_size=BLOCK,
+                                        differential=True, device="cpu")
+        parts.append(arr.leaves_numpy())
+        payload_bytes += arr.payload_bytes
+        n_ints += arr.n
+    S = max([stride] + [p[main].shape[1] for p in parts])
+    leaves = {k: np.concatenate([
+        np.pad(p[k], ((0, 0), (0, S - p[k].shape[1]))) if k == main
+        else p[k] for p in parts]) for k in names + ("counts", "bases")}
+    leaves["bases"] = leaves["bases"].view(np.int32)
+    ops = {k: torch.as_tensor(np.ascontiguousarray(v), device="cuda")
+           for k, v in leaves.items()}
+    return ops, decode_stats(fmt, ops, payload_bytes, n_ints)
+
+
+def time_decode(torch, timer, fmt: str, ops: dict, st: dict, *,
+                reps: int, plain_reps: int) -> dict:
+    """A decode kernel held bit for bit against its plain version on
+    ``ops`` (differential), then timed (L2 cold) beside both; with
+    billions of integers a second, the paper's unit."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+    from repro_torch.kernels.vbyte_decode.dispatch import CUDA_DECODERS
+
+    leaves = [ops[k] for k in epilogues.FORMAT_OPERANDS[fmt]]
+    c, b = ops["counts"], ops["bases"]
+    kw = dict(block_size=BLOCK, differential=True)
+    dec = CUDA_DECODERS[fmt]
+    plain = epilogues.PLAIN_DECODERS[fmt]
+    out, ref = dec(*leaves, c, b, **kw), plain(*leaves, c, b, **kw)
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    if err or not torch.equal(out, ref):
+        die(f"{fmt} decode differs from its plain version at "
+            f"{st['n_blocks']} blocks: max_abs_err={err}")
+    del out, ref
+    ms = timer.ms(lambda: dec(*leaves, c, b, **kw), reps=reps)
+    plain_ms = timer.ms(lambda: plain(*leaves, c, b, **kw), reps=plain_reps)
+    return {**st, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "gints_per_s": st["n_ints"] / ms / 1e6,
+            "plain_gints_per_s": st["n_ints"] / plain_ms / 1e6}
+
+
+def phase_decode_scale(np, torch, timer, records, max_err, args):
+    """Kernels 1, 3 and 4 over every posting of the search index in one
+    launch each (:func:`scale_case`): held bit for bit against their plain
+    versions and timed beside the bound; the kernels line's ``scale``."""
+    lists = search_index_lists(np, args.seed, args.k20_lists)
+    for fmt, kname in DECODE_KERNELS:
+        ops, st = scale_case(np, torch, fmt, lists)
+        rec = time_decode(torch, timer, fmt, ops, st, reps=10, plain_reps=2)
+        records[kname]["scale"] = rec
+        max_err[kname] = max(max_err[kname], rec["max_abs_err"])
+        emit("parity_decode_scale", kernel=kname, **rec)
+        del ops
+    del lists
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
@@ -936,13 +1081,15 @@ def _replay(state: dict, queries: list) -> list:
 
 
 def _launch_counters():
+    from repro_torch.kernels import segment_sum
     from repro_torch.kernels.vbyte_decode import (binpack_kernel, epilogues,
                                                   kernel, stream_kernel)
 
     return {"vbyte_decode_blocked": kernel.launches,
             "stream_decode_blocked": stream_kernel.launches,
             "binpack_decode_blocked": binpack_kernel.launches,
-            "fused_decode": epilogues.launches}
+            "fused_decode": epilogues.launches,
+            "owner_sum": segment_sum.launches}
 
 
 def _reset(torch, counters):
@@ -1140,7 +1287,7 @@ def phase_main_paths(np, torch, args) -> dict:
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    groups = {12: 16, 16: 16, 20: args.k20_lists}
+    groups = {**SEARCH_GROUPS, 20: args.k20_lists}
     lists, tfs = search_lists(rng, groups, universe=CLUEWEB_DOCS)
     # one query stream over the index's terms (the lists' keys); each path
     # serves its first queries
@@ -1331,7 +1478,8 @@ def run_gin(np, torch, args) -> dict:
     graph made from ``--seed`` at the ogbn-products shape (2,449,029 nodes,
     61,859,140 edges, d_feat 100, 47 classes), adjacency compressed
     (vbyte, block 128): both decodes of ``decode_compressed_edges``, the
-    forward pass and the loss."""
+    forward pass and the loss; then owner_sum and kernel 1 held and timed
+    at the graph's shapes."""
     from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.data.graph import compress_adjacency
     from repro_torch.data.sampler import CSRGraph
@@ -1401,14 +1549,17 @@ def run_gin(np, torch, args) -> dict:
          loss_fn_ms=round(t_loss * 1e3, 3), loss=float(loss),
          accuracy=float(metrics["accuracy"]), peak_device_bytes=peak,
          launches=launches)
-    if not by.get("vbyte/adjacency_rebase") or not launches[
-            "vbyte_decode_blocked"]:
-        die(f"gin did not launch kernel 2's adjacency_rebase and kernel 1: "
-            f"{launches}")
+    if not (by.get("vbyte/adjacency_rebase") and launches[
+            "vbyte_decode_blocked"] and launches["owner_sum"]):
+        die(f"gin did not launch kernel 2's adjacency_rebase, kernel 1 and "
+            f"owner_sum: {launches}")
 
     # checks: both decodes equal the raw CSR bit for bit; the plain torch
-    # plan decodes the same edges; logits over the compressed and the raw
-    # adjacency agree within the stated tolerance
+    # plan decodes the same edges; a second forward gives the same bits;
+    # logits over the compressed and the raw adjacency are equal. The raw
+    # batch holds the edges out of CSR order, owners interleaved at random
+    # and each owner's edges in their CSR order, so the forward's stable
+    # sort by owner must give the compressed path's (src, owner) order back
     t0 = time.perf_counter()
     for label, (nb_, ow_) in (("fused", (nbr_f, own_f)),
                               ("legacy", (nbr_l, own_l))):
@@ -1422,18 +1573,36 @@ def run_gin(np, torch, args) -> dict:
             die("gin: the kernel plan and the torch plan decode different "
                 "edges")
         del nb_, ow_
-    raw = {"feats": feats, "labels": labels, "edge_src": raw_nbr,
-           "edge_dst": own}
+    with torch.inference_mode():
+        again = gnn.forward(params, batch, cfg)
+    if not torch.equal(again, logits):
+        die("gin: two forwards over the same batch differ")
+    del again
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    key = torch.rand(E, generator=gen, dtype=torch.float64, device="cuda")
+    # the same random keys, ascending within each owner (own is CSR order)
+    key = torch.sort(own.double() + key).values - own.double()
+    perm = torch.sort(key, stable=True).indices
+    del key
+    raw = {"feats": feats, "labels": labels, "edge_src": raw_nbr[perm],
+           "edge_dst": own[perm]}
+    del perm
+    dst = raw["edge_dst"]
+    interleaved = bool((dst[1:] < dst[:-1]).any())
+    if not interleaved:
+        die("gin: the raw batch's edges are still in CSR order")
     raw_cfg = dataclasses.replace(cfg, compressed_adjacency=False)
     with torch.inference_mode():
         logits_raw = gnn.forward(params, raw, raw_cfg)
     finite = bool(torch.isfinite(logits).all() and torch.isfinite(loss))
     row_max = logits_raw.abs().amax(dim=1).clamp(min=1e-6)
     rel = float(((logits - logits_raw).abs().amax(dim=1) / row_max).max())
-    if not finite or logits.shape != (N, cfg.n_classes) or rel > GIN_RTOL:
+    if not finite or logits.shape != (N, cfg.n_classes) or rel != 0.0:
         die(f"gin: logits finite={finite} shape={tuple(logits.shape)}, "
-            f"compressed vs raw adjacency rel err {rel} > {GIN_RTOL}")
+            f"compressed vs raw adjacency rel err {rel} (0 required; "
+            f"bound {GIN_RTOL})")
     emit("gin_parity", edges_equal=True, plans_equal=True,
+         forwards_equal=True, raw_edges_interleaved=interleaved,
          logits_rel_err=rel, logits_rtol=GIN_RTOL,
          logits_max_abs=float(logits_raw.abs().max()),
          seconds=round(time.perf_counter() - t0, 3))
@@ -1442,13 +1611,128 @@ def run_gin(np, torch, args) -> dict:
         share = _profile(torch, "gin",
                          lambda: gnn.forward(params, batch, cfg), 1,
                          unit="forwards")
+    kernels = gin_kernels(np, torch, comp, nbr_f, feats, cfg, args)
     seconds = time.perf_counter() - t_path
     emit("path_done", path="gin", seconds=round(seconds, 3))
     del params, batch, comp, gaps, feats, labels, logits, nbr_f, own_f
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "seconds": seconds, "peak": peak,
-            "busy_share": share}
+            "busy_share": share, **kernels}
+
+
+def _owner_sample(np, torch, ro, n_top: int, n_others: int, seed: int):
+    """Owners: the ``n_top`` with the most edges and ``n_others`` drawn
+    from the rest; their edges' indices into the CSR arrays, and the
+    sample's own row offsets (host tensors)."""
+    deg = (ro[1:] - ro[:-1]).to(torch.int64)
+    n = deg.numel()
+    top = torch.sort(deg, descending=True, stable=True).indices[:n_top]
+    rest = np.setdiff1d(np.arange(n), top.numpy())
+    pick = np.random.default_rng(seed).choice(
+        rest, min(n_others, rest.size), replace=False)
+    owners = torch.as_tensor(np.sort(np.concatenate([top.numpy(), pick])))
+    lens = deg[owners]
+    sub_ro = torch.zeros(owners.numel() + 1, dtype=torch.int64)
+    sub_ro[1:] = lens.cumsum(0)
+    starts = ro[owners].to(torch.int64)
+    e_idx = (torch.repeat_interleave(starts - sub_ro[:-1], lens)
+             + torch.arange(int(sub_ro[-1])))
+    return owners, e_idx, sub_ro
+
+
+def gin_kernels(np, torch, comp, src, feats, cfg, args) -> dict:
+    """owner_sum at the graph's two layer shapes (layer 1: bf16 features
+    of d_feat; later layers: bf16 of d_hidden; f32 sums): equal bit for
+    bit to its plain version on the CPU over a sample of owners (the top
+    GIN_SAMPLE_TOP by in-degree and GIN_SAMPLE_OTHERS more), and timed
+    beside its bound, the plain version's ops on the card and cuSPARSE
+    SpMM (``torch.sparse_csr_tensor(row_offsets, src, edge_valid) @ h`` in
+    f32: a yardstick, never called by the port); also timed on the top
+    owner's edges alone and on the same edges spread evenly over the
+    owners. Then kernel 1 over the graph's gap stream (the legacy
+    decode's launch)."""
+    from repro_torch.kernels.segment_sum import (owner_sum, owner_sum_plain,
+                                                 segments)
+
+    timer = ColdTimer(torch)
+    ro = comp["row_offsets"]
+    valid = comp["edge_valid"]
+    seg = segments(ro)
+    N, E = feats.shape[0], src.numel()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    shapes = {"layer1": feats.to(torch.bfloat16),
+              "layer2_5": torch.randn(N, cfg.d_hidden, device="cuda",
+                                      generator=gen).to(torch.bfloat16)}
+    owners, e_idx, sub_ro = _owner_sample(np, torch, ro.cpu(), GIN_SAMPLE_TOP,
+                                          GIN_SAMPLE_OTHERS, args.seed)
+    src_m = torch.where(valid, src, -1)  # masked: -1, as the forward has it
+    sub_src = src_m.cpu()[e_idx]
+    # where the time goes: the top owner's edges alone (its CTAs split by
+    # features), and the same edges spread evenly over the owners
+    deg = ro[1:] - ro[:-1]
+    top = int(torch.argmax(deg))
+    top_edges = int(deg[top])
+    ro_top = torch.zeros_like(ro)
+    ro_top[top + 1:] = top_edges
+    seg_top = segments(ro_top)
+    src_top = src_m[int(ro[top]):int(ro[top + 1])].contiguous()
+    even = torch.full((N,), E // N, dtype=torch.int64, device="cuda")
+    even[:E - int(even.sum())] += 1
+    ro_even = torch.zeros_like(ro)
+    ro_even[1:] = even.cumsum(0).to(ro.dtype)
+    seg_even = segments(ro_even)
+    del even
+    recs = {}
+    for label, h in shapes.items():
+        out = owner_sum(h, src_m, seg)
+        want = owner_sum_plain(h.cpu(), sub_src, sub_ro)
+        got = out[owners.to("cuda")].cpu()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            die(f"owner_sum {label} differs from its plain version on the "
+                f"sampled owners")
+        d = h.shape[1]
+        n_valid = int(valid.sum())
+        bound, by = _bound(bytes_moved=n_valid * d * h.element_size()
+                           + 4 * E + 4 * (N + 1) + 4 * N * d,
+                           ops=n_valid * d, ops_per_s=F32_FLOPS_PER_S)
+        hf = h.float()
+        spm = torch.sparse_csr_tensor(ro, src, valid.float(), size=(N, N))
+        lib = spm @ hf
+        lib_err = float((lib - out).abs().max())
+        del lib
+        recs[label] = {
+            "n_owners": N, "n_edges": E, "d": d, "h_dtype": "bfloat16",
+            "accumulate": "float32", "max_abs_err": 0,
+            "sampled_owners": int(owners.numel()),
+            "sampled_edges": int(e_idx.numel()),
+            "ms": timer.ms(lambda: owner_sum(h, src_m, seg), reps=5),
+            # the plain version sizes its outputs from device data (a
+            # host synchronisation) and so may cuSPARSE: timed with ms_sync
+            "plain_ms": timer.ms_sync(
+                lambda: owner_sum_plain(h, src_m, ro), reps=2),
+            "library_ms": timer.ms_sync(lambda: spm @ hf, reps=5),
+            "library": "cuSPARSE SpMM, f32 values and h",
+            "library_max_abs_err": lib_err,
+            "bound_ms": bound, "bound_by": by,
+            "top_owner_edges": top_edges,
+            "top_owner_ms": timer.ms(lambda: owner_sum(h, src_top, seg_top),
+                                     reps=5),
+            "even_degrees_ms": timer.ms(lambda: owner_sum(h, src_m, seg_even),
+                                        reps=5)}
+        emit("parity_owner_sum", shape=label, **recs[label])
+        del out, hf, spm
+    gaps = comp["gaps"]
+    ops = gaps.device_operands()
+    st = decode_stats("vbyte", ops, gaps.payload_bytes, gaps.n)
+    gin_gaps = time_decode(torch, timer, "vbyte", ops, st, reps=5,
+                           plain_reps=1)
+    emit("parity_decode_gin_gaps", kernel="vbyte_decode_blocked", **gin_gaps)
+    del shapes, timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"owner_sum": recs, "gin_gaps": gin_gaps}
 
 
 # ---------------------------------------------------------------------------
@@ -1466,7 +1750,7 @@ def kernels_line(records, max_err, paths):
     timed = records["fused_decode"]
     head = max(timed, key=lambda k: (by.get(k, 0), k))
 
-    def entry(name, source, replaces, rec):
+    def entry(name, source, replaces, rec, *, src=src, ref=ref):
         launches = {p: v["launches"][name] for p, v in paths.items()}
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": ref + replaces,
@@ -1479,12 +1763,27 @@ def kernels_line(records, max_err, paths):
     def variant(r):
         return {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "max_abs_err", "unfused_chain_ms",
-                                  "index_select_ms", "max_bf16_ulps")
+                                  "index_select_ms", "max_bf16_ulps",
+                                  "n_blocks", "stride", "n_ints",
+                                  "gints_per_s", "plain_gints_per_s",
+                                  "library_ms", "d")
                 if f in r}
 
+    def decode_entry(name, source, replaces):
+        # the parity shape's times, and the whole search index in one
+        # launch (phase parity_decode_scale)
+        return dict(entry(name, source, replaces,
+                          records[name]["S128/diff=1"]),
+                    scale=variant(records[name]["scale"]))
+
+    gin = paths["gin"]
+    owner = gin["owner_sum"]["layer1"]
+    max_err = {**max_err, "owner_sum": max(
+        r["max_abs_err"] for r in gin["owner_sum"].values())}
     line = {"kernels": [
-        entry("vbyte_decode_blocked", "vbyte_decode.cu", "kernel.py:167",
-              records["vbyte_decode_blocked"]["S128/diff=1"]),
+        dict(decode_entry("vbyte_decode_blocked", "vbyte_decode.cu",
+                          "kernel.py:167"),
+             gin_gaps=variant(gin["gin_gaps"])),
         dict(entry("fused_decode", "fused_decode.cu", "epilogues.py:383",
                    timed[head]),
              max_abs_err=max(max_err["fused_decode"],
@@ -1504,17 +1803,26 @@ def kernels_line(records, max_err, paths):
                          for k, r in records["probe_path"].items()},
              launches_by_epilogue={k: {"total": v, "by_path": by_path[k]}
                                    for k, v in sorted(by.items())}),
-        entry("stream_decode_blocked", "stream_decode.cu",
-              "stream_kernel.py:234",
-              records["stream_decode_blocked"]["S128/diff=1"]),
-        entry("binpack_decode_blocked", "binpack_decode.cu",
-              "binpack_kernel.py:119",
-              records["binpack_decode_blocked"]["S128/diff=1"]),
-    ], "library_ms_note": "no single PyTorch call computes any of these "
+        decode_entry("stream_decode_blocked", "stream_decode.cu",
+                     "stream_kernel.py:234"),
+        decode_entry("binpack_decode_blocked", "binpack_decode.cu",
+                     "binpack_kernel.py:119"),
+        dict(entry("owner_sum", "owner_sum.cu", "nn/gnn.py:45", owner,
+                   src="src/repro_torch/kernels/segment_sum/csrc/",
+                   ref="src/repro/"),
+             replaces_note="jax.ops.segment_sum (an XLA scatter-add; the "
+                           "reference has no pallas_call there)",
+             library_ms=owner["library_ms"], library=owner["library"],
+             shapes={k: variant(r) for k, r in gin["owner_sum"].items()}),
+    ], "library_ms_note": "no single PyTorch call computes any of the "
                           "decodes; the gather epilogues' unfused_chain_ms "
-                          "is decode kernel + one PyTorch call",
+                          "is decode kernel + one PyTorch call; owner_sum's "
+                          "library_ms is cuSPARSE SpMM in f32",
         "shapes": "B=128, stride 128, 4096 blocks, differential, cold L2; "
-                  "gather tables [8389120, 256] bf16 and [8389120, 128] f32"}
+                  "gather tables [8389120, 256] bf16 and [8389120, 128] f32; "
+                  "decode scale: every search-index posting in one launch; "
+                  "owner_sum: the gin graph's layer 1 (bf16 [N, 100], f32 "
+                  "sums)"}
     print(json.dumps(line), flush=True)
 
 
@@ -1551,6 +1859,7 @@ def main(argv=None) -> int:
     phase_build()
     timer = ColdTimer(torch)
     records, max_err = phase_parity(np, torch, timer)
+    phase_decode_scale(np, torch, timer, records, max_err, args)
     del timer
     gc.collect()
     torch.cuda.empty_cache()

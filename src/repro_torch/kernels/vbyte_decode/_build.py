@@ -1,16 +1,20 @@
 """Build and load the hand-written CUDA kernels of this package.
 
-Each ``csrc/*.cu`` file is compiled on first use by ``nvcc`` into its own
-shared library with a plain C interface, and loaded with ``ctypes``:
+Each ``<kernels package>/csrc/*.cu`` file is compiled on first use by
+``nvcc`` into its own shared library with a plain C interface, and loaded
+with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the sources it was built from, so an
-edited kernel is rebuilt and a stale library is never loaded. Libraries
-go to ``build/`` beside this file (listed in ``.gitignore``). Nothing here
-runs at import time: the CPU-only test environment imports every module
-and has no ``nvcc``.
+A source is named by its file's stem and its directory: this package's
+``csrc/`` (``CSRC``) by default, or another kernels package's, which
+passes its own (``kernels/segment_sum`` for ``owner_sum``). The library
+name carries a hash of the sources it was built from, so an edited kernel
+is rebuilt and a stale library is never loaded. Libraries go to
+``build/`` beside the source directory (listed in ``.gitignore``).
+Nothing here runs at import time: the CPU-only test environment imports
+every module and has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -24,7 +28,6 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,11 +58,21 @@ SIGNATURES = {
                                 _P, _LL, _I, _I, _P, _I, _I, _P,
                                 _P, _P, _P, _P],
     },
+    "owner_sum": {
+        # h, ld, d, h_bf16, gran, src, row_offsets, order, n_long,
+        # n_owners, lanes, out, out_ld, round_bf16, counter, stream
+        "owner_sum_launch": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL,
+                             _I, _P, _LL, _I, _P, _P],
+    },
 }
+# this package's sources, as build() takes them
+SOURCES = tuple((name, CSRC) for name in ("vbyte_decode", "stream_decode",
+                                          "binpack_decode", "fused_decode"))
 ERROR_STRING = {"vbyte_decode": "vbyte_error_string",
                 "stream_decode": "stream_error_string",
                 "binpack_decode": "binpack_error_string",
-                "fused_decode": "fused_error_string"}
+                "fused_decode": "fused_error_string",
+                "owner_sum": "owner_sum_error_string"}
 
 
 @dataclass
@@ -102,29 +115,30 @@ def _nvcc() -> str:
     return cand
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, csrc: Path) -> Path:
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted(csrc.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return csrc.parent / "build" / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=tuple(SIGNATURES)) -> dict[str, BuildResult]:
-    """Compile every named source that is not built yet, all at once (one
-    ``nvcc`` process per source, started together). Raises if one fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build(sources=SOURCES) -> dict[str, BuildResult]:
+    """Compile every ``(name, csrc)`` source (``csrc/<name>.cu``) that is
+    not built yet, all at once (one ``nvcc`` process per source, started
+    together). Raises if one fails."""
     nvcc = None
     procs = {}
     done = {}
-    for name in names:
-        path = _lib_path(name)
+    for name, src_dir in sources:
+        path = _lib_path(name, src_dir)
         if path.exists():
             done[name] = BuildResult(name, path, 0.0, [])
             continue
+        path.parent.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc or _nvcc()
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src_dir / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path, time.perf_counter())
@@ -160,12 +174,14 @@ class _Library:
                 f"{fn} failed: {self._err(code).decode()} (cudaError {code})")
 
 
-_LOADED: dict[str, _Library] = {}
+_LOADED: dict[tuple[str, Path], _Library] = {}
 
 
-def library(name: str) -> _Library:
-    """The built and loaded library for ``csrc/<name>.cu`` (built on first use)."""
-    lib = _LOADED.get(name)
+def library(name: str, csrc: Path = CSRC) -> _Library:
+    """The built and loaded library for ``<csrc>/<name>.cu`` (built on
+    first use)."""
+    key = (name, csrc)
+    lib = _LOADED.get(key)
     if lib is None:
-        lib = _LOADED[name] = _Library(name, build((name,))[name].path)
+        lib = _LOADED[key] = _Library(name, build((key,))[name].path)
     return lib

@@ -45,4 +45,30 @@ __device__ __forceinline__ void decode_row(const uint8_t* __restrict__ width,
   __syncwarp();
 }
 
+// The same values from a row staged in shared memory (kernel 4): `row` is
+// 16-byte aligned and holds the S data bytes followed by at least 8 zero
+// bytes. Value j is the 32 bits of the byte stream from bit byte0·8 +
+// (j·w & 7), byte0 = min(j·w >> 3, S-1) — the 40-bit window above shifted
+// and cut to 32 bits — read from two 32-bit words with one funnel shift.
+// Bytes at or past S are the zero padding. Lanes write slots lane,
+// lane+32, ... (0 for j >= cnt).
+__device__ __forceinline__ void decode_staged_row(const uint8_t* row, int S,
+                                                  int w, int cnt,
+                                                  uint32_t* slots, int B,
+                                                  int lane) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(row);
+  const uint32_t mask = (w >= 32) ? 0xffffffffu : ((1u << w) - 1u);
+  for (int j = lane; j < B; j += 32) {
+    uint32_t v = 0u;
+    if (j < cnt) {
+      const int bitpos = j * w;
+      const int start = min(bitpos >> 3, S - 1) * 8 + (bitpos & 7);
+      const int i = start >> 5;
+      v = __funnelshift_r(words[i], words[i + 1], start & 31) & mask;
+    }
+    slots[j] = v;
+  }
+  __syncwarp();
+}
+
 }  // namespace binpack

@@ -167,7 +167,66 @@ def decode(
     if epilogue == "stream":
         return _decode_grid(operands, plan=p, **kw)
     if p.fused and p.path == "cuda":
-        return eplib.fused_decode(operands, extras, epilogue=epilogue, **kw)
+        return _fused_within_limits(operands, extras, epilogue=epilogue,
+                                    plan=p, **kw)
     # torch fused (one torch pass on the device) or unfused: grid, then body
     grid = _decode_grid(operands, plan=p, **kw)
     return eplib.apply_grid(epilogue, grid, operands["counts"], extras)
+
+
+def _query_elems(table: torch.Tensor, d: int) -> int:
+    """A dot_score query row's elements in kernel 2's shared memory: ``d``
+    rounded up to whole 16-byte chunks of the table's type."""
+    chunk = 8 if table.dtype == torch.bfloat16 else 4
+    return -(-d // chunk) * chunk
+
+
+def _fused_within_limits(operands: dict, extras: dict, *, epilogue: str,
+                         plan: DecodePlan, format: str, block_size: int,
+                         differential: bool):
+    """Kernel 2 for every input the reference serves. Kernel 2 holds a
+    broadcast probe set of at most ``MAX_PROBE_WIDTH`` and a ``dot_score``
+    query of at most ``MAX_QUERY_ELEMS`` in shared memory; past those the
+    work is split across launches, chosen from the shapes alone:
+
+    * broadcast probes: contiguous column slices of the probe set (each
+      still sorted), outputs concatenated along the probe axis — every
+      output column depends on its own probe only;
+    * ``dot_score``: groups of query rows that fit, ids taken from the
+      first launch and the f32 scores stacked along the query axis;
+    * a single query row too wide for the kernel: the unfused plan (the
+      format's decode kernel, then the torch body), as the reference does
+      past its VMEM budget.
+    """
+    kw = dict(format=format, block_size=block_size, differential=differential)
+    ep = eplib.get_epilogue(epilogue)
+    probe = extras.get("probe")
+    if (probe is not None and "probe" not in ep.tiled_extras
+            and probe.shape[-1] > eplib.MAX_PROBE_WIDTH):
+        W = eplib.MAX_PROBE_WIDTH
+        probe = probe.reshape(1, -1)
+        return torch.cat([
+            eplib.fused_decode(operands, {**extras,
+                                          "probe": probe[:, s:s + W]
+                                          .contiguous()},
+                               epilogue=epilogue, **kw)
+            for s in range(0, probe.shape[-1], W)], dim=1)
+    if epilogue == "dot_score":
+        table, query = extras["table"], extras["query"]
+        d = query.shape[-1]
+        rows = query.reshape(-1, d)
+        per_row = _query_elems(table, d)
+        if per_row > eplib.MAX_QUERY_ELEMS:
+            grid = _decode_grid(operands, plan=plan, **kw)
+            return eplib.apply_grid(epilogue, grid, operands["counts"],
+                                    extras)
+        fit = eplib.MAX_QUERY_ELEMS // per_row
+        if rows.shape[0] > fit:
+            outs = [eplib.fused_decode(operands,
+                                       {"table": table,
+                                        "query": rows[s:s + fit]},
+                                       epilogue=epilogue, **kw)
+                    for s in range(0, rows.shape[0], fit)]
+            scores = [s if s.dim() == 3 else s[..., None] for _, s in outs]
+            return outs[0][0], torch.cat(scores, dim=2)
+    return eplib.fused_decode(operands, extras, epilogue=epilogue, **kw)

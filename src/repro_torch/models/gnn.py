@@ -18,6 +18,8 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels.segment_sum import (owner_sum, segments,
+                                             segments_from_owners)
 from repro_torch.nn import layers as nnl
 from repro_torch.nn.gnn import (GINLayer, decode_compressed_edges, gin_layer,
                                 gin_layer_init)
@@ -68,15 +70,21 @@ def init_params(cfg: GNNConfig, *, generator: torch.Generator | None = None,
                torch.zeros(cfg.n_classes, device=generator.device))
 
 
-def _edges_from_batch(batch, cfg: GNNConfig):
+def _edges_from_batch(batch, cfg: GNNConfig, n_nodes: int):
+    """``(src, segments, edge_valid)``: the edges grouped by owner (the
+    node that receives the message), each owner's edges in batch order."""
+    edge_valid = batch.get("edge_valid")
     if cfg.compressed_adjacency:
         n_edges = batch["edge_valid"].shape[0]  # edge capacity
-        nbr, owner = decode_compressed_edges(
+        # CSR order already: (neighbor = src of the message, list owner)
+        nbr, _ = decode_compressed_edges(
             batch["gaps"], batch["row_offsets"], n_edges,
             row_gap_bases=batch.get("row_gap_bases"), plan=cfg.decode_plan)
-        # messages flow from the neighbor (src) into the list owner (dst)
-        return nbr, owner, batch.get("edge_valid")
-    return batch["edge_src"], batch["edge_dst"], batch.get("edge_valid")
+        return nbr, segments(batch["row_offsets"].to(nbr.device)), edge_valid
+    # raw edges: one stable sort by owner per forward
+    perm, seg = segments_from_owners(batch["edge_dst"], n_nodes)
+    src = batch["edge_src"].to(torch.int32)[perm]
+    return src, seg, None if edge_valid is None else edge_valid[perm]
 
 
 def forward(params: GIN, batch, cfg: GNNConfig, *,
@@ -86,18 +94,17 @@ def forward(params: GIN, batch, cfg: GNNConfig, *,
     agg_dtype = torch.bfloat16 if cfg.agg_dtype == "bf16" else torch.float32
     h = batch["feats"].to(dtype)
     n_nodes = h.shape[0]
-    src, dst, edge_valid = _edges_from_batch(batch, cfg)
+    src, seg, edge_valid = _edges_from_batch(batch, cfg, n_nodes)
+    if edge_valid is not None:  # masked edges as source -1, once per forward
+        src = torch.where(edge_valid, src, -1)
     for layer in params.layers:
-        h = gin_layer(layer, h, src, dst, n_nodes=n_nodes,
-                      edge_valid=edge_valid, dtype=dtype, agg_dtype=agg_dtype)
+        h = gin_layer(layer, h, src, seg, dtype=dtype, agg_dtype=agg_dtype)
     if cfg.task == "graph":
-        # sum-pool readout per graph (n_graphs = the label count), summed
-        # in float32 and rounded once (the reference's bf16 segment_sum
-        # rounds after every add on the CPU)
-        pooled = torch.zeros((batch["labels"].shape[0], h.shape[1]),
-                             dtype=torch.float32, device=h.device)
-        h = pooled.index_add_(0, batch["graph_ids"].to(torch.int64),
-                              h.float()).to(h.dtype)
+        # sum-pool readout per graph (n_graphs = the label count), in h's
+        # type, rounded after every add as the reference's segment_sum
+        perm, gseg = segments_from_owners(batch["graph_ids"],
+                                          batch["labels"].shape[0])
+        h = owner_sum(h, perm.to(torch.int32), gseg, accumulate=h.dtype)
     logits = h @ params.head_w.to(dtype) + params.head_b.to(dtype)
     return logits.float()
 

@@ -1,11 +1,13 @@
 """GIN message passing over an edge list, and the decode of compressed
 adjacency.
 
-The port of ``repro/nn/gnn.py``. Messages are gathered from the source
-nodes and summed into the destinations with ``index_add_`` (on the card,
-atomics: the order of the float sums changes from run to run).
-Adjacency arrives as raw ``(src, dst)`` or as a VByte-compressed gap
-stream decoded on the device by :func:`decode_compressed_edges`.
+The port of ``repro/nn/gnn.py``. Each node's incoming messages are
+summed by ``kernels.segment_sum.owner_sum`` over edges grouped by owner
+(CSR order), in edge order: the reference's ``segment_sum`` order, the
+same bits on every run, and no ``[E, d]`` message tensor. Adjacency
+arrives as raw ``(src, dst)``, grouped once per forward
+(``segments_from_owners``), or as a VByte-compressed gap stream decoded
+on the device by :func:`decode_compressed_edges`, already in CSR order.
 
 The reference's ``constrain`` calls are sharding annotations for its
 device mesh; one card has no counterpart, so they are dropped.
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.vbyte.masked import to_i32_bits
+from repro_torch.kernels.segment_sum import Segments, owner_sum
 from repro_torch.kernels.vbyte_decode.ops import as_i32_bits
 
 from .layers import DEFAULT_COMPUTE_DTYPE, _param, dense_init
@@ -34,11 +37,10 @@ class GINLayer(nn.Module):
         self.mlp2 = _param(mlp2)
         self.b2 = _param(b2)
 
-    def forward(self, h, src, dst, *, n_nodes: int, edge_valid=None,
+    def forward(self, h, src, seg: Segments, *, edge_valid=None,
                 dtype=DEFAULT_COMPUTE_DTYPE, agg_dtype=torch.float32):
-        return gin_layer(self, h, src, dst, n_nodes=n_nodes,
-                         edge_valid=edge_valid, dtype=dtype,
-                         agg_dtype=agg_dtype)
+        return gin_layer(self, h, src, seg, edge_valid=edge_valid,
+                         dtype=dtype, agg_dtype=agg_dtype)
 
 
 def gin_layer_init(d_in: int, d_out: int, *,
@@ -52,24 +54,15 @@ def gin_layer_init(d_in: int, d_out: int, *,
 
 
 def gin_layer(params: GINLayer, h: torch.Tensor, src: torch.Tensor,
-              dst: torch.Tensor, *, n_nodes: int,
-              edge_valid: torch.Tensor | None = None,
+              seg: Segments, *, edge_valid: torch.Tensor | None = None,
               dtype=DEFAULT_COMPUTE_DTYPE,
               agg_dtype=torch.float32) -> torch.Tensor:
-    """One GIN layer. ``agg_dtype`` is the message/aggregation precision.
-
-    Memory: the ``[E, d]`` messages are the largest tensor (24.7 GB for
-    ogbn-products' first layer in f32). They are gathered from ``h`` cast
-    to ``agg_dtype`` (the reference gathers, then casts: the same values)
-    and masked in place, where the reference's ``where`` makes a copy.
-    """
-    msgs = h.to(agg_dtype).index_select(0, src)  # [E, d]
-    if edge_valid is not None:
-        msgs.masked_fill_(~edge_valid[:, None], 0)
-    agg = torch.zeros((n_nodes, msgs.shape[1]), dtype=agg_dtype,
-                      device=msgs.device)
-    agg.index_add_(0, dst, msgs)
-    del msgs
+    """One GIN layer over edges grouped by owner: ``src`` int32 ``[E]`` in
+    CSR order, ``seg`` their :class:`Segments` (one per node).
+    ``agg_dtype`` is the message/aggregation precision: ``h`` is gathered
+    in its own type and summed in ``agg_dtype`` (the reference gathers,
+    then casts: the same values)."""
+    agg = owner_sum(h, src, seg, edge_valid, accumulate=agg_dtype)
     scale = (1.0 + params.eps).to(agg_dtype)
     x = (scale * h.to(agg_dtype) + agg).to(dtype)
     x = torch.relu(x @ params.mlp1.to(dtype) + params.b1.to(dtype))

@@ -742,3 +742,305 @@ def test_gin_compressed_edges_kernels_match_plain(dev):
             np.testing.assert_array_equal(nbr.cpu().numpy(), csr.indices)
             np.testing.assert_array_equal(owner.cpu().numpy(), own)
     assert epilogues.launches.by["vbyte/adjacency_rebase"] == f0 + 1
+
+
+# ---------------------------------------------------------------------------
+# dispatch.decode past kernel 2's shared-memory limits: split launches
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("P", [4097, 8192])
+@pytest.mark.parametrize("epilogue", ["membership", "bm25_accum",
+                                      "bm25_weighted"])
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_dispatch_serves_probe_sets_past_the_width(dev, fmt, epilogue, P):
+    """Probe widths of 4,097 and 8,192 (``SearchEngine(probe_width=
+    8192)``): two launches of kernel 2, equal bit for bit to the plain
+    version on the whole probe set."""
+    from repro_torch.kernels.vbyte_decode import dispatch
+
+    rng = np.random.default_rng(P)
+    docs = np.sort(rng.choice(2**24, 20000, replace=False)).astype(np.uint64)
+    arr = CompressedIntArray.encode(docs, format=fmt, differential=True,
+                                    device=dev)
+    probe = np.unique(np.concatenate([rng.choice(docs, P // 2),
+                                      rng.integers(0, 2**24, P // 3)]))
+    ex = {"probe": torch.as_tensor(normalize_probe(probe[:P], P), device=dev)}
+    if epilogue == "bm25_accum":
+        ex["impact"] = torch.tensor([[3]], dtype=torch.int32, device=dev)
+    if epilogue == "bm25_weighted":
+        imp = CompressedIntArray.encode(
+            rng.integers(1, 256, docs.size).astype(np.uint64), format=fmt,
+            device=dev)
+        ex.update({f"w_{k}": v for k, v in imp.device_operands().items()
+                   if k not in ("counts", "bases")})
+    before = epilogues.launches.by.get(f"{fmt}/{epilogue}", 0)
+    out = dispatch.decode(arr, epilogue=epilogue, epilogue_operands=ex)
+    assert epilogues.launches.by[f"{fmt}/{epilogue}"] == before + 2
+    ref = epilogues.fused_decode_plain(
+        arr.device_operands(), ex, format=fmt, epilogue=epilogue,
+        block_size=arr.block_size, differential=True)
+    torch.cuda.synchronize()
+    assert out.shape == (arr.n_blocks, P) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("nq,d,fused,decodes", [(9, 1024, 2, 0),
+                                                (1, 9000, 0, 1)])
+def test_dispatch_serves_query_rows_past_the_limit(dev, nq, d, fused,
+                                                   decodes):
+    """9 bf16 query rows of d = 1,024: two launches of kernel 2 (8 rows
+    fit); one row of d = 9,000: kernel 1, then the torch body (the
+    unfused plan). Ids bit for bit, scores within one bf16 ulp."""
+    from repro_torch.kernels.vbyte_decode import dispatch
+
+    ops = _dot_operands(dev, "vbyte", 300, 128, seed=d, differential=True)
+    table = _dot_table(dev, torch.bfloat16, d, seed=1)
+    query = _dot_query(dev, torch.bfloat16, nq, d, seed=2)
+    ex = {"table": table, "query": query}
+    kw = dict(format="vbyte", block_size=128, differential=True)
+    f0, k0 = epilogues.launches.by.get("vbyte/dot_score", 0), \
+        kernel.launches.count
+    ids, sc = dispatch.decode(ops, epilogue="dot_score",
+                              epilogue_operands=ex, **kw)
+    assert epilogues.launches.by.get("vbyte/dot_score", 0) == f0 + fused
+    assert kernel.launches.count == k0 + decodes
+    r_ids, r_sc = epilogues.fused_decode_plain(ops, ex, epilogue="dot_score",
+                                               **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, r_ids)
+    _assert_float_close(sc, r_sc, torch.bfloat16, (nq, d), ops=ops,
+                        extras=ex, kw=dict(kw, epilogue="dot_score"))
+
+
+# ---------------------------------------------------------------------------
+# owner_sum (GIN's aggregation): bit for bit against its plain version
+# ---------------------------------------------------------------------------
+def _owner_case(rng, n_owners, degrees, n_rows, d, dtype, *, masked=False,
+                offset=0):
+    """CSR edges (``degrees`` per owner), rows of normals scaled by e^±8 at
+    ``offset`` rows into a buffer, on the CPU."""
+    ro = torch.tensor(np.concatenate([[0], np.cumsum(degrees)]),
+                      dtype=torch.int32)
+    E = int(ro[-1])
+    buf = torch.tensor((rng.standard_normal((n_rows + offset, d))
+                        * np.exp(rng.uniform(-8, 8, (n_rows + offset, 1))))
+                       .astype(np.float32)).to(dtype)
+    src = torch.tensor(rng.integers(0, n_rows, E).astype(np.int32))
+    valid = torch.tensor(rng.random(E) < 0.8) if masked else None
+    return buf[offset:], src, ro, valid
+
+
+def _owner_sum_matches_plain(dev, h, src, ro, valid, acc):
+    from repro_torch.kernels.segment_sum import (launches, owner_sum,
+                                                 owner_sum_plain, segments)
+
+    before = launches.count
+    out = owner_sum(h.to(dev), src.to(dev), segments(ro.to(dev)),
+                    None if valid is None else valid.to(dev), accumulate=acc)
+    assert launches.count > before
+    ref = owner_sum_plain(h, src, ro, valid, accumulate=acc)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.equal(out.cpu().view(torch.int16 if acc == torch.bfloat16
+                                      else torch.int32),
+                       ref.view(torch.int16 if acc == torch.bfloat16
+                                else torch.int32))
+    return out
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [1, 7, 8, 64, 100, 130])
+@pytest.mark.parametrize("h_dtype,acc", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_owner_sum_matches_plain(dev, h_dtype, acc, d, masked):
+    """Skewed degrees (owners without edges, short ones, and some past
+    LONG_ROW that take a CTA each), every row width's unit size."""
+    rng = np.random.default_rng(d + 7 * masked)
+    deg = np.minimum((3000 * np.arange(1, 301, dtype=np.float64) ** -1.1)
+                     .astype(np.int64), 3000)
+    deg[rng.random(300) < 0.2] = 0
+    h, src, ro, valid = _owner_case(rng, 300, rng.permutation(deg), 500, d,
+                                    h_dtype, masked=masked)
+    _owner_sum_matches_plain(dev, h, src, ro, valid, acc)
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+def test_owner_sum_one_owner_of_1e5_edges(dev, acc):
+    rng = np.random.default_rng(5)
+    deg = np.array([3, 0, 100_000, 7, 600, 1])
+    h, src, ro, valid = _owner_case(rng, 6, deg, 4000, 64, torch.bfloat16,
+                                    masked=True)
+    _owner_sum_matches_plain(dev, h, src, ro, valid, acc)
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 100, 1100])
+def test_owner_sum_h_at_odd_row_offset(dev, h_dtype, d):
+    """h a view one row into its buffer (rows off their 16-byte alignment
+    where d·size is not a multiple of 16), and d = 1,100 (more than 256
+    units: two launches over column slices)."""
+    rng = np.random.default_rng(d)
+    deg = rng.integers(0, 900, 40)
+    h, src, ro, valid = _owner_case(rng, 40, deg, 300, d, h_dtype, offset=1)
+    _owner_sum_matches_plain(dev, h, src, ro, valid, torch.float32)
+
+
+def test_owner_sum_is_the_same_on_every_run(dev):
+    from repro_torch.kernels.segment_sum import owner_sum, segments
+
+    rng = np.random.default_rng(6)
+    deg = (20000 * np.arange(1, 2001, dtype=np.float64) ** -0.8).astype(int)
+    h, src, ro, valid = _owner_case(rng, 2000, deg, 3000, 100,
+                                    torch.bfloat16)
+    seg = segments(ro.to(dev))
+    outs = [owner_sum(h.to(dev), src.to(dev), seg) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_gin_forward_on_the_card_is_reproducible_and_exact(dev):
+    """Two forwards give the same bits (owner_sum: no atomics), and the
+    compressed adjacency gives the same logits as raw edges in CSR order
+    (the same edges summed in the same order). Raw edges in another order
+    sum each owner's messages in that order: within 2^-4 of each node's
+    largest logit."""
+    import dataclasses
+
+    from repro_torch.data.graph import compress_adjacency
+    from repro_torch.data.sampler import CSRGraph
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.kernels import segment_sum
+    from repro_torch.models import gnn, registry
+
+    rng = np.random.default_rng(3)
+    n, e = 4000, 60000
+    g = random_graph(rng, n, e, 100, 7)
+    csr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], n)
+    cfg = dataclasses.replace(registry.reduced_config("gin-tu"), d_feat=100,
+                              n_classes=7, compressed_adjacency=True)
+    params = gnn.init_params(cfg, seed=0, device=dev)
+    comp = compress_adjacency(csr, device=dev)
+    feats = torch.as_tensor(g["feats"], device=dev)
+    labels = torch.as_tensor(g["labels"], device=dev)
+    batch = {"feats": feats, "labels": labels,
+             **{k: v for k, v in comp.items() if not k.startswith("_")}}
+    before = segment_sum.launches.count
+    with torch.inference_mode():
+        a = gnn.forward(params, batch, cfg)
+        b = gnn.forward(params, batch, cfg)
+    assert segment_sum.launches.count - before == 2 * cfg.n_layers
+    assert torch.equal(a, b)
+    perm = rng.permutation(e)  # raw edges in another order
+    raw = {"feats": feats, "labels": labels,
+           "edge_src": torch.as_tensor(g["edge_src"][perm], device=dev),
+           "edge_dst": torch.as_tensor(g["edge_dst"][perm], device=dev)}
+    with torch.inference_mode():
+        c = gnn.forward(params, raw, dataclasses.replace(
+            cfg, compressed_adjacency=False))
+    order = np.lexsort((g["edge_src"], g["edge_dst"]))
+    raw_csr = {**raw, "edge_src": torch.as_tensor(g["edge_src"][order],
+                                                  device=dev),
+               "edge_dst": torch.as_tensor(g["edge_dst"][order], device=dev)}
+    with torch.inference_mode():
+        r = gnn.forward(params, raw_csr, dataclasses.replace(
+            cfg, compressed_adjacency=False))
+    assert torch.equal(a, r)
+    scale = r.abs().amax(dim=1, keepdim=True).clamp(min=1e-6)
+    assert float(((c - r).abs() / scale).max()) <= 2.0**-4
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 4: staged rows, every layout, bit for bit
+# ---------------------------------------------------------------------------
+def _ragged_fmt(rng, fmt, nb, B, max_bits):
+    lists = []
+    for i in range(nb):
+        n = 0 if i % 7 == 0 else int(rng.integers(1, B + 1))
+        bits = int(rng.integers(0 if fmt == "binpack" else 1, max_bits + 1))
+        lists.append(rng.integers(0, 2**bits, size=n, dtype=np.uint64))
+    enc = {"vbyte": venc, "binpack": bpk}[fmt].encode_ragged_blocked(
+        lists, block_size=B)
+    data = enc.payload if fmt == "vbyte" else enc.data
+    meta = None if fmt == "vbyte" else enc.widths.reshape(nb, 1)
+    return data, meta, enc.counts
+
+
+DECODERS = {"vbyte": (kernel, kernel.vbyte_decode_blocked_cuda, decode_plain),
+            "binpack": (binpack_kernel,
+                        binpack_kernel.binpack_decode_blocked_cuda,
+                        binpack_masked.decode_blocked)}
+
+
+def _decode_matches_plain(dev, fmt, data, meta, counts, bases, B):
+    mod, launch, plain = DECODERS[fmt]
+    c = torch.as_tensor(counts, device=dev)
+    b = torch.as_tensor(bases, device=dev)
+    leaves = [data] if meta is None else [meta, data]
+    for differential in (False, True):
+        before = mod.launches.count
+        out = launch(*leaves, c, b, block_size=B, differential=differential)
+        assert mod.launches.count == before + 1
+        ref = plain(*leaves, c, b, block_size=B, differential=differential)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (fmt, B, differential)
+
+
+def _layout(dev, data, S, offset):
+    """``data`` padded with zero bytes to stride ``S``, then placed
+    ``offset`` rows into a buffer (a contiguous view whose base is off its
+    16-byte alignment when S is)."""
+    nb, s0 = data.shape
+    full = np.zeros((nb + offset, S), np.uint8)
+    full[offset:, :s0] = data
+    return torch.as_tensor(full, device=dev)[offset:]
+
+
+@pytest.mark.parametrize("pad,offset", [(0, 0), (3, 0), (2, 1), (17, 1),
+                                        (9000, 0)])
+@pytest.mark.parametrize("B", [50, 52, 128, 1024])
+@pytest.mark.parametrize("fmt", ["vbyte", "binpack"])
+def test_kernels1_4_staged_layouts_match_plain(dev, fmt, B, pad, offset):
+    """B of 50, 52, 128 and 1,024; strides that are not multiples of 16
+    (pad 3, 17), rows off their alignment (offset 1: 1-, 4- and 16-byte
+    copies all taken), and a stride past the staging limit (read in
+    place)."""
+    rng = np.random.default_rng(B + pad)
+    data, meta, counts = _ragged_fmt(rng, fmt, 301, B, 32)
+    S = data.shape[1] + pad
+    bases = rng.integers(-2**31, 2**31, 301).astype(np.int32)
+    m = None if meta is None else torch.as_tensor(meta, device=dev)
+    _decode_matches_plain(dev, fmt, _layout(dev, data, S, offset), m, counts,
+                          bases, B)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 5, 4097, 2**18])
+@pytest.mark.parametrize("fmt", ["vbyte", "binpack"])
+def test_kernels1_4_block_counts_match_plain(dev, fmt, nb):
+    """1 to 2^18 blocks: fewer rows than warps, and many rows per warp
+    (the grid-stride walk with the next row in flight)."""
+    rng = np.random.default_rng(nb)
+    data, meta, counts = _ragged_fmt(rng, fmt, nb, 128, 21)
+    bases = rng.integers(-2**31, 2**31, nb).astype(np.int32)
+    m = None if meta is None else torch.as_tensor(meta, device=dev)
+    _decode_matches_plain(dev, fmt, torch.as_tensor(data, device=dev), m,
+                          counts, bases, 128)
+
+
+@pytest.mark.parametrize("S,offset", [(96, 0), (97, 1), (256, 1), (9001, 0)])
+@pytest.mark.parametrize("B", [52, 128])
+@pytest.mark.parametrize("fmt", ["vbyte", "binpack"])
+def test_kernels1_4_garbage_in_every_layout_match_plain(dev, fmt, B, S,
+                                                        offset):
+    """Random bytes, counts below 0 and past B, widths up to 255 (32 and
+    more among them), in every staging layout."""
+    rng = np.random.default_rng(S + B)
+    nb = 513
+    data = rng.integers(0, 256, (nb, S), dtype=np.uint8)
+    meta = None
+    if fmt == "binpack":  # widths off their 4-byte alignment with offset 1
+        w = rng.integers(0, 256, (nb + offset, 1), dtype=np.uint8)
+        w[:40] = 32
+        w[40:80] = rng.integers(0, 33, (40, 1))
+        meta = torch.as_tensor(w, device=dev)[offset:]
+    counts = rng.integers(-2, B + 12, nb).astype(np.int32)
+    bases = rng.integers(-2**31, 2**31, nb).astype(np.int32)
+    _decode_matches_plain(dev, fmt, _layout(dev, data, S, offset), meta,
+                          counts, bases, B)

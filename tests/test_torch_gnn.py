@@ -8,10 +8,10 @@ tolerance.
 
 Tolerance: torch's defaults on the CPU (float32 matmuls in full float32,
 ``torch.backends.cuda.matmul.allow_tf32`` irrelevant here). Both packages
-gather, sum the messages in float32 in edge order, and round every bf16
-matmul once, so on these graphs the logits come out equal; they are held
-within 2^-8 relative to each node's largest logit (one bf16 ulp), which
-allows one float32 sum taken in another order to move a bf16 rounding."""
+gather, sum the messages by owner in edge order, and round every bf16
+matmul once, so on these graphs the logits come out equal; node tasks
+are held within 2^-8 relative to each node's largest logit (one bf16
+ulp), the graph readout bit for bit."""
 import dataclasses
 
 import numpy as np
@@ -189,9 +189,10 @@ def test_graph_task_readout_matches_reference():
     """Graph classification: sum-pool readout per graph, no label mask.
 
     The reference's bf16 ``segment_sum`` rounds to bf16 after every add on
-    the CPU; the port sums in float32 and rounds once. Over 10 nodes per
-    graph the two sums lie up to 10 × ½ ulp apart, so this case is held
-    within 2^-5 of each graph's largest logit."""
+    the CPU, in node order; the port's ``owner_sum`` readout does the same
+    adds in the same order, so the logits and the loss are equal bit for
+    bit (this case was held within 2^-5 while the port summed in float32
+    and rounded once)."""
     rng = np.random.default_rng(4)
     mb = molecule_batch(rng, 6, 10, 20, 12, 3)
     cfg = dataclasses.replace(Rreg.reduced_config(ARCH), task="graph")
@@ -199,11 +200,11 @@ def test_graph_task_readout_matches_reference():
     params, tp = _params(cfg, tcfg, 3)
     rb = {k: jnp.asarray(v) for k, v in mb.items()}
     tb = {k: torch.tensor(np.asarray(v)) for k, v in mb.items()}
-    _assert_logits_close(R.forward(params, rb, cfg), T.forward(tp, tb, tcfg),
-                         rtol=2.0**-5)
+    np.testing.assert_array_equal(T.forward(tp, tb, tcfg).numpy(),
+                                  np.asarray(R.forward(params, rb, cfg)))
     (r_loss, _), (t_loss, _) = R.loss_fn(params, rb, cfg), T.loss_fn(tp, tb,
                                                                        tcfg)
-    assert abs(float(r_loss) - float(t_loss)) <= 2.0**-5 * abs(float(r_loss))
+    assert float(r_loss) == float(t_loss)
 
 
 def test_configs_and_init():

@@ -55,17 +55,26 @@ SEARCH_EPILOGUES = ("stream", "checksum", "membership_rows", "bm25_accum_rows",
                     "bm25_weighted_rows")
 
 
-def _other_library(_build, csrc: Path, tmp: Path):
+def other_libraries(_build, csrc: Path, tmp: Path, names) -> dict:
+    """The other revision's ``<name>.cu`` for each of ``names`` (with the
+    headers beside them) compiled with this tree's nvcc flags into ``tmp``,
+    all at once, and loaded."""
     for f in csrc.glob("*.cu*"):
         shutil.copy(f, tmp)
-    lib = tmp / "libfused_decode_other.so"
-    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(tmp / "fused_decode.cu")],
-                          capture_output=True, text=True)
-    if done.returncode:
-        cs.die(f"nvcc failed for the other fused_decode.cu:\n{done.stdout}"
-               f"{done.stderr}")
-    return _build._Library("fused_decode", lib)
+    procs = {}
+    for name in names:
+        lib = tmp / f"lib{name}_other.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(tmp / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            cs.die(f"nvcc failed for the other {name}.cu:\n{out}")
+        libs[name] = _build._Library(name, lib)
+    return libs
 
 
 def _search_case(torch, label, fmt, name, differential, ops, extras, need,
@@ -170,6 +179,64 @@ def _gather_cases(np, torch):
         yield _gather_case(torch, "path", key, name, extras, tl, ops, st)
 
 
+def fused_cases(np, torch) -> list:
+    return (list(_parity_cases(np, torch, np.random.default_rng(1)))
+            + list(_path_cases(np, torch, np.random.default_rng(3)))
+            + list(_gather_cases(np, torch)))
+
+
+def run_cases(np, torch, cases, other, this, timer, reps: int, card: str,
+              lines: list) -> None:
+    """Hold both kernel 2 libraries against the plain version on every
+    case, then time them in turns other, this, this, other."""
+    from repro_torch.kernels.vbyte_decode import _build, epilogues
+
+    for case in cases:
+        ops, extras, kw = case["ops"], case["extras"], case["kw"]
+        ref = epilogues.fused_decode_plain(ops, extras, **kw)
+        for tag, lib in (("other", other), ("this", this)):
+            _build._LOADED[("fused_decode", _build.CSRC)] = lib
+            out = epilogues.fused_decode(ops, extras, **kw)
+            torch.cuda.synchronize()
+            case["hold"](out, ref)
+        bound, by = case["bound"](out)
+        del ref, out
+        turns = []
+        for tag, lib in (("other", other), ("this", this),
+                         ("this", this), ("other", other)):
+            _build._LOADED[("fused_decode", _build.CSRC)] = lib
+            turns.append((tag, timer.ms(
+                lambda: epilogues.fused_decode(ops, extras, **kw),
+                reps=reps)))
+        other_ms = [t for tag, t in turns if tag == "other"]
+        this_ms = [t for tag, t in turns if tag == "this"]
+        rec = {k: case[k] for k in ("shape", "format", "epilogue",
+                                    "n_blocks", "P")}
+        rec.update({"kernel": "fused_decode", "other_ms": other_ms,
+                    "this_ms": this_ms, "other_mean_ms": sum(other_ms) / 2,
+                    "this_mean_ms": sum(this_ms) / 2,
+                    "speedup": sum(other_ms) / sum(this_ms),
+                    "bound_ms": bound, "bound_by": by, "card": card})
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+    _build._LOADED[("fused_decode", _build.CSRC)] = this
+
+
+def floor_line(torch, timer, reps: int, card: str) -> dict:
+    """The least a launch takes under this timer: one 4-byte add."""
+    tiny = torch.zeros(1, device="cuda")
+    rec = {"shape": "floor", "op": "one-element add_",
+           "ms": timer.ms(lambda: tiny.add_(1), reps=reps), "card": card}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def write_lines(path, lines) -> None:
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text("".join(json.dumps(r) + "\n" for r in lines))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
@@ -182,59 +249,23 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.vbyte_decode import _build, epilogues
+    from repro_torch.kernels.vbyte_decode import _build
 
     card = cs.phase_device(torch)
     this = _build.library("fused_decode")
     tmp = Path(tempfile.mkdtemp(prefix="ab_fused_decode_"))
     lines = []
     try:
-        other = _other_library(_build, args.other.resolve(), tmp)
+        other = other_libraries(_build, args.other.resolve(), tmp,
+                                ("fused_decode",))["fused_decode"]
         timer = cs.ColdTimer(torch)
-        # the least a launch takes under this timer: one 4-byte add
-        tiny = torch.zeros(1, device="cuda")
-        floor = {"shape": "floor", "op": "one-element add_",
-                 "ms": timer.ms(lambda: tiny.add_(1), reps=args.reps),
-                 "card": card}
-        lines.append(floor)
-        print(json.dumps(floor), flush=True)
-        cases = list(_parity_cases(np, torch, np.random.default_rng(1)))
-        cases += list(_path_cases(np, torch, np.random.default_rng(3)))
-        cases += list(_gather_cases(np, torch))
-        for case in cases:
-            ops, extras, kw = case["ops"], case["extras"], case["kw"]
-            ref = epilogues.fused_decode_plain(ops, extras, **kw)
-            for tag, lib in (("other", other), ("this", this)):
-                _build._LOADED["fused_decode"] = lib
-                out = epilogues.fused_decode(ops, extras, **kw)
-                torch.cuda.synchronize()
-                case["hold"](out, ref)
-            bound, by = case["bound"](out)
-            del ref, out
-            turns = []
-            for tag, lib in (("other", other), ("this", this),
-                             ("this", this), ("other", other)):
-                _build._LOADED["fused_decode"] = lib
-                turns.append((tag, timer.ms(
-                    lambda: epilogues.fused_decode(ops, extras, **kw),
-                    reps=args.reps)))
-            other_ms = [t for tag, t in turns if tag == "other"]
-            this_ms = [t for tag, t in turns if tag == "this"]
-            rec = {k: case[k] for k in ("shape", "format", "epilogue",
-                                        "n_blocks", "P")}
-            rec.update({"other_ms": other_ms, "this_ms": this_ms,
-                        "other_mean_ms": sum(other_ms) / 2,
-                        "this_mean_ms": sum(this_ms) / 2,
-                        "speedup": sum(other_ms) / sum(this_ms),
-                        "bound_ms": bound, "bound_by": by, "card": card})
-            lines.append(rec)
-            print(json.dumps(rec), flush=True)
+        lines.append(floor_line(torch, timer, args.reps, card))
+        run_cases(np, torch, fused_cases(np, torch), other, this, timer,
+                  args.reps, card, lines)
     finally:
-        _build._LOADED.pop("fused_decode", None)
+        _build._LOADED.pop(("fused_decode", _build.CSRC), None)
         shutil.rmtree(tmp, ignore_errors=True)
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text("".join(json.dumps(r) + "\n" for r in lines))
+    write_lines(args.out, lines)
     print(card, flush=True)
     return 0
 
