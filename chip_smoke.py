@@ -30,7 +30,11 @@ fault. One JSON line per phase:
    then one PyTorch call); ``bag_sum`` also at B=50; ``dot_score`` also
    at the two_tower path's shape (phase ``parity_dot_score_path``: the
    serving corpus of 2^20 distinct sorted ids, 8,192 full blocks, every
-   query bucket 1, 2, 4, 8 on the bf16 table and 8 rows on the f32 one).
+   query bucket 1, 2, 4, 8 on the bf16 table and 8 rows on the f32 one)
+   and the probe epilogues at the search path's shape (phase
+   ``parity_probe_path``: 1, 4, 16 and 512 blocks gathered from a K=20
+   list, the broadcast forms with 512 probes, the ``*_rows`` forms with
+   one probe a block).
    Then phase ``parity_decode_scale``: kernels 1, 3 and 4 over every
    posting of the search index (the lists of phase 4) in one launch each,
    held bit for bit and timed beside the bound, in billions of integers a
@@ -65,7 +69,9 @@ fault. One JSON line per phase:
    its plain version on the CPU over a sample of owners (the 64 with the
    most edges and 2^16 more) and timed beside its bound, the plain
    version's ops on the card and cuSPARSE SpMM; and kernel 1 over the
-   graph's gap stream.
+   graph's gap stream, then kernel 2's adjacency_rebase over it with the
+   forward's ``edge_base`` (beside kernel 1, the plain version and the
+   unfused chain).
 7. the ``kernels`` line, the card line, and the result line.
 """
 from __future__ import annotations
@@ -113,6 +119,9 @@ GATHER_EPILOGUES = ("bag_sum", "dot_score", "adjacency_rebase")
 # the search path: 1-16 gathered hit blocks per probe chunk, and 512
 PROBE_EPILOGUES = ("membership", "bm25_accum", "bm25_weighted")
 PATH_ROWS = (1, 4, 16, 512)
+# and its row-aligned forms: one gathered block per probe, probe t against
+# block t only (index/query.py's skip-pruned chunks)
+ROWS_EPILOGUES = ("membership_rows", "bm25_accum_rows", "bm25_weighted_rows")
 # GIN logits over compressed vs raw adjacency, per node, relative to the
 # node's largest |logit|: printed as the bound a changed order of the f32
 # sums would be held to (a bf16 rounding moved by one ulp, 2^-8 relative,
@@ -826,16 +835,20 @@ def _gap_bytes(np, fmt: str, gaps, counts) -> int:
 
 
 def probe_path_cases(np, torch, rng):
-    """Kernel 2's broadcast launches at the search path's shapes, per core:
+    """Kernel 2's probe launches at the search path's shapes, per core:
     a K=20 posting list (as the search paths draw them, ClueWeb09-sized
     universe) and its per-posting impacts (< 2^8, as the index's) encoded
     in the core's format (d-gaps, block 128) on the card; for each of
     ``PATH_ROWS`` block counts, that many distinct blocks gathered from it
     in ascending order (``take_blocks``, as ``_probe_pass`` gathers its hit
-    blocks), and a 512-wide probe set: 256 docids drawn from the gathered
-    blocks and 256 from the docid window they span, sorted, distinct,
-    padded with -1. Yields ``(fmt, nb, ops, extras by epilogue, bytes in
-    by epilogue, values decoded)``."""
+    blocks). The broadcast epilogues take a 512-wide probe set: 256 docids
+    drawn from the gathered blocks and 256 from the docid window they
+    span, sorted, distinct, padded with -1. The ``*_rows`` forms take one
+    probe per block (``[nb, 1]``, as ``_probe_pass`` builds it for probes
+    that route to distinct blocks): a docid of the block or, for half the
+    blocks, one drawn from the block's docid window (the same probes for
+    every core, from their own generator). Yields ``(fmt, nb, ops, extras
+    by epilogue, bytes in by epilogue, values decoded)``."""
     from repro_torch.core import CompressedIntArray
     from repro_torch.data.synthetic import CLUEWEB_DOCS, posting_list_group
     from repro_torch.kernels.vbyte_decode.ops import normalize_probe
@@ -880,24 +893,40 @@ def probe_path_cases(np, torch, rng):
                 "bm25_accum": {"probe": probe, "impact": torch.tensor(
                     [[7]], dtype=torch.int32, device="cuda")},
                 "bm25_weighted": {"probe": probe, **w_ops}}
+            w_bytes = _gap_bytes(np, fmt, blocks["imp"][rows], c)
             in_bytes = {"membership": main + 4 * 512,
                         "bm25_accum": main + 4 * 512 + 4,
-                        "bm25_weighted": main + 4 * 512 + _gap_bytes(
-                            np, fmt, blocks["imp"][rows], c)}
+                        "bm25_weighted": main + 4 * 512 + w_bytes}
+            rrng = np.random.default_rng(1000 + nb)
+            at = np.arange(nb)
+            pick = host[at, rrng.integers(0, c)]
+            window = rrng.integers(host[:, 0], host[at, c - 1] + 1)
+            probe_r = torch.as_tensor(
+                np.where(rrng.random(nb) < 0.5, pick, window)
+                .astype(np.int32)[:, None], device="cuda")
+            extras.update({
+                "membership_rows": {"probe": probe_r},
+                "bm25_accum_rows": {"probe": probe_r, "impact":
+                                    extras["bm25_accum"]["impact"]},
+                "bm25_weighted_rows": {"probe": probe_r, **w_ops}})
+            in_bytes.update({"membership_rows": main + 4 * nb,
+                             "bm25_accum_rows": main + 4 * nb + 4,
+                             "bm25_weighted_rows": main + 4 * nb + w_bytes})
             yield fmt, nb, ops, extras, in_bytes, int(c.sum())
 
 
 def phase_probe_path(np, torch, timer, records, max_err):
-    """The broadcast epilogues at the search path's shapes
-    (:func:`probe_path_cases`): held bit for bit against their plain
-    versions and timed (L2 cold) beside the bound and the plain version."""
+    """The broadcast epilogues and their ``*_rows`` forms at the search
+    path's shapes (:func:`probe_path_cases`): held bit for bit against
+    their plain versions and timed (L2 cold) beside the bound and the
+    plain version."""
     from repro_torch.kernels.vbyte_decode import epilogues
 
     rng = np.random.default_rng(3)
     records["probe_path"] = {}
     for fmt, nb, ops, extras, in_bytes, n_ints in probe_path_cases(np, torch,
                                                                  rng):
-        for name in PROBE_EPILOGUES:
+        for name in PROBE_EPILOGUES + ROWS_EPILOGUES:
             ex = extras[name]
             kw = dict(format=fmt, epilogue=name, block_size=BLOCK,
                       differential=True)
@@ -1729,10 +1758,60 @@ def gin_kernels(np, torch, comp, src, feats, cfg, args) -> dict:
     gin_gaps = time_decode(torch, timer, "vbyte", ops, st, reps=5,
                            plain_reps=1)
     emit("parity_decode_gin_gaps", kernel="vbyte_decode_blocked", **gin_gaps)
+    rebase = time_gin_rebase(torch, timer, *gin_rebase_case(torch, comp, E))
+    rebase["kernel1_ms"] = gin_gaps["ms"]
+    emit("parity_decode_gin_gaps", kernel="fused_decode", **rebase)
     del shapes, timer
     gc.collect()
     torch.cuda.empty_cache()
-    return {"owner_sum": recs, "gin_gaps": gin_gaps}
+    return {"owner_sum": recs, "gin_gaps": gin_gaps, "gin_rebase": rebase}
+
+
+def gin_rebase_case(torch, comp, n_edges: int):
+    """Kernel 2's adjacency_rebase at the gin path's shape: the graph's gap
+    stream (vbyte, differential, block 128) and the ``edge_base`` that
+    ``decode_compressed_edges`` builds for it. Returns ``(ops, extras,
+    stats)``, the stats as :func:`gather_bound` reads them."""
+    from repro_torch.nn.gnn import edge_bases, edge_owners
+
+    gaps = comp["gaps"]
+    owner = edge_owners(comp["row_offsets"].to(gaps.device), n_edges)
+    extras = {"edge_base": edge_bases(gaps, comp["row_gap_bases"], owner)}
+    del owner
+    nb = gaps.n_blocks
+    st = {"fmt": "vbyte", "B": gaps.block_size, "differential": True,
+          "nb": nb, "stride": gaps.stride, "n_valid": gaps.n,
+          "need": gaps.payload_bytes + 8 * nb}
+    return gaps.device_operands(), extras, st
+
+
+def time_gin_rebase(torch, timer, ops, extras, st) -> dict:
+    """adjacency_rebase at the gin path's shape (:func:`gin_rebase_case`)
+    held bit for bit against its plain version, then timed (L2 cold)
+    beside the bound, the plain version and the unfused chain (kernel 1,
+    then the torch subtraction)."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+
+    kw = dict(format="vbyte", epilogue="adjacency_rebase", block_size=st["B"],
+              differential=True)
+    fused = lambda: epilogues.fused_decode(ops, extras, **kw)  # noqa: E731
+    plain = lambda: epilogues.fused_decode_plain(ops, extras, **kw)  # noqa: E731
+    out, ref = fused(), plain()
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    if err or not torch.equal(out, ref):
+        die(f"kernel 2 [vbyte/adjacency_rebase] differs from its plain "
+            f"version at the gin path's shape: max_abs_err={err}")
+    del out, ref
+    chain = gather_chain(torch, "adjacency_rebase", extras, ops, st)
+    bound, by = gather_bound("adjacency_rebase", extras, None, st)
+    return {"format": "vbyte", "epilogue": "adjacency_rebase",
+            "block_size": st["B"], "n_blocks": st["nb"],
+            "stride": st["stride"], "n_ints": st["n_valid"],
+            "max_abs_err": err, "ms": timer.ms(fused, reps=5),
+            "plain_ms": timer.ms(plain, reps=1),
+            "unfused_chain_ms": timer.ms(chain, reps=5),
+            "bound_ms": bound, "bound_by": by}
 
 
 # ---------------------------------------------------------------------------
@@ -1763,6 +1842,7 @@ def kernels_line(records, max_err, paths):
     def variant(r):
         return {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "max_abs_err", "unfused_chain_ms",
+                                  "kernel1_ms",
                                   "index_select_ms", "max_bf16_ulps",
                                   "n_blocks", "stride", "n_ints",
                                   "gints_per_s", "plain_gints_per_s",
@@ -1779,7 +1859,9 @@ def kernels_line(records, max_err, paths):
     gin = paths["gin"]
     owner = gin["owner_sum"]["layer1"]
     max_err = {**max_err, "owner_sum": max(
-        r["max_abs_err"] for r in gin["owner_sum"].values())}
+        r["max_abs_err"] for r in gin["owner_sum"].values()),
+        "fused_decode": max(max_err["fused_decode"],
+                            gin["gin_rebase"]["max_abs_err"])}
     line = {"kernels": [
         dict(decode_entry("vbyte_decode_blocked", "vbyte_decode.cu",
                           "kernel.py:167"),
@@ -1798,9 +1880,11 @@ def kernels_line(records, max_err, paths):
              # dot_score at the two_tower path's corpus and buckets
              dot_score_path={k: variant(r)
                              for k, r in records["dot_score_path"].items()},
-             # the broadcast epilogues at the search path's block counts
+             # the probe epilogues at the search path's block counts
              probe_path={k: variant(r)
                          for k, r in records["probe_path"].items()},
+             # adjacency_rebase over the gin path's whole gap stream
+             gin_adjacency_rebase=variant(gin["gin_rebase"]),
              launches_by_epilogue={k: {"total": v, "by_path": by_path[k]}
                                    for k, v in sorted(by.items())}),
         decode_entry("stream_decode_blocked", "stream_decode.cu",

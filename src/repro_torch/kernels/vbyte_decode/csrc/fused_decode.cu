@@ -14,16 +14,41 @@
 // [nb, P] int32 output they write, and the gathered table rows for bag_sum
 // and dot_score (one d-wide row per valid id, or per slot).
 //
-// What the design does about it: the warp-per-block decode cores that
-// kernels 1, 3 and 4 run (vbyte_core.cuh, svb_core.cuh, binpack_core.cuh),
-// then the optional scan, then an epilogue — the reference's
-// core-plus-epilogue shape, with the main stream's format and the
-// epilogue as template parameters (3 x 11 instantiations). The weighted
-// epilogues' impact stream may have another format than the main stream,
-// as in the reference's API; it is decoded dense, non-differential, with
-// the main row's count, through a branch on a run-time format argument
-// that is uniform across the grid. The decoded row and the impact row stay
-// in shared memory.
+// What the design does about it: the decode cores that kernels 1, 3 and 4
+// run (vbyte_core.cuh, svb_core.cuh, binpack_core.cuh), then the optional
+// scan, then an epilogue — the reference's core-plus-epilogue shape, with
+// the main stream's format and the epilogue as template parameters (3 x 11
+// instantiations). The weighted epilogues' impact stream may have another
+// format than the main stream, as in the reference's API; it is decoded
+// dense, non-differential, with the main row's count, through a branch on
+// a run-time format argument that is uniform across the grid. The decoded
+// row and the impact row stay in shared memory.
+//
+// The row-aligned epilogues (stream, checksum, the *_rows forms, bag_sum,
+// adjacency_rebase: one block in, one row or one value out) run
+// fused_decode_kernel, the staged shape of kernels 1, 3 and 4. What held
+// its first version back on the search path's launches of 1-512 gathered
+// blocks was the chain of dependent reads a block took (count, then the
+// bytes 32 at a time or a control byte and then single data bytes, then
+// the weight stream after the main one, then the edge_base row), one
+// device-memory round trip each. Now a warp per block, four warps per CTA,
+// as many CTAs as stay resident, each warp walking its blocks grid-stride;
+// every read of a block is issued at once by cp.async into the warp's
+// shared memory — count, base and probe (one 4-byte copy each), the bytes
+// (with a zero tail), the control row, the weight stream's bytes and
+// control row, the edge_base row; 16-byte pieces where the stride and base
+// allow, 4-byte or byte copies otherwise; the binpack widths, single bytes,
+// as register loads beside them — and the next block's reads are in
+// flight while the current one is decoded from shared memory by the
+// staged cores, scanned in one warp scan (vbyte::scan_row) and written in
+// 16-byte stores. bm25_weighted_rows at launches of at most one block per
+// SM takes a CTA of two warps a block instead, the weights decoded on the
+// second beside the main stream. Rows wider than kMaxStagedStride, or
+// whose parts do not fit a CTA's shared memory, are read in place by the
+// cores that read device memory. probe_kernel and dot_kernel stage a
+// block's bytes too but decode the staged copy with the in-place cores
+// (decode_any, vbyte::prefix_row): the staged cores measured slower there
+// at the search and two_tower paths' shapes (PERF.md §6).
 //
 // The broadcast epilogues run their own kernel (probe_kernel). Comparing
 // every slot with every probe (B x P per block, as the reference does) is
@@ -182,6 +207,33 @@ __device__ __forceinline__ void decode_any(int fmt, const uint8_t* bytes,
   }
 }
 
+// One row of any format from its staged copy (the staged cores: `bytes`
+// 16-byte aligned with a zero tail, `meta` the staged control row; `w` the
+// binpack width), into `slots`.
+__device__ __forceinline__ void decode_staged(int fmt, const uint8_t* bytes,
+                                              const uint8_t* meta, int w,
+                                              int S, int cnt, uint32_t* slots,
+                                              int B, int lane) {
+  if (fmt == kStreamVbyte) {
+    svb::decode_staged_row(meta, bytes, S, cnt, slots, B, lane);
+  } else if (fmt == kBinpack) {
+    binpack::decode_staged_row(bytes, S, w, cnt, slots, B, lane);
+  } else {
+    vbyte::decode_staged_row(bytes, S, cnt, slots, B, lane);
+  }
+}
+
+// Control or width bytes per row of a format's stream.
+__host__ __device__ __forceinline__ int meta_bytes(int fmt, int B) {
+  return fmt == kStreamVbyte ? B >> 2 : (fmt == kBinpack ? 1 : 0);
+}
+
+// Zero bytes [S, stage_bytes(S)) of a staged row: the tail the staged
+// binpack and Stream-VByte cores read past the row end.
+__device__ __forceinline__ void zero_tail(uint8_t* row, int S, int t, int T) {
+  for (int i = S + t; i < vbyte::stage_bytes(S); i += T) row[i] = 0;
+}
+
 __device__ __forceinline__ uint32_t warp_sum(uint32_t x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(vbyte::kFull, x, off);
@@ -261,29 +313,82 @@ __device__ __forceinline__ void bag_sum_row(const FusedParams& p,
   }
 }
 
-// Every epilogue but the broadcast ones (probe_kernel) and dot_score
-// (dot_kernel).
-template <int FMT, int EP>
-__global__ void fused_decode_kernel(FusedParams p) {
-  constexpr bool kWeighted = EP == kBm25WeightedRows;
-  extern __shared__ uint32_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int B = p.B;
-  uint32_t* slots = smem + warp * B;
-  uint32_t* wslots = smem + (vbyte::kWarpsPerCta + warp) * B;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * vbyte::kWarpsPerCta + warp;
-  if (row >= p.nb) return;  // whole warp
-  const int cnt = vbyte::clamp_count(p.counts[row], B);
-  decode_any(FMT, p.bytes, p.meta, row, p.S, cnt, slots, B, lane);
-  if (p.differential)
-    vbyte::prefix_row(slots, B, cnt, static_cast<uint32_t>(p.bases[row]), lane);
-  if (kWeighted)  // dense, non-differential, with the main row's count
-    decode_any(p.w_format, p.w_bytes, p.w_meta, row, p.S_w, cnt, wslots, B,
-               lane);
-  const int impact = EP == kBm25AccumRows ? *p.impact : 1;
+// The row-aligned kernel's shared-memory plan, computed on the host. A
+// warp's region: its slots, the weights' slots (bm25_weighted_rows), then
+// two staged rows (none when rows are read in place). A staged row: 16
+// bytes of count, base and probe, the row's bytes with their zero tail,
+// its control row (streamvbyte), the weight stream's bytes with their
+// tail and control row (bm25_weighted_rows), its edge_base row
+// (adjacency_rebase).
+struct RowLayout {
+  int region;    // bytes per warp
+  int off_w;     // the weights' slots
+  int off_rows;  // the first staged row
+  int row;       // bytes per staged row
+  int staged;    // rows are staged (else read in place)
+  int at_meta, at_wbytes, at_wmeta, at_eb;  // offsets in a staged row
+  int g_bytes, g_meta, g_wbytes, g_wmeta, g_eb;  // stage_gran of each
+  int split;  // bm25_weighted_rows: a CTA per row, the weights on warp 1
+};
 
+constexpr int kRowBytesAt = 16;  // a staged row's bytes, after its header
+constexpr size_t kMaxRowSmem = 227u << 10;  // a CTA's shared memory
+
+template <int EP>
+struct RowEp {
+  static constexpr bool kWeighted = EP == kBm25WeightedRows;
+  static constexpr bool kProbe =
+      EP == kMembershipRows || EP == kBm25AccumRows || kWeighted;
+  static constexpr bool kRebase = EP == kAdjacencyRebase;
+};
+
+// Issue the reads of row r's main stream into staged row `at` (all lanes of
+// a warp): count, base and probe (lanes 0-2, one 4-byte cp.async each),
+// the bytes, the control row, the edge_base row. Returns the binpack width
+// (a register load: cp.async moves 4 bytes at least).
+template <int FMT, int EP>
+__device__ __forceinline__ int issue_main(const FusedParams& p,
+                                          const RowLayout& L, long long r,
+                                          uint8_t* at, int lane) {
+  const int B = p.B;
+  if (lane == 0) vbyte::stage_word(at, p.counts + r);
+  if (lane == 1) vbyte::stage_word(at + 4, p.bases + r);
+  if (RowEp<EP>::kProbe && lane == 2) vbyte::stage_word(at + 8, p.probe + r);
+  vbyte::stage_any(at + kRowBytesAt, p.bytes + r * p.S, p.S, L.g_bytes, lane);
+  if constexpr (FMT == kStreamVbyte)
+    vbyte::stage_any(at + L.at_meta, p.meta + r * (B >> 2), B >> 2, L.g_meta,
+                     lane);
+  if constexpr (RowEp<EP>::kRebase)
+    vbyte::stage_any(at + L.at_eb,
+                     reinterpret_cast<const uint8_t*>(p.edge_base + r * B),
+                     4 * B, L.g_eb, lane);
+  return FMT == kBinpack ? static_cast<int>(p.meta[r]) : 0;
+}
+
+// The weight stream's reads of row r (bm25_weighted_rows); returns its
+// binpack width.
+__device__ __forceinline__ int issue_weights(const FusedParams& p,
+                                             const RowLayout& L, long long r,
+                                             uint8_t* at, int lane) {
+  const int mw = meta_bytes(p.w_format, p.B);
+  vbyte::stage_any(at + L.at_wbytes, p.w_bytes + r * p.S_w, p.S_w, L.g_wbytes,
+                   lane);
+  if (p.w_format == kStreamVbyte)
+    vbyte::stage_any(at + L.at_wmeta, p.w_meta + r * mw, mw, L.g_wmeta, lane);
+  return p.w_format == kBinpack ? static_cast<int>(p.w_meta[r]) : 0;
+}
+
+// The epilogue of one decoded row (all lanes of the warp): `slots` holds
+// the row (scanned where differential), `wslots` the weights, `pr` the
+// row's probe, `eb` its edge_base row (shared or device memory).
+template <int EP>
+__device__ __forceinline__ void row_epilogue(const FusedParams& p,
+                                             long long row, int cnt, int pr,
+                                             uint32_t impact, const int* eb,
+                                             const uint32_t* slots,
+                                             const uint32_t* wslots,
+                                             int lane) {
+  const int B = p.B;
   if constexpr (EP == kBagSum) {
     if (p.table_bf16) {
       bag_sum_row<8>(p, slots, cnt, row, lane);
@@ -291,25 +396,37 @@ __global__ void fused_decode_kernel(FusedParams p) {
       bag_sum_row<4>(p, slots, cnt, row, lane);
     }
   } else if constexpr (EP == kAdjacencyRebase) {
-    // differential only: the decoded id minus the edge's row base, mod 2^32
+    // differential only: the decoded id minus the edge's row base, mod
+    // 2^32, 0 past the count; 16-byte stores where B % 4 == 0
     int* o = p.out + row * B;
-    const int* eb = p.edge_base + row * B;
-    for (int j = lane; j < B; j += 32)
-      o[j] = j < cnt ? static_cast<int>(slots[j] - static_cast<uint32_t>(eb[j]))
-                     : 0;
-  } else if constexpr (EP == kStream || EP == kChecksum) {
-    int* o = p.out + row * B;
-    uint32_t cs = 0u;
-    for (int j = lane; j < B; j += 32) {
-      o[j] = static_cast<int>(slots[j]);
-      cs += slots[j] * static_cast<uint32_t>(2 * j + 1);  // mod 2^32
+    if ((B & 3) == 0 && (reinterpret_cast<uintptr_t>(eb) & 15) == 0) {
+      for (int q = lane; q < (B >> 2); q += 32) {
+        const uint4 s = reinterpret_cast<const uint4*>(slots)[q];
+        const int4 e = reinterpret_cast<const int4*>(eb)[q];
+        const int j = q << 2;
+        reinterpret_cast<uint4*>(o)[q] = make_uint4(
+            j < cnt ? s.x - static_cast<uint32_t>(e.x) : 0u,
+            j + 1 < cnt ? s.y - static_cast<uint32_t>(e.y) : 0u,
+            j + 2 < cnt ? s.z - static_cast<uint32_t>(e.z) : 0u,
+            j + 3 < cnt ? s.w - static_cast<uint32_t>(e.w) : 0u);
+      }
+    } else {
+      for (int j = lane; j < B; j += 32)
+        o[j] = j < cnt ? static_cast<int>(slots[j] -
+                                          static_cast<uint32_t>(eb[j]))
+                       : 0;
     }
-    if (EP == kChecksum) {
+  } else if constexpr (EP == kStream || EP == kChecksum) {
+    vbyte::store_row(slots, p.out + row * B, B, lane);
+    if constexpr (EP == kChecksum) {
+      uint32_t cs = 0u;
+      for (int j = lane; j < B; j += 32)
+        cs += slots[j] * static_cast<uint32_t>(2 * j + 1);  // mod 2^32
       cs = warp_sum(cs);
       if (lane == 0) p.out2[row] = static_cast<int>(cs);
     }
   } else {  // *_rows: block `row` against its own probe
-    const int pr = p.probe[row];
+    constexpr bool kWeighted = EP == kBm25WeightedRows;
     uint32_t acc = 0u;
     for (int j = lane; j < cnt; j += 32) {
       if (static_cast<int>(slots[j]) == pr) acc += kWeighted ? wslots[j] : 1u;
@@ -320,7 +437,131 @@ __global__ void fused_decode_kernel(FusedParams p) {
       acc = __any_sync(vbyte::kFull, acc != 0u) ? 1u : 0u;
     }
     if (lane == 0)
-      p.out[row] = pr >= 0 ? static_cast<int>(acc) * impact : 0;
+      p.out[row] = pr >= 0 ? static_cast<int>(acc * impact) : 0;
+  }
+}
+
+// Every epilogue but the broadcast ones (probe_kernel) and dot_score
+// (dot_kernel): stream, checksum, the *_rows forms, bag_sum and
+// adjacency_rebase. A warp walks its rows grid-stride with the next row's
+// reads in flight (see the note at the top); bm25_weighted_rows with
+// L.split takes a CTA of two warps per row instead. STAGED: the rows are
+// staged (else read in place); one decode path per instantiation keeps
+// each kernel's code to what it runs.
+template <int FMT, int EP, bool STAGED>
+__global__ void __launch_bounds__(vbyte::kWarpsPerCta * 32)
+    fused_decode_kernel(FusedParams p, RowLayout L) {
+  constexpr bool kWeighted = RowEp<EP>::kWeighted;
+  extern __shared__ __align__(16) uint8_t row_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int B = p.B;
+  const int wf = p.w_format;
+  const uint32_t impact =
+      EP == kBm25AccumRows ? static_cast<uint32_t>(*p.impact) : 1u;
+
+  if constexpr (kWeighted && STAGED) {
+    if (L.split) {  // one row; warp 0 the main stream, warp 1 the weights
+      const long long row = blockIdx.x;
+      uint32_t* slots = reinterpret_cast<uint32_t*>(row_smem);
+      uint32_t* wslots = reinterpret_cast<uint32_t*>(row_smem + L.off_w);
+      uint8_t* at = row_smem + L.off_rows;
+      const int* hdr = reinterpret_cast<const int*>(at);
+      int w = 0;
+      if (warp == 0) {
+        zero_tail(at + kRowBytesAt, p.S, lane, 32);
+        w = issue_main<FMT, EP>(p, L, row, at, lane);
+      } else {
+        zero_tail(at + L.at_wbytes, p.S_w, lane, 32);
+        if (lane == 0) vbyte::stage_word(at + 12, p.counts + row);
+        w = issue_weights(p, L, row, at, lane);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+      if (warp == 0) {
+        const int cnt = vbyte::clamp_count(hdr[0], B);
+        decode_staged(FMT, at + kRowBytesAt, at + L.at_meta, w, p.S, cnt,
+                      slots, B, lane);
+        if (p.differential)
+          vbyte::scan_row(slots, B, cnt, static_cast<uint32_t>(hdr[1]), lane);
+      } else {  // dense, non-differential, with the main row's count
+        decode_staged(wf, at + L.at_wbytes, at + L.at_wmeta, w, p.S_w,
+                      vbyte::clamp_count(hdr[3], B), wslots, B, lane);
+      }
+      __syncthreads();
+      if (warp == 0)
+        row_epilogue<EP>(p, row, vbyte::clamp_count(hdr[0], B), hdr[2], 1u,
+                         nullptr, slots, wslots, lane);
+      return;
+    }
+  }
+
+  const long long step =
+      static_cast<long long>(gridDim.x) * vbyte::kWarpsPerCta;
+  long long row =
+      static_cast<long long>(blockIdx.x) * vbyte::kWarpsPerCta + warp;
+  if (row >= p.nb) return;  // whole warp: the ragged edge of the grid
+  uint8_t* region = row_smem + warp * L.region;
+  uint32_t* slots = reinterpret_cast<uint32_t*>(region);
+  uint32_t* wslots = reinterpret_cast<uint32_t*>(region + L.off_w);
+  uint8_t* staged = region + L.off_rows;
+  int cur = 0;
+  int w = 0, ww = 0;  // binpack widths of the row in hand
+  if constexpr (STAGED) {
+    for (int b = 0; b < 2; ++b) {
+      zero_tail(staged + b * L.row + kRowBytesAt, p.S, lane, 32);
+      if (kWeighted)
+        zero_tail(staged + b * L.row + L.at_wbytes, p.S_w, lane, 32);
+    }
+    w = issue_main<FMT, EP>(p, L, row, staged, lane);
+    if (kWeighted) ww = issue_weights(p, L, row, staged, lane);
+    vbyte::stage_commit();
+  }
+  for (;;) {
+    // the next row's reads, in flight while this one is decoded
+    const long long nxt = row + step;
+    int cnt, pr = 0;
+    const int* eb = nullptr;
+    if constexpr (STAGED) {
+      int w_n = 0, ww_n = 0;
+      uint8_t* at_n = staged + (cur ^ 1) * L.row;
+      if (nxt < p.nb) {
+        w_n = issue_main<FMT, EP>(p, L, nxt, at_n, lane);
+        if (kWeighted) ww_n = issue_weights(p, L, nxt, at_n, lane);
+      }
+      vbyte::stage_commit();
+      vbyte::stage_wait_one();
+      __syncwarp();
+      const uint8_t* at = staged + cur * L.row;
+      const int* hdr = reinterpret_cast<const int*>(at);
+      cnt = vbyte::clamp_count(hdr[0], B);
+      decode_staged(FMT, at + kRowBytesAt, at + L.at_meta, w, p.S, cnt, slots,
+                    B, lane);
+      if (p.differential)
+        vbyte::scan_row(slots, B, cnt, static_cast<uint32_t>(hdr[1]), lane);
+      if (kWeighted)  // dense, non-differential, with the main row's count
+        decode_staged(wf, at + L.at_wbytes, at + L.at_wmeta, ww, p.S_w, cnt,
+                      wslots, B, lane);
+      if (RowEp<EP>::kProbe) pr = hdr[2];
+      if (RowEp<EP>::kRebase) eb = reinterpret_cast<const int*>(at + L.at_eb);
+      w = w_n;
+      ww = ww_n;
+    } else {  // in place, through the cores that read device memory
+      cnt = vbyte::clamp_count(p.counts[row], B);
+      decode_any(FMT, p.bytes, p.meta, row, p.S, cnt, slots, B, lane);
+      if (p.differential)
+        vbyte::scan_row(slots, B, cnt, static_cast<uint32_t>(p.bases[row]),
+                        lane);
+      if (kWeighted)
+        decode_any(wf, p.w_bytes, p.w_meta, row, p.S_w, cnt, wslots, B, lane);
+      if (RowEp<EP>::kProbe) pr = p.probe[row];
+      if (RowEp<EP>::kRebase) eb = p.edge_base + row * B;
+    }
+    row_epilogue<EP>(p, row, cnt, pr, impact, eb, slots, wslots, lane);
+    __syncwarp();
+    if (nxt >= p.nb) break;
+    row = nxt;
+    cur ^= 1;
   }
 }
 
@@ -393,22 +634,14 @@ __device__ __forceinline__ void stage_async(uint8_t* dst, const uint8_t* src,
   }
 }
 
-// Control or width bytes per row of a format's stream.
-__host__ __device__ __forceinline__ int meta_bytes(int fmt, int B) {
-  return fmt == kStreamVbyte ? B >> 2 : (fmt == kBinpack ? 1 : 0);
-}
-
-__host__ __device__ __forceinline__ int round16(int n) {
-  return (n + 15) & ~15;
-}
-
 // Staged bytes per row: main stream, its control or width, then the
 // weight stream's, each rounded up to 16 bytes.
 __host__ __device__ __forceinline__ int stage_row_bytes(const FusedParams& p,
                                                         int fmt,
                                                         bool weighted) {
-  return round16(p.S) + round16(meta_bytes(fmt, p.B)) +
-         (weighted ? round16(p.S_w) + round16(meta_bytes(p.w_format, p.B))
+  return vbyte::round16(p.S) + vbyte::round16(meta_bytes(fmt, p.B)) +
+         (weighted ? vbyte::round16(p.S_w) +
+                         vbyte::round16(meta_bytes(p.w_format, p.B))
                    : 0);
 }
 
@@ -458,16 +691,16 @@ __global__ void __launch_bounds__(vbyte::kWarpsPerCta * 32)
     uint8_t* at = staged;
     stage_async(at, bytes, p.S, t, T);
     bytes = at;
-    at += round16(p.S);
+    at += vbyte::round16(p.S);
     if (m) {
       stage_async(at, meta, m, t, T);
       meta = at;
-      at += round16(m);
+      at += vbyte::round16(m);
     }
     if (kWeighted) {
       stage_async(at, w_bytes, p.S_w, t, T);
       w_bytes = at;
-      at += round16(p.S_w);
+      at += vbyte::round16(p.S_w);
       if (mw) {
         stage_async(at, w_meta, mw, t, T);
         w_meta = at;
@@ -872,8 +1105,8 @@ __global__ void __launch_bounds__(vbyte::kWarpsPerCta * 32, kDotCtasPerSm)
     stage_async(at, bytes, p.S, threadIdx.x, blockDim.x);
     bytes = at;
     if (m) {
-      stage_async(at + round16(p.S), meta, m, threadIdx.x, blockDim.x);
-      meta = at + round16(p.S);
+      stage_async(at + vbyte::round16(p.S), meta, m, threadIdx.x, blockDim.x);
+      meta = at + vbyte::round16(p.S);
     }
   }
   const float* raw = reinterpret_cast<const float*>(dot_smem + L.off_ring);
@@ -994,9 +1227,9 @@ int launch_dot(const FusedParams& p, cudaStream_t stream) {
   L.ntiles = (p.nq + 7) / 8;
   const uintptr_t a = reinterpret_cast<uintptr_t>(p.table);
   L.copy = p.table_vec16 ? 16 : (a % 4 == 0 && row_bytes % 4 == 0 ? 4 : 2);
-  const int staged = round16(p.S) + round16(meta_bytes(FMT, p.B));
+  const int staged = vbyte::round16(p.S) + vbyte::round16(meta_bytes(FMT, p.B));
   L.stage = staged <= kDotMaxStaged;
-  L.off_bytes = round16(p.B * 4);
+  L.off_bytes = vbyte::round16(p.B * 4);
   // the query's rows in shared memory, bf16 for a bf16 query: rows
   // (qw + 8) / 2 = 4 x odd words apart (qw / 2 is a multiple of 8), so the
   // 8 rows one fragment read touches start on banks 4 x odd x g, and the
@@ -1005,15 +1238,74 @@ int launch_dot(const FusedParams& p, cudaStream_t stream) {
   const bool hold = p.round_bf16 && L.ntiles == 1 && L.nchunk == 1;
   L.off_query = L.off_bytes + (L.stage ? staged : 0);
   L.off_ring =
-      L.off_query + round16((p.round_bf16 ? 2 : 4) * p.nq * L.qs);
+      L.off_query + vbyte::round16((p.round_bf16 ? 2 : 4) * p.nq * L.qs);
   const int ring = vbyte::kWarpsPerCta * kDotStages * kDotTile * (L.cb + 16);
-  const size_t smem = L.off_ring + std::max(ring, round16(4 * p.nq * p.d));
+  const size_t smem =
+      L.off_ring + std::max(ring, vbyte::round16(4 * p.nq * p.d));
   if (!p.table_bf16)
     return launch_dot_mode<FMT, kDotTf32x3>(p, L, smem, stream);
   if (!p.round_bf16)
     return launch_dot_mode<FMT, kDotBf16x3>(p, L, smem, stream);
   if (hold) return launch_dot_mode<FMT, kDotBf16Hold>(p, L, smem, stream);
   return launch_dot_mode<FMT, kDotBf16>(p, L, smem, stream);
+}
+
+
+// The row-aligned kernel's layout (RowLayout) and grid: staged where every
+// part of a row can be (strides up to kMaxStagedStride, and the CTA's
+// shared memory within kMaxRowSmem), else read in place.
+template <int FMT, int EP>
+int launch_rows(const FusedParams& p, cudaStream_t stream) {
+  constexpr bool kWeighted = RowEp<EP>::kWeighted;
+  constexpr bool kRebase = RowEp<EP>::kRebase;
+  const int B = p.B;
+  const int m = FMT == kStreamVbyte ? B >> 2 : 0;
+  const int mw = kWeighted && p.w_format == kStreamVbyte ? B >> 2 : 0;
+  RowLayout L{};
+  L.off_w = vbyte::round16(4 * B);
+  L.off_rows = L.off_w * (kWeighted ? 2 : 1);
+  L.g_bytes = vbyte::stage_gran(p.bytes, p.S);
+  L.g_meta = m ? vbyte::stage_gran(p.meta, m) : 16;
+  L.g_wbytes = kWeighted ? vbyte::stage_gran(p.w_bytes, p.S_w) : 16;
+  L.g_wmeta = mw ? vbyte::stage_gran(p.w_meta, mw) : 16;
+  L.g_eb = kRebase ? vbyte::stage_gran(p.edge_base, 4 * B) : 16;
+  L.at_meta = kRowBytesAt + vbyte::stage_bytes(p.S);
+  L.at_wbytes = L.at_meta + vbyte::round16(m);
+  L.at_wmeta = L.at_wbytes + (kWeighted ? vbyte::stage_bytes(p.S_w) : 0);
+  L.at_eb = L.at_wmeta + vbyte::round16(mw);
+  L.row = L.at_eb + (kRebase ? vbyte::round16(4 * B) : 0);
+  L.staged = L.g_bytes && L.g_meta && L.g_wbytes && L.g_wmeta && L.g_eb &&
+             static_cast<size_t>(vbyte::kWarpsPerCta) *
+                     (L.off_rows + 2 * L.row) <= kMaxRowSmem;
+  L.region = L.off_rows + (L.staged ? 2 * L.row : 0);
+  int n_sm = 0;
+  cudaError_t e = vbyte::sm_count(&n_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // bm25_weighted_rows at launches of at most one row per SM: a CTA of
+  // two warps per row, the weight stream decoded on the second beside the
+  // main one (one warp doing both is 1.13-1.22x slower there)
+  L.split = kWeighted && L.staged && p.nb <= n_sm;
+  auto run = [&](auto kernel) {
+    cudaError_t a = cudaSuccess;
+    if (L.split) {
+      const size_t smem = L.off_rows + L.row;
+      if (smem > (48u << 10) &&
+          (a = cudaFuncSetAttribute(kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess)
+        return static_cast<int>(a);
+      kernel<<<static_cast<unsigned>(p.nb), 64, smem, stream>>>(p, L);
+      return static_cast<int>(cudaGetLastError());
+    }
+    const size_t smem = static_cast<size_t>(vbyte::kWarpsPerCta) * L.region;
+    unsigned grid = 0;
+    if ((a = vbyte::stage_grid(kernel, p.nb, smem, &grid)) != cudaSuccess)
+      return static_cast<int>(a);
+    kernel<<<grid, vbyte::kWarpsPerCta * 32, smem, stream>>>(p, L);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return L.staged ? run(fused_decode_kernel<FMT, EP, true>)
+                  : run(fused_decode_kernel<FMT, EP, false>);
 }
 
 template <int FMT, int EP>
@@ -1024,14 +1316,7 @@ int launch(const FusedParams& p, cudaStream_t stream) {
   } else if constexpr (EP == kDotScore) {
     return launch_dot<FMT>(p, stream);
   } else {
-    constexpr bool kWeighted = EP == kBm25WeightedRows;
-    const dim3 grid(static_cast<unsigned>((p.nb + vbyte::kWarpsPerCta - 1) /
-                                          vbyte::kWarpsPerCta));
-    const dim3 block(vbyte::kWarpsPerCta * 32);
-    const size_t smem =
-        sizeof(uint32_t) * (kWeighted ? 2 : 1) * vbyte::kWarpsPerCta * p.B;
-    fused_decode_kernel<FMT, EP><<<grid, block, smem, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    return launch_rows<FMT, EP>(p, stream);
   }
 }
 

@@ -1,5 +1,6 @@
-// Masked-VByte block-decode core shared by both kernels of this directory
-// (vbyte_decode.cu: decode only; fused_decode.cu: decode + query epilogue).
+// Masked-VByte block-decode core shared by kernel 1 (vbyte_decode.cu:
+// decode only) and kernel 2 (fused_decode.cu: decode + query epilogue),
+// with the staging, scan and store steps that kernels 1-4 share (below).
 //
 // One warp decodes one compressed block. The block's payload row is walked
 // 32 bytes at a time, one byte per lane:
@@ -66,7 +67,9 @@ __device__ __forceinline__ void decode_row(const uint8_t* __restrict__ row,
 
 // Fused differential epilogue: inclusive prefix sum of the row mod 2^32,
 // plus the block's base, slots >= cnt zeroed afterwards. A warp scan over
-// 32 slots at a time, carrying the running total between chunks.
+// 32 slots at a time, carrying the running total between chunks. Kernel
+// 2's probe_kernel and dot_kernel scan with it; the staged kernels use
+// scan_row below.
 __device__ __forceinline__ void prefix_row(uint32_t* slots, int B, int cnt,
                                            uint32_t base, int lane) {
   uint32_t carry = base;
@@ -90,11 +93,12 @@ __device__ __forceinline__ int clamp_count(int count, int B) {
 }
 
 // ---------------------------------------------------------------------------
-// Staged rows (kernels 1 and 4; kernel 2 keeps decode_row / prefix_row
-// above). A warp walks its rows grid-stride: the next row's bytes are
-// copied into shared memory (stage_row, cp.async) beside its count and
-// base while the current row is decoded from its staged copy; then
-// scan_row and store_row finish it.
+// Staged rows (kernels 1, 3 and 4, and kernel 2). A warp walks its rows
+// grid-stride: the next row's bytes are copied into shared memory
+// (stage_row, cp.async) beside its count and base while the current row is
+// decoded from its staged copy; then scan_row and store_row finish it.
+// decode_row above stays for rows too wide to stage, and for kernel 2's
+// probe_kernel and dot_kernel.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxStagedStride = 8192;  // wider rows are read in place
@@ -142,6 +146,27 @@ __device__ __forceinline__ void stage_row(uint8_t* dst,
                      : "memory");
     }
   }
+}
+
+// stage_row with the copy size chosen at run time (uniform over the warp).
+__device__ __forceinline__ void stage_any(uint8_t* dst,
+                                          const uint8_t* __restrict__ src,
+                                          int n, int gran, int lane) {
+  if (gran == 16) {
+    stage_row<16>(dst, src, n, lane);
+  } else if (gran == 4) {
+    stage_row<4>(dst, src, n, lane);
+  } else {
+    stage_row<1>(dst, src, n, lane);
+  }
+}
+
+// One 4-byte word to shared `dst` by cp.async (the calling lane's group).
+__device__ __forceinline__ void stage_word(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void stage_commit() {
@@ -202,7 +227,9 @@ __device__ __forceinline__ void decode_staged_row(const uint8_t* row, int S,
 }
 
 // The differential epilogue over a decoded row: inclusive prefix sum mod
-// 2^32 plus `base`, slots >= cnt zeroed (as prefix_row). Each lane takes
+// 2^32 plus `base`, slots >= cnt zeroed (the TPU kernels' prefix_sum_tile,
+// a triangular matmul there; prefix_row's result). `slots` is 16-byte
+// aligned. Each lane takes
 // ceil(B / 32) consecutive slots, sums them serially, and one warp scan of
 // the lanes' totals gives each lane its carry.
 __device__ __forceinline__ void scan_row(uint32_t* slots, int B, int cnt,
@@ -264,21 +291,31 @@ __host__ __device__ __forceinline__ int warp_region(int S, int B, int gran) {
   return round16(4 * B) + (gran ? 2 * stage_bytes(S) : 0);
 }
 
-// The grid of kernel 1 or 4: one CTA of kWarpsPerCta warps per
-// kWarpsPerCta rows, at most as many as stay resident; the warps then walk
-// the rows grid-stride. Sets the kernel's dynamic shared memory limit.
+// The device's SM count (read once).
+__host__ inline cudaError_t sm_count(int* n_sm) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (e != cudaSuccess) return e;
+  }
+  *n_sm = cached;
+  return cudaSuccess;
+}
+
+// The grid of a staged kernel (1, 3, 4, or kernel 2's row-aligned one):
+// one CTA of kWarpsPerCta warps per kWarpsPerCta rows, at most as many as
+// stay resident; the warps then walk the rows grid-stride. Sets the
+// kernel's dynamic shared memory limit.
 template <typename Kernel>
 __host__ cudaError_t stage_grid(Kernel kernel, long long nb, size_t smem,
                                 unsigned* grid) {
-  static int n_sm = 0;
-  cudaError_t e = cudaSuccess;
-  if (n_sm == 0) {
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return e;
-  }
+  int n_sm = 0;
+  cudaError_t e = sm_count(&n_sm);
+  if (e != cudaSuccess) return e;
   if (smem > 48 * 1024 &&
       (e = cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,

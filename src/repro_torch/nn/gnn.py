@@ -70,6 +70,30 @@ def gin_layer(params: GINLayer, h: torch.Tensor, src: torch.Tensor,
     return torch.relu(x)
 
 
+def edge_owners(row_offsets: torch.Tensor, n_edges: int) -> torch.Tensor:
+    """The list l(e) that edge e belongs to, ``row_offsets[l] <= e <
+    row_offsets[l+1]``: int32 ``[E]`` on ``row_offsets``' device. Metadata
+    only — it does not wait for the decode."""
+    row_offsets = as_i32_bits(row_offsets)
+    e_idx = torch.arange(n_edges, dtype=torch.int32, device=row_offsets.device)
+    return torch.searchsorted(row_offsets, e_idx, right=True,
+                              out_int32=True) - 1
+
+
+def edge_bases(gaps, row_gap_bases: torch.Tensor,
+               owner: torch.Tensor) -> torch.Tensor:
+    """``adjacency_rebase``'s ``edge_base`` operand: int32 ``[n_blocks,
+    block_size]`` on the gaps' device, slot e holding the gap-stream
+    running sum at the start of edge e's list (``row_gap_bases[owner[e]]``),
+    0 past the last edge."""
+    nb, block_size = gaps.n_blocks, gaps.block_size
+    edge_base = torch.zeros(nb * block_size, dtype=torch.int32,
+                            device=gaps.device)
+    edge_base[:owner.numel()] = as_i32_bits(
+        row_gap_bases.to(gaps.device)).index_select(0, owner)
+    return edge_base.reshape(nb, block_size)
+
+
 def decode_compressed_edges(gaps, row_offsets, n_edges: int, *,
                             row_gap_bases=None, plan="auto"):
     """Decode a per-list delta-encoded VByte adjacency stream on its device.
@@ -92,28 +116,16 @@ def decode_compressed_edges(gaps, row_offsets, n_edges: int, *,
     """
     from repro_torch.kernels.vbyte_decode import dispatch
 
-    nb = gaps.n_blocks
-    block_size = gaps.block_size
     dev = gaps.device
     row_offsets = as_i32_bits(row_offsets.to(dev))
-
-    # edge e belongs to list l(e): row_offsets[l] <= e < row_offsets[l+1].
-    # Metadata only — it does not wait for the decode.
-    e_idx = torch.arange(n_edges, dtype=torch.int32, device=dev)
-    owner = torch.searchsorted(row_offsets, e_idx, right=True,
-                               out_int32=True) - 1
-    del e_idx
+    owner = edge_owners(row_offsets, n_edges)
 
     if row_gap_bases is not None:
         # fused one-pass path: per-edge rebase inside the kernel epilogue
-        edge_base = torch.zeros(nb * block_size, dtype=torch.int32,
-                                device=dev)
-        edge_base[:n_edges] = as_i32_bits(row_gap_bases.to(dev)).index_select(
-            0, owner)
+        edge_base = edge_bases(gaps, row_gap_bases, owner)
         nbr_grid = dispatch.decode(
             gaps, epilogue="adjacency_rebase",
-            epilogue_operands={"edge_base": edge_base.reshape(nb, block_size)},
-            plan=plan)
+            epilogue_operands={"edge_base": edge_base}, plan=plan)
         return nbr_grid.reshape(-1)[:n_edges], owner
 
     # legacy global path: differential decode against per-block running-sum

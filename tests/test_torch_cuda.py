@@ -948,22 +948,29 @@ def test_gin_forward_on_the_card_is_reproducible_and_exact(dev):
 
 
 # ---------------------------------------------------------------------------
-# kernels 1 and 4: staged rows, every layout, bit for bit
+# kernels 1, 3 and 4 and kernel 2's row-aligned kernel: staged rows, every
+# layout, bit for bit
 # ---------------------------------------------------------------------------
+STAGED_ENCODERS = {"vbyte": venc, "streamvbyte": svb, "binpack": bpk}
+
+
 def _ragged_fmt(rng, fmt, nb, B, max_bits):
     lists = []
     for i in range(nb):
         n = 0 if i % 7 == 0 else int(rng.integers(1, B + 1))
         bits = int(rng.integers(0 if fmt == "binpack" else 1, max_bits + 1))
         lists.append(rng.integers(0, 2**bits, size=n, dtype=np.uint64))
-    enc = {"vbyte": venc, "binpack": bpk}[fmt].encode_ragged_blocked(
-        lists, block_size=B)
-    data = enc.payload if fmt == "vbyte" else enc.data
-    meta = None if fmt == "vbyte" else enc.widths.reshape(nb, 1)
-    return data, meta, enc.counts
+    enc = STAGED_ENCODERS[fmt].encode_ragged_blocked(lists, block_size=B)
+    if fmt == "vbyte":
+        return enc.payload, None, enc.counts
+    meta = enc.control if fmt == "streamvbyte" else enc.widths.reshape(nb, 1)
+    return enc.data, meta, enc.counts
 
 
 DECODERS = {"vbyte": (kernel, kernel.vbyte_decode_blocked_cuda, decode_plain),
+            "streamvbyte": (stream_kernel,
+                            stream_kernel.stream_decode_blocked_cuda,
+                            stream_masked.decode_blocked),
             "binpack": (binpack_kernel,
                         binpack_kernel.binpack_decode_blocked_cuda,
                         binpack_masked.decode_blocked)}
@@ -993,15 +1000,38 @@ def _layout(dev, data, S, offset):
     return torch.as_tensor(full, device=dev)[offset:]
 
 
-@pytest.mark.parametrize("pad,offset", [(0, 0), (3, 0), (2, 1), (17, 1),
-                                        (9000, 0)])
-@pytest.mark.parametrize("B", [50, 52, 128, 1024])
-@pytest.mark.parametrize("fmt", ["vbyte", "binpack"])
-def test_kernels1_4_staged_layouts_match_plain(dev, fmt, B, pad, offset):
-    """B of 50, 52, 128 and 1,024; strides that are not multiples of 16
-    (pad 3, 17), rows off their alignment (offset 1: 1-, 4- and 16-byte
-    copies all taken), and a stride past the staging limit (read in
-    place)."""
+def _garbage_meta(dev, rng, fmt, nb, B, offset):
+    """Random control bytes (every 8th row all length 4, running past any
+    row end) or widths up to 255 (32 and more among them), ``offset`` rows
+    into their buffer (off their 4-byte alignment with offset 1)."""
+    if fmt == "vbyte":
+        return None
+    if fmt == "streamvbyte":
+        c = rng.integers(0, 256, (nb + offset, B // 4), dtype=np.uint8)
+        c[::8] = 0xFF
+        return torch.as_tensor(c, device=dev)[offset:]
+    w = rng.integers(0, 256, (nb + offset, 1), dtype=np.uint8)
+    w[:40] = 32
+    w[40:80] = rng.integers(0, 33, (40, 1))
+    return torch.as_tensor(w, device=dev)[offset:]
+
+
+# (format, B): Stream VByte takes multiples of 4 only
+STAGED_FORMATS_B = ([(f, B) for f in ("vbyte", "binpack")
+                     for B in (50, 52, 128, 1024)]
+                    + [("streamvbyte", B) for B in (52, 128, 1024)])
+STAGED_LAYOUTS = [(0, 0), (3, 0), (2, 1), (17, 1), (9000, 0)]
+GARBAGE_LAYOUTS = [(96, 0), (97, 1), (256, 1), (9001, 0)]
+STAGED_NB = [1, 2, 5, 4097, 2**18]
+
+
+@pytest.mark.parametrize("pad,offset", STAGED_LAYOUTS)
+@pytest.mark.parametrize("fmt,B", STAGED_FORMATS_B)
+def test_kernels1_3_4_staged_layouts_match_plain(dev, fmt, B, pad, offset):
+    """B of 50, 52, 128 and 1,024 (52 up for Stream VByte); strides that are
+    not multiples of 16 (pad 3, 17), rows off their alignment (offset 1:
+    1-, 4- and 16-byte copies all taken), and a stride past the staging
+    limit (read in place)."""
     rng = np.random.default_rng(B + pad)
     data, meta, counts = _ragged_fmt(rng, fmt, 301, B, 32)
     S = data.shape[1] + pad
@@ -1011,9 +1041,9 @@ def test_kernels1_4_staged_layouts_match_plain(dev, fmt, B, pad, offset):
                           bases, B)
 
 
-@pytest.mark.parametrize("nb", [1, 2, 5, 4097, 2**18])
-@pytest.mark.parametrize("fmt", ["vbyte", "binpack"])
-def test_kernels1_4_block_counts_match_plain(dev, fmt, nb):
+@pytest.mark.parametrize("nb", STAGED_NB)
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_kernels1_3_4_block_counts_match_plain(dev, fmt, nb):
     """1 to 2^18 blocks: fewer rows than warps, and many rows per warp
     (the grid-stride walk with the next row in flight)."""
     rng = np.random.default_rng(nb)
@@ -1024,23 +1054,154 @@ def test_kernels1_4_block_counts_match_plain(dev, fmt, nb):
                           counts, bases, 128)
 
 
-@pytest.mark.parametrize("S,offset", [(96, 0), (97, 1), (256, 1), (9001, 0)])
+@pytest.mark.parametrize("S,offset", GARBAGE_LAYOUTS)
 @pytest.mark.parametrize("B", [52, 128])
-@pytest.mark.parametrize("fmt", ["vbyte", "binpack"])
-def test_kernels1_4_garbage_in_every_layout_match_plain(dev, fmt, B, S,
-                                                        offset):
-    """Random bytes, counts below 0 and past B, widths up to 255 (32 and
-    more among them), in every staging layout."""
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_kernels1_3_4_garbage_in_every_layout_match_plain(dev, fmt, B, S,
+                                                          offset):
+    """Random bytes, counts below 0 and past B, Stream-VByte lengths that
+    run past the row end, widths up to 255 (32 and more among them), in
+    every staging layout."""
     rng = np.random.default_rng(S + B)
     nb = 513
     data = rng.integers(0, 256, (nb, S), dtype=np.uint8)
-    meta = None
-    if fmt == "binpack":  # widths off their 4-byte alignment with offset 1
-        w = rng.integers(0, 256, (nb + offset, 1), dtype=np.uint8)
-        w[:40] = 32
-        w[40:80] = rng.integers(0, 33, (40, 1))
-        meta = torch.as_tensor(w, device=dev)[offset:]
+    meta = _garbage_meta(dev, rng, fmt, nb, B, offset)
     counts = rng.integers(-2, B + 12, nb).astype(np.int32)
     bases = rng.integers(-2**31, 2**31, nb).astype(np.int32)
     _decode_matches_plain(dev, fmt, _layout(dev, data, S, offset), meta,
                           counts, bases, B)
+
+
+ROW_EPILOGUES = ("stream", "checksum", "membership_rows", "bm25_accum_rows",
+                 "bm25_weighted_rows", "adjacency_rebase")
+
+
+def _row_ops(dev, fmt, data, meta, counts, bases):
+    ops = {"counts": torch.as_tensor(np.asarray(counts, np.int32), device=dev),
+           "bases": torch.as_tensor(np.asarray(bases, np.int32), device=dev)}
+    names = epilogues.FORMAT_OPERANDS[fmt]
+    ops[names[-1]] = data
+    if meta is not None:
+        ops[names[0]] = (meta if isinstance(meta, torch.Tensor)
+                         else torch.as_tensor(meta, device=dev))
+    return ops
+
+
+def _weight_streams(dev, rng, fmt, nb, B, *, pad=0, offset=0, garbage_S=0):
+    """One weight stream in each of the other formats than ``fmt`` (the
+    weighted epilogue's impact stream may differ from the main one): valid
+    rows at the given layout, or garbage rows of stride ``garbage_S``."""
+    streams = []
+    for w_fmt in ("vbyte", "streamvbyte", "binpack"):
+        if w_fmt == fmt or (w_fmt == "streamvbyte" and B % 4):
+            continue
+        if garbage_S:
+            data = rng.integers(0, 256, (nb, garbage_S), dtype=np.uint8)
+            meta = _garbage_meta(dev, rng, w_fmt, nb, B, offset)
+            data = _layout(dev, data, garbage_S, offset)
+        else:
+            data, meta, _ = _ragged_fmt(rng, w_fmt, nb, B, 12)
+            data = _layout(dev, data, data.shape[1] + pad, offset)
+            meta = None if meta is None else torch.as_tensor(meta,
+                                                             device=dev)
+        names = epilogues.FORMAT_OPERANDS[w_fmt]
+        w = {f"w_{names[-1]}": data}
+        if meta is not None:
+            w[f"w_{names[0]}"] = meta
+        streams.append(w)
+    return streams
+
+
+def _rows_match_plain(dev, rng, fmt, ops, B, weights):
+    """Every row-aligned epilogue of kernel 2 on ``ops`` against its plain
+    version (differential; stream and checksum both ways), the weighted one
+    with each weight stream."""
+    nb = ops["counts"].shape[0]
+    grid = epilogues.fused_decode_plain(
+        ops, {}, format=fmt, epilogue="stream", block_size=B,
+        differential=True).cpu().numpy()
+    pick = grid[np.arange(nb), rng.integers(0, B, nb)]
+    probe = torch.as_tensor(np.where(rng.random(nb) < 0.3, -1, pick)
+                            .astype(np.int32)[:, None], device=dev)
+    eb = torch.as_tensor(rng.integers(-2**31, 2**31, (nb, B))
+                         .astype(np.int32), device=dev)
+    extras = {"stream": [{}], "checksum": [{}],
+              "membership_rows": [{"probe": probe}],
+              "bm25_accum_rows": [{"probe": probe, "impact": torch.tensor(
+                  [[9]], dtype=torch.int32, device=dev)}],
+              "bm25_weighted_rows": [{"probe": probe, **w} for w in weights],
+              "adjacency_rebase": [{"edge_base": eb}]}
+    for name in ROW_EPILOGUES:
+        for ex in extras[name]:
+            for differential in ((False, True) if name in ("stream",
+                                                           "checksum")
+                                 else (True,)):
+                _kernel2_matches_plain(ops, ex, fmt, name, B, differential)
+
+
+@pytest.mark.parametrize("pad,offset", STAGED_LAYOUTS)
+@pytest.mark.parametrize("fmt,B", STAGED_FORMATS_B)
+def test_kernel2_rows_staged_layouts_match_plain(dev, fmt, B, pad, offset):
+    """Kernel 2's row-aligned epilogues at every staging layout of kernels
+    1, 3 and 4 (the weight stream at the same layout, in each other
+    format)."""
+    rng = np.random.default_rng(B + pad + 1)
+    data, meta, counts = _ragged_fmt(rng, fmt, 301, B, 32)
+    bases = rng.integers(-2**31, 2**31, 301).astype(np.int32)
+    ops = _row_ops(dev, fmt, _layout(dev, data, data.shape[1] + pad, offset),
+                   meta, counts, bases)
+    _rows_match_plain(dev, rng, fmt, ops, B, _weight_streams(
+        dev, rng, fmt, 301, B, pad=pad, offset=offset))
+
+
+@pytest.mark.parametrize("nb", STAGED_NB)
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_kernel2_rows_block_counts_match_plain(dev, fmt, nb):
+    """1 to 2^18 blocks: the weighted epilogue's CTA per row (up to one row
+    per SM) and the grid-stride walk with many rows per warp."""
+    rng = np.random.default_rng(nb + 3)
+    data, meta, counts = _ragged_fmt(rng, fmt, nb, 128, 21)
+    bases = rng.integers(-2**31, 2**31, nb).astype(np.int32)
+    ops = _row_ops(dev, fmt, torch.as_tensor(data, device=dev), meta, counts,
+                   bases)
+    _rows_match_plain(dev, rng, fmt, ops, 128,
+                      _weight_streams(dev, rng, fmt, nb, 128))
+
+
+@pytest.mark.parametrize("S,offset", GARBAGE_LAYOUTS)
+@pytest.mark.parametrize("B", [52, 128])
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_kernel2_rows_garbage_in_every_layout_match_plain(dev, fmt, B, S,
+                                                          offset):
+    """Kernel 2's row-aligned epilogues on random bytes, counts below 0 and
+    past B, Stream-VByte lengths past the row end and widths up to 255, in
+    every staging layout (stride 9,001 read in place), with garbage weight
+    streams of the other formats."""
+    rng = np.random.default_rng(S + B + 5)
+    nb = 513
+    data = rng.integers(0, 256, (nb, S), dtype=np.uint8)
+    meta = _garbage_meta(dev, rng, fmt, nb, B, offset)
+    counts = rng.integers(-2, B + 12, nb).astype(np.int32)
+    bases = rng.integers(-2**31, 2**31, nb).astype(np.int32)
+    ops = _row_ops(dev, fmt, _layout(dev, data, S, offset), meta, counts,
+                   bases)
+    _rows_match_plain(dev, rng, fmt, ops, B, _weight_streams(
+        dev, rng, fmt, nb, B, offset=offset, garbage_S=S))
+
+
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_kernel2_adjacency_rebase_past_the_grid_matches_plain(dev, fmt):
+    """More rows than the persistent grid has warps (each warp walks many),
+    every third row empty."""
+    rng = np.random.default_rng(29)
+    nb = 1 << 16
+    data, meta, counts = _ragged_fmt(rng, fmt, nb, 128, 26)
+    counts = np.asarray(counts).copy()
+    counts[::3] = 0
+    bases = rng.integers(-2**31, 2**31, nb).astype(np.int32)
+    ops = _row_ops(dev, fmt, torch.as_tensor(data, device=dev), meta, counts,
+                   bases)
+    eb = torch.as_tensor(rng.integers(-2**31, 2**31, (nb, 128))
+                         .astype(np.int32), device=dev)
+    _kernel2_matches_plain(ops, {"edge_base": eb}, fmt, "adjacency_rebase",
+                           128, True)

@@ -17,10 +17,11 @@ arguments. Shapes, every one a differential decode of B = 128 blocks:
 
 * ``parity`` — ``chip_smoke.py``'s kernel parity inputs: 4,096 blocks,
   stride 128, every 7th block empty, ragged counts;
-* ``path/K<k>`` — the search path's own launches of kernels 1 and 4: the
-  whole-list decodes of OR and TAAT (``index/query.py``'s
+* ``path/K<k>`` — the search path's own launches of kernels 1, 3 and 4:
+  the whole-list decodes of OR and TAAT (``index/query.py``'s
   ``_decode_blocks``), one list of each length group K = 12, 16, 20 built
-  by ``build_index`` as the ``vbyte`` and ``auto`` paths build it;
+  by ``build_index`` as the ``vbyte``, ``streamvbyte`` and ``auto`` paths
+  build it;
 * ``scale`` — every posting of the search index in one launch per format
   (``chip_smoke.scale_case``: rows padded to the widest list's stride);
   the K=20 lists alone at their own stride and padded to the index's
@@ -28,18 +29,25 @@ arguments. Shapes, every one a differential decode of B = 128 blocks:
   path's gap stream (``gin_gaps``: ogbn-products' 61,859,140 edges at
   ``--gin-scale`` 1).
 
+Kernel 2's cases are ``tools/ab_fused_decode.py``'s (the search
+epilogues at parity and path shapes, the broadcast and ``*_rows`` forms;
+the gather epilogues), plus ``adjacency_rebase`` over the gin path's gap
+stream with the forward's ``edge_base`` (shape ``gin``).
+
 Every case first holds both libraries' outputs bit for bit against the
 plain version, then times them with the L2 flushed before every launch
 (``chip_smoke.ColdTimer``) in the order other, this, this, other, and
 prints ms, the bound and billions of integers per second. One JSON line
 per case, then the card line; ``--out FILE`` writes the lines there too.
-``--skip-fused`` leaves out kernel 2. Exits non-zero without a card or on
-any disagreement.
+``--skip-fused`` leaves out kernel 2; ``--match REGEX`` runs only the
+cases whose key (``shape/format``, ``shape/format/epilogue`` for kernel 2)
+matches. Exits non-zero without a card or on any disagreement.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import sys
 import tempfile
@@ -55,7 +63,8 @@ import chip_smoke as cs  # noqa: E402
 
 LIBS = {"vbyte": "vbyte_decode", "streamvbyte": "stream_decode",
         "binpack": "binpack_decode"}
-PATH_FORMATS = {"vbyte": "vbyte", "binpack": "auto"}  # index format=
+PATH_FORMATS = {"vbyte": "vbyte", "binpack": "auto",  # index format=
+                "streamvbyte": "streamvbyte"}
 
 
 def _ops(torch, arr) -> dict:
@@ -109,7 +118,7 @@ def scale_cases(np, torch, args):
     # the cost of staging padding: the K=20 lists alone at their own
     # widest stride, and padded to the whole index's
     k20 = dict(list(lists.items())[-args.k20_lists:])
-    for fmt in ("vbyte", "binpack"):
+    for fmt in LIBS:
         ops, st = cs.scale_case(np, torch, fmt, k20)
         yield "scale/K20", fmt, ops, st
         if strides[fmt] > st["stride"]:
@@ -117,22 +126,51 @@ def scale_cases(np, torch, args):
                                     stride=strides[fmt])
             yield f"scale/K20/S{strides[fmt]}", fmt, ops, st
     del lists, k20
-    if args.gin_scale > 0:
-        from repro_torch.configs.shapes import GNN_SHAPES
-        from repro_torch.data.graph import compress_adjacency
-        from repro_torch.data.sampler import CSRGraph
-        from repro_torch.data.synthetic import random_graph
 
-        dims = GNN_SHAPES["ogb_products"].dims
-        n = int(dims["raw_nodes"] * args.gin_scale)
-        e = int(dims["raw_edges"] * args.gin_scale)
-        g = random_graph(np.random.default_rng(args.seed), n, e, 1, 2)
-        csr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], n)
-        del g
-        gaps = compress_adjacency(csr, device="cuda")["gaps"]
-        ops = _ops(torch, gaps)
-        yield "scale/gin_gaps", "vbyte", ops, cs.decode_stats(
-            "vbyte", ops, gaps.payload_bytes, gaps.n)
+
+def gin_graph(np, args):
+    """The gin path's adjacency, compressed on the card (ogbn-products'
+    shape at ``--gin-scale``, from ``--seed``), and its edge count."""
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data.graph import compress_adjacency
+    from repro_torch.data.sampler import CSRGraph
+    from repro_torch.data.synthetic import random_graph
+
+    dims = GNN_SHAPES["ogb_products"].dims
+    n = int(dims["raw_nodes"] * args.gin_scale)
+    e = int(dims["raw_edges"] * args.gin_scale)
+    g = random_graph(np.random.default_rng(args.seed), n, e, 1, 2)
+    csr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], n)
+    del g
+    return compress_adjacency(csr, device="cuda"), e
+
+
+def gin_gaps_case(torch, comp):
+    """Kernel 1 over the gin path's gap stream (its legacy decode)."""
+    gaps = comp["gaps"]
+    ops = _ops(torch, gaps)
+    yield "scale/gin_gaps", "vbyte", ops, cs.decode_stats(
+        "vbyte", ops, gaps.payload_bytes, gaps.n)
+
+
+def gin_rebase_case(torch, comp, n_edges: int) -> dict:
+    """Kernel 2's adjacency_rebase over the same stream, with the edge_base
+    that the gin forward builds (``chip_smoke.gin_rebase_case``), as a
+    ``tools/ab_fused_decode.py`` case."""
+    ops, extras, st = cs.gin_rebase_case(torch, comp, n_edges)
+
+    def hold(out, ref):
+        if not torch.equal(out, ref):
+            cs.die("kernel 2 [vbyte/adjacency_rebase] differs from its plain "
+                   "version at the gin path's shape")
+
+    return {"shape": "gin", "format": "vbyte",
+            "epilogue": "adjacency_rebase", "n_blocks": st["nb"], "P": 0,
+            "kw": dict(format="vbyte", epilogue="adjacency_rebase",
+                       block_size=st["B"], differential=True),
+            "ops": ops, "extras": extras, "hold": hold,
+            "bound": lambda out: cs.gather_bound("adjacency_rebase", extras,
+                                                 None, st)}
 
 
 def run_decode_case(np, torch, label, fmt, ops, st, libs, timer, reps, card):
@@ -196,6 +234,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--skip-fused", action="store_true",
                     help="leave out kernel 2's cases")
+    ap.add_argument("--match", default="",
+                    help="run only the cases whose key (shape/format, or "
+                         "shape/format/epilogue for kernel 2) matches this "
+                         "regular expression")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -216,10 +258,17 @@ def main(argv=None) -> int:
                                             names)
         timer = cs.ColdTimer(torch)
         lines.append(abf.floor_line(torch, timer, args.reps, card))
-        for gen, reps in ((parity_cases(np, torch), args.reps),
-                          (path_cases(np, torch, args.seed), args.reps),
-                          (scale_cases(np, torch, args), args.scale_reps)):
+        gens = [(parity_cases(np, torch), args.reps),
+                (path_cases(np, torch, args.seed), args.reps),
+                (scale_cases(np, torch, args), args.scale_reps)]
+        comp = None
+        if args.gin_scale > 0:
+            comp, n_edges = gin_graph(np, args)
+            gens.append((gin_gaps_case(torch, comp), args.scale_reps))
+        for gen, reps in gens:
             for label, fmt, ops, st in gen:
+                if not re.search(args.match, f"{label}/{fmt}"):
+                    continue
                 rec = run_decode_case(np, torch, label, fmt, ops, st, libs,
                                       timer, reps, card)
                 lines.append(rec)
@@ -227,8 +276,11 @@ def main(argv=None) -> int:
                 del ops
                 torch.cuda.empty_cache()
         if not args.skip_fused:
-            abf.run_cases(np, torch, abf.fused_cases(np, torch),
-                          libs["other"]["fused_decode"],
+            cases = abf.fused_cases(np, torch)
+            if comp is not None:
+                cases.append(gin_rebase_case(torch, comp, n_edges))
+            cases = abf.matching(cases, args.match)
+            abf.run_cases(np, torch, cases, libs["other"]["fused_decode"],
                           libs["this"]["fused_decode"], timer,
                           args.fused_reps, card, lines)
     finally:

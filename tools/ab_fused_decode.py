@@ -19,7 +19,8 @@ timing, so both take the same checks and launch arguments. Cases:
   (differential) and on unsorted ones, and kernel 2's other search
   epilogues on sorted rows, on each of the three cores;
 * path shapes — ``chip_smoke.probe_path_cases``: the broadcast epilogues
-  over 1, 4, 16 and 512 blocks gathered from a posting list, 512 probes;
+  over 1, 4, 16 and 512 blocks gathered from a posting list, 512 probes,
+  and their ``*_rows`` forms, one probe a block;
 * gather, parity shape — ``chip_smoke.gather_parity_cases``, vbyte core:
   ``dot_score`` on the bf16 d = 256 and f32 d = 128 tables with 1 and 8
   query rows, and ``bag_sum`` (both tables) and ``adjacency_rebase`` as
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -144,7 +146,7 @@ def _parity_cases(np, torch, rng):
 def _path_cases(np, torch, rng):
     for fmt, nb, ops, extras, in_bytes, n_ints in cs.probe_path_cases(
             np, torch, rng):
-        for name in cs.PROBE_EPILOGUES:
+        for name in cs.PROBE_EPILOGUES + cs.ROWS_EPILOGUES:
             yield _search_case(torch, f"nb{nb}", fmt, name, True, ops,
                                extras[name], in_bytes[name], n_ints)
 
@@ -183,6 +185,12 @@ def fused_cases(np, torch) -> list:
     return (list(_parity_cases(np, torch, np.random.default_rng(1)))
             + list(_path_cases(np, torch, np.random.default_rng(3)))
             + list(_gather_cases(np, torch)))
+
+
+def matching(cases: list, pattern: str) -> list:
+    """The cases whose key ``shape/format/epilogue`` matches ``pattern``."""
+    return [c for c in cases if re.search(
+        pattern, f"{c['shape']}/{c['format']}/{c['epilogue']}")]
 
 
 def run_cases(np, torch, cases, other, this, timer, reps: int, card: str,
@@ -243,6 +251,10 @@ def main(argv=None) -> int:
                     help="the other revision's csrc directory")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed launches per library and turn")
+    ap.add_argument("--match", default="",
+                    help="run only the cases whose key "
+                         "shape/format/epilogue matches this regular "
+                         "expression")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -260,8 +272,8 @@ def main(argv=None) -> int:
                                 ("fused_decode",))["fused_decode"]
         timer = cs.ColdTimer(torch)
         lines.append(floor_line(torch, timer, args.reps, card))
-        run_cases(np, torch, fused_cases(np, torch), other, this, timer,
-                  args.reps, card, lines)
+        run_cases(np, torch, matching(fused_cases(np, torch), args.match),
+                  other, this, timer, args.reps, card, lines)
     finally:
         _build._LOADED.pop(("fused_decode", _build.CSRC), None)
         shutil.rmtree(tmp, ignore_errors=True)
