@@ -41,7 +41,8 @@ fault. One JSON line per phase:
    second. Times from CUDA events with the L2 flushed before every launch.
 4. search paths — a ClueWeb09-sized posting index (50M-doc universe, 16
    lists from each of the paper's length groups K=12, 16, 20, Zipf tfs,
-   block_size 128) built onto the card three ways, each served by
+   block_size 128, per-block checksum columns) built onto the card three
+   ways, each served by
    ``SearchEngine(plan="auto")`` with every launch count set to 0 just
    before its workload and read just after: ``format="vbyte"`` (the
    first 25 queries), ``format="auto"`` (100 queries; its per-list
@@ -50,9 +51,32 @@ fault. One JSON line per phase:
    Every query's result and ``QueryStats`` is then held equal to the plain
    ``plan="torch"`` engine's on the card (the replay runs in 6 spawned
    worker processes, each placing the index on the card from its numpy
-   leaves), and 10 AND/OR answers per path against numpy set operations
+   leaves without the checksum columns the indexes are built with: the
+   same answers, accounting and bits/int, so the column is off the request
+   path), and 10 AND/OR answers per path against numpy set operations
    on the host lists. A profiler window gives each path's device busy
    share.
+   Then phase ``hardened_search`` over the three indexes, the launch
+   counts set to 0 just before it and read just after: the startup gate
+   (``SearchEngine(validate=True, n_shards=8)`` over all 48 terms: host
+   validators, then kernel 2's ``checksum`` epilogue over every posting
+   and impact list; 0 quarantined, 0 unsafe bounds; ``deep_validate`` over
+   the K=12 terms); every stream corruption class that applies, on one
+   K=16 term (seed 0): the checked decode on the card raises the plain
+   plan's class at its block, and fresh engines (card and plain plan)
+   quarantine exactly that term and answer a query over it and a clean
+   term with the clean term's answer, flagged; ``max_impact`` understated
+   on a K=12 term: ``topk_maxscore`` falls back to TAAT with the clean
+   engine's answers; a transient fault retried to the exact answer, a
+   persistent one empty and flagged after 3 errors; and, in one worker
+   process per path, the shard-loss drill over the path's first 25
+   queries (``serve.shard_loss_drill``: healthy, shard 3 silenced until
+   the detector calls it dead, exactly the queries over its terms
+   flagged and the rest bit-identical, then ``heal()`` and every answer
+   bit-identical; the healthy answers equal the main path's). Then
+   ``parity_checksum_path``: the ``checksum`` epilogue on one whole list
+   of each group K=12, 16, 20 of each index, held bit for bit and timed
+   beside its bound and the format's decode kernel on the same list.
 5. path ``two_tower`` — two-tower-retrieval at full width (2^23 users and
    items) served by ``ServingEngine`` over 2^20 compressed candidates:
    256 requests drained at most 8, 4, 2 and 1 at a time, then 64 bags
@@ -79,6 +103,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import multiprocessing as mp
 import os
@@ -134,6 +159,13 @@ GIN_SAMPLE_TOP = 64
 GIN_SAMPLE_OTHERS = 1 << 16
 # the search index's length groups (K -> lists; K=20's count is a flag)
 SEARCH_GROUPS = {12: 16, 16: 16}
+# phase hardened_search: the shard-loss drill serves each search path's
+# first HARDENED_QUERIES queries over HARDENED_SHARDS logical shards and
+# loses shard VICTIM_SHARD; the retry checks allow RETRIES retries
+HARDENED_QUERIES = 25
+HARDENED_SHARDS = 8
+VICTIM_SHARD = 3
+RETRIES = 2
 
 
 def emit(phase: str, **fields):
@@ -1070,12 +1102,14 @@ def _results_equal(np, a, b) -> bool:
                for x, y in zip(a, b))
 
 
-def _index_state(index) -> dict:
+def _index_state(index, *, checksums: bool = True) -> dict:
     """The index as host numpy leaves: the arguments of
-    ``repro_torch.convert.index_from_numpy``, sent to the replay workers."""
+    ``repro_torch.convert.index_from_numpy``, sent to the worker processes;
+    ``checksums=False`` leaves the checksum columns out."""
     def stream(a):
         return {**a.leaves_numpy(), "n": a.n, "format": a.format,
-                "payload_bytes": a.payload_bytes, "checksums": a.checksums}
+                "payload_bytes": a.payload_bytes,
+                "checksums": a.checksums if checksums else None}
 
     return {"terms": {t: {"df": tp.df, "first_doc": tp.first_doc,
                           "last_doc": tp.last_doc,
@@ -1088,10 +1122,11 @@ def _index_state(index) -> dict:
             "has_tf": index.has_tf}
 
 
-def _replay(state: dict, queries: list) -> list:
+def _replay(state: dict, queries: list) -> dict:
     """A replay worker (a spawned process): place the index on the card
     from its numpy leaves and answer ``queries`` through the plain torch
-    plan. Returns ``(result, QueryStats as a dict, seconds)`` per query."""
+    plan. Returns the index's bits/int and ``(result, QueryStats as a
+    dict, seconds)`` per query."""
     sys.path.insert(0, str(SRC))
     from repro_torch.convert import index_from_numpy
     from repro_torch.index import QueryStats
@@ -1106,7 +1141,7 @@ def _replay(state: dict, queries: list) -> list:
         t0 = time.perf_counter()
         res = engine.search(terms, mode, stats=st)
         out.append((res, dataclasses.asdict(st), time.perf_counter() - t0))
-    return out
+    return {"bits_per_int": index.bits_per_int, "answers": out}
 
 
 def _launch_counters():
@@ -1142,20 +1177,23 @@ def _build_terms(lists: dict, tfs: dict, n_docs: int) -> dict:
     from repro_torch.index import build_index
 
     return _index_state(build_index(lists, tfs=tfs, n_docs=n_docs,
-                                    format="auto", device="cpu"))
+                                    format="auto", checksum=True,
+                                    device="cpu"))
 
 
 def _build(name: str, lists: dict, tfs: dict, pool):
-    """The path's index on the card. ``format="auto"`` spends seconds of
-    host DP per long list, and a term's partition depends only on its own
-    list and ``n_docs``: each term is built by its own ``build_index``
-    call in ``pool`` (longest lists first) and the terms are merged."""
+    """The path's index on the card, with the checksum columns the
+    hardened phase checks. ``format="auto"`` spends seconds of host DP per
+    long list, and a term's partition depends only on its own list and
+    ``n_docs``: each term is built by its own ``build_index`` call in
+    ``pool`` (longest lists first) and the terms are merged."""
     from repro_torch.convert import index_from_numpy
     from repro_torch.data.synthetic import CLUEWEB_DOCS
     from repro_torch.index import build_index
 
     if name != "auto":
-        return build_index(lists, tfs=tfs, n_docs=CLUEWEB_DOCS, format=name)
+        return build_index(lists, tfs=tfs, n_docs=CLUEWEB_DOCS, format=name,
+                           checksum=True)
     jobs = {t: pool.submit(_build_terms, {t: lists[t]}, {t: tfs[t]},
                            CLUEWEB_DOCS)
             for t in sorted(lists, key=lambda t: -lists[t].size)}
@@ -1224,15 +1262,20 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
 
     # every query again through the plain torch plan on the card, split
     # over the pool's worker processes (the replay is host-bound and as
-    # long as the workload several times over): identical results and
-    # accounting; AND/OR also against numpy set operations
+    # long as the workload several times over), on the index without its
+    # checksum columns: identical results, accounting and bits/int, so the
+    # column is off the request path; AND/OR also against numpy set
+    # operations
     t0 = time.perf_counter()
     parts = [list(range(i, len(qs), workers)) for i in range(workers)]
-    state = _index_state(index)
+    state = _index_state(index, checksums=False)
     replayed = {}
-    for part, outs in zip(parts, pool.map(
+    for part, rep in zip(parts, pool.map(
             _replay, [state] * workers, [[qs[i] for i in p] for p in parts])):
-        replayed.update(zip(part, outs))
+        if rep["bits_per_int"] != index.bits_per_int:
+            die(f"{name}: bits/int {index.bits_per_int} with the checksum "
+                f"columns, {rep['bits_per_int']} without")
+        replayed.update(zip(part, rep["answers"]))
     del state
     oracle = 0
     by_mode = {}  # mode -> [n, kernel-plan seconds, torch-plan seconds]
@@ -1267,10 +1310,22 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
              len(prof_qs))
     seconds = time.perf_counter() - t_path
     emit("path_done", path=name, seconds=round(seconds, 3))
-    del engine, index, record, replayed
+    digests = [_digest(out) for out, _, _ in record]
+    del engine, record, replayed
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "seconds": seconds}
+    # the index stays on the card for phase hardened_search
+    return {"launches": launches, "seconds": seconds, "index": index,
+            "digests": digests}
+
+
+def _digest(out) -> str:
+    """A query answer's arrays (dtype, shape, bytes) as one SHA-256."""
+    h = hashlib.sha256()
+    for a in out if isinstance(out, tuple) else (out,):
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def _profile(torch, name, work, units: int, unit: str = "queries"):
@@ -1327,16 +1382,328 @@ def phase_main_paths(np, torch, args) -> dict:
                                                 for v in lists.values())))
     paths = {}
     workers = max(1, min(os.cpu_count() or 1, REPLAY_WORKERS))
+    path_queries = {"vbyte": args.vbyte_queries, "auto": args.queries,
+                    "streamvbyte": args.svb_queries}
     with ProcessPoolExecutor(max_workers=workers,
                              mp_context=mp.get_context("spawn")) as pool:
-        for name, n_queries in (("vbyte", args.vbyte_queries),
-                                ("auto", args.queries),
-                                ("streamvbyte", args.svb_queries)):
+        for name, n_queries in path_queries.items():
             paths[name] = run_path(
                 np, torch, name, lists, tfs, qs[:n_queries], groups=groups,
                 profile_queries=args.profile_queries, pool=pool,
                 workers=workers)
+        hardened = phase_hardened(np, torch, paths, qs, groups, path_queries,
+                                  pool)
+    for name in path_queries:  # free the indexes
+        del paths[name]["index"], paths[name]["digests"]
+    paths["hardened_search"] = hardened
+    gc.collect()
+    torch.cuda.empty_cache()
     return paths
+
+
+# ---------------------------------------------------------------------------
+# phase hardened_search: the hardened engine over the search paths' indexes
+# ---------------------------------------------------------------------------
+def _group_terms(groups: dict) -> dict:
+    """K -> the term ids of that length group (``search_lists`` numbers
+    the lists group by group, in ``groups``' order)."""
+    out, at = {}, 0
+    for k, n in groups.items():
+        out[k] = list(range(at, at + n))
+        at += n
+    return out
+
+
+def _sub_index(index, terms, replaced=None):
+    """The same index over ``terms`` only, the ``TermPostings`` in
+    ``replaced`` (term -> postings) swapped in; no stream moves."""
+    return dataclasses.replace(index, terms={
+        **{t: index.terms[t] for t in terms}, **(replaced or {})})
+
+
+def _detect(arr, plan, term):
+    """The reference's detection stack: host validators, then the checked
+    decode (kernel 2's checksum epilogue for ``plan="cuda"``). Returns the
+    typed error, or ``None``."""
+    from repro_torch.robustness import (DecodeError, decode_checked,
+                                        validate_array)
+
+    try:
+        validate_array(arr, term=term)
+        decode_checked(arr, plan=plan, term=term)
+        return None
+    except DecodeError as e:
+        return e
+
+
+def _err(e):
+    return None if e is None else {"class": type(e).__name__,
+                                   "block": e.block}
+
+
+def _merge_launches(a: dict, b: dict) -> dict:
+    out = {k: v + b[k] for k, v in a.items() if isinstance(v, int)}
+    out["fused_decode_by"] = dict(Counter(a["fused_decode_by"])
+                                  + Counter(b["fused_decode_by"]))
+    return out
+
+
+def _drill(state: dict, queries: list, victim: int) -> dict:
+    """A drill worker (a spawned process): place the index on the card from
+    its numpy leaves, checksum columns included, gate it with
+    ``validate=True`` over ``HARDENED_SHARDS`` logical shards on a
+    simulated clock, and run ``serve.shard_loss_drill`` over ``queries``
+    and one OR query of the victim shard's first term. Raises on any
+    violation; returns the drill's counts and seconds, the healthy
+    answers' digests and the launches."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.convert import index_from_numpy
+    from repro_torch.launch.serve import (SearchEngine, SimClock,
+                                          shard_loss_drill)
+
+    index = index_from_numpy(**state, device="cuda")
+    counters = _launch_counters()
+    _reset(torch, counters)
+    clock = SimClock()
+    engine = SearchEngine(index, validate=True, n_shards=HARDENED_SHARDS,
+                          clock=clock)
+    if engine.quarantined or engine.bound_unsafe:
+        raise AssertionError(f"clean index gated: {engine.quarantined} "
+                             f"{engine.bound_unsafe}")
+    lo, _ = engine.shards[victim]
+    qs = list(queries) + [("or", [engine.term_order[lo]])]
+    out = shard_loss_drill(engine, qs, clock, victim=victim)
+    launches = _read(torch, counters)
+    return {**{k: v for k, v in out.items() if k != "healthy"},
+            "digests": [_digest(a) for a in out["healthy"]],
+            "launches": launches}
+
+
+def hardened_checks(np, torch, name: str, index, t_groups: dict) -> None:
+    """The hardened engine on one path's index, in this process: the
+    startup gate over every term (and the deep gate over the K=12 terms),
+    detection of every stream corruption class on a K=16 term, the
+    unsafe-bound fallback, and retries. Dies on any violation."""
+    from repro_torch.index import QueryStats
+    from repro_torch.kernels.vbyte_decode import epilogues
+    from repro_torch.launch.serve import SearchEngine, SimClock
+    from repro_torch.robustness import ChecksumError, faultgen
+
+    k12, k16 = t_groups[12], t_groups[16]
+    # startup gate: every term at full size, then deep over K=12
+    before = dict(epilogues.launches.by)
+    t0 = time.perf_counter()
+    eng = SearchEngine(index, validate=True, n_shards=HARDENED_SHARDS,
+                       clock=SimClock())
+    gate_s = time.perf_counter() - t0
+    gate_launches = {k: v - before.get(k, 0)
+                     for k, v in epilogues.launches.by.items()
+                     if v != before.get(k, 0)}
+    if eng.quarantined or eng.bound_unsafe:
+        die(f"hardened {name}: the clean index failed its gate: "
+            f"{eng.quarantined} {eng.bound_unsafe}")
+    t0 = time.perf_counter()
+    deep = SearchEngine(_sub_index(index, k12), validate=True,
+                        deep_validate=True)
+    deep_s = time.perf_counter() - t0
+    if deep.quarantined or deep.bound_unsafe:
+        die(f"hardened {name}: the K=12 terms failed the deep gate: "
+            f"{deep.quarantined} {deep.bound_unsafe}")
+    emit("hardened_gate", path=name, n_terms=index.n_terms, seconds=gate_s,
+         validators_s=eng.validate_seconds["validators"],
+         checked_decode_s=eng.validate_seconds["checked_decode"],
+         launches=gate_launches, deep_terms=len(k12), deep_seconds=deep_s,
+         quarantined=0, bound_unsafe=0)
+
+    # detection: each class on one K=16 term, seed 0; the card's checked
+    # decode against the plain plan's on the card, then a fresh engine
+    # over the K=12 and K=16 terms must quarantine exactly that term
+    victim, other = k16[0], k16[1]
+    tp = index.terms[victim]
+    want = eng.search([other], "or")
+    detection = {}
+    for cls in sorted(faultgen.STREAM_CLASSES):
+        c = faultgen.corrupt(tp.arr, cls, 0)
+        if c is None:
+            continue  # does not apply to this term's format
+        card, plain = _detect(c.arr, "cuda", victim), _detect(
+            c.arr, "torch", victim)
+        if type(card) is not type(plain) or (
+                card is not None and (card.block, str(card))
+                != (plain.block, str(plain))):
+            die(f"hardened {name}: {cls} ({c.detail}): the card says "
+                f"{card!r}, the plain plan {plain!r}")
+        bad = _sub_index(index, k12 + k16,
+                         {victim: dataclasses.replace(tp, arr=c.arr)})
+        gated = [SearchEngine(bad, validate=True, plan=plan)
+                 for plan in ("auto", "torch")]
+        if (list(gated[0].quarantined) != [victim]
+                or gated[0].quarantined != gated[1].quarantined):
+            die(f"hardened {name}: {cls} ({c.detail}) quarantined "
+                f"{gated[0].quarantined} on the card, "
+                f"{gated[1].quarantined} on the plain plan")
+        st = QueryStats()
+        got = gated[0].search([victim, other], "or", stats=st)
+        if not st.degraded or not _results_equal(np, got, want):
+            die(f"hardened {name}: {cls}: the query over the quarantined "
+                "term is not the clean term's flagged answer")
+        reason = gated[0].quarantined[victim]
+        detection[cls] = {
+            "format": c.arr.format, "block": c.block, "card": _err(card),
+            "plain": _err(plain),
+            "caught_by": ("checksum" if isinstance(card, ChecksumError)
+                          else "validators" if card is not None
+                          else "skip_table" if reason.startswith("skip table")
+                          else reason)}
+    emit("hardened_detection", path=name, term=victim, seed=0,
+         classes=detection)
+
+    # unsafe bound: max_impact understated on a K=12 term
+    t12 = k12[0]
+    bad = _sub_index(index, k12,
+                     {t12: faultgen.corrupt_max_impact(index.terms[t12], 0)})
+    be = SearchEngine(bad, validate=True, deep_validate=True)
+    if be.bound_unsafe != {t12} or be.quarantined:
+        die(f"hardened {name}: max_impact_under marked {be.bound_unsafe}, "
+            f"quarantined {be.quarantined}")
+    fallbacks = 0
+    for terms in ([t12, k12[1]], [t12, k12[2], k12[3]]):
+        st = QueryStats()
+        got = be.search(terms, "topk_maxscore", stats=st)
+        if (not _results_equal(np, got, eng.search(terms, "topk_maxscore"))
+                or st.bound_fallbacks != 1 or st.degraded):
+            die(f"hardened {name}: the TAAT fallback over {terms} is not "
+                "the clean engine's answer")
+        fallbacks += st.bound_fallbacks
+
+    # retries: a transient fault is retried to the exact answer, a
+    # persistent one gives an empty flagged answer after max_retries + 1
+    def transient(attempt, terms, mode):
+        if attempt == 0:
+            raise ChecksumError("injected", format=tp.arr.format, block=0)
+
+    def persistent(attempt, terms, mode):
+        raise ChecksumError("persistent")
+
+    q = [k16[2], k16[3]]
+    st = QueryStats()
+    got = SearchEngine(index, fault_hook=transient, max_retries=RETRIES
+                       ).search(q, "topk_maxscore", stats=st)
+    if (not _results_equal(np, got, eng.search(q, "topk_maxscore"))
+            or (st.retries, st.errors, st.degraded) != (1, 1, False)):
+        die(f"hardened {name}: the transient fault was not retried to the "
+            f"exact answer: {st}")
+    st2 = QueryStats()
+    got = SearchEngine(index, fault_hook=persistent, max_retries=RETRIES
+                       ).search(q, "or", stats=st2)
+    if (got.size or not st2.degraded or st2.errors != RETRIES + 1
+            or "retries-exhausted" not in st2.degraded_reasons):
+        die(f"hardened {name}: the persistent fault gave {got.size} ids, "
+            f"{st2}")
+    emit("hardened_faults", path=name, bound_unsafe_term=t12,
+         bound_fallbacks=fallbacks, transient={"retries": st.retries,
+                                               "errors": st.errors},
+         persistent={"errors": st2.errors, "degraded": st2.degraded})
+
+
+def checksum_path_case(np, torch, timer, arr) -> dict:
+    """Kernel 2's ``checksum`` epilogue on one whole posting list of the
+    index, as the startup gate launches it: held bit for bit against its
+    plain version, timed (L2 cold) beside its bound — the compressed
+    bytes, count and base read, the grid and the column written — and
+    beside the format's decode kernel on the same list (the price of a
+    checked decode over a plain one)."""
+    from repro_torch.kernels.vbyte_decode import epilogues
+    from repro_torch.kernels.vbyte_decode.dispatch import CUDA_DECODERS
+
+    fmt, B, nb = arr.format, arr.block_size, arr.n_blocks
+    ops = arr.device_operands()
+    kw = dict(format=fmt, epilogue="checksum", block_size=B,
+              differential=arr.differential)
+    out = epilogues.fused_decode(ops, {}, **kw)
+    ref = epilogues.fused_decode_plain(ops, {}, **kw)
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    if err or not all(torch.equal(o, r) for o, r in zip(out, ref)):
+        die(f"kernel 2 [{fmt}/checksum] differs from its plain version on "
+            f"a whole list: max_abs_err={err}")
+    bound, by = _bound(
+        bytes_moved=arr.payload_bytes + 8 * nb + 4 * nb * B + 4 * nb,
+        ops=(arr.payload_bytes if fmt == "vbyte" else arr.n) + 2 * arr.n)
+    leaves = [ops[k] for k in epilogues.FORMAT_OPERANDS[fmt]]
+    dec = CUDA_DECODERS[fmt]
+    ms = timer.ms(lambda: epilogues.fused_decode(ops, {}, **kw), reps=20)
+    decode_ms = timer.ms(lambda: dec(*leaves, ops["counts"], ops["bases"],
+                                     block_size=B,
+                                     differential=arr.differential), reps=20)
+    plain_ms = timer.ms(lambda: epilogues.fused_decode_plain(ops, {}, **kw),
+                        reps=5)
+    return {"format": fmt, "n_blocks": nb, "stride": arr.stride,
+            "n_ints": arr.n, "payload_bytes": arr.payload_bytes,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "decode_kernel_ms": decode_ms,
+            "checked_over_decode": ms / decode_ms}
+
+
+def phase_hardened(np, torch, paths: dict, qs: list, groups: dict,
+                   path_queries: dict, pool) -> dict:
+    """Phase ``hardened_search`` over the three search paths' indexes (still
+    on the card, checksum columns built with them). The shard-loss drills
+    run in worker processes, one per path, while this process runs
+    :func:`hardened_checks` on each index; the launch counts of both are
+    summed. Then kernel 2's ``checksum`` epilogue is held and timed on the
+    indexes' whole lists (``checksum_path``)."""
+    t_phase = time.perf_counter()
+    t_groups = _group_terms(groups)
+    names = tuple(path_queries)
+    drill_qs = {n: qs[:min(HARDENED_QUERIES, path_queries[n])]
+                for n in names}
+    jobs = {n: pool.submit(_drill, _index_state(paths[n]["index"]),
+                           drill_qs[n], VICTIM_SHARD) for n in names}
+    counters = _launch_counters()
+    _reset(torch, counters)
+    for n in names:
+        hardened_checks(np, torch, n, paths[n]["index"], t_groups)
+    launches = _read(torch, counters)
+    for n in names:
+        try:
+            d = jobs[n].result()
+        except Exception as e:  # the worker's violation, with its message
+            die(f"hardened {n}: shard-loss drill failed: {e!r}")
+        k = len(drill_qs[n])
+        if d["digests"][:k] != paths[n]["digests"][:k]:
+            die(f"hardened {n}: the drill's healthy answers differ from the "
+                "main path's")
+        launches = _merge_launches(launches, d.pop("launches"))
+        d.pop("digests")
+        emit("hardened_drill", path=n, **d, main_path_answers_equal=True)
+    for n in names:
+        core = paths[n]["index"].terms[t_groups[12][0]].arr.format
+        if not launches["fused_decode_by"].get(f"{core}/checksum"):
+            die(f"hardened {n}: kernel 2's {core} checksum epilogue was "
+                f"never launched: {launches}")
+    seconds = time.perf_counter() - t_phase
+
+    timer = ColdTimer(torch)
+    cases = {}
+    for n in names:
+        index = paths[n]["index"]
+        for k in (12, 16, 20):
+            if t_groups.get(k):
+                arr = index.terms[t_groups[k][0]].arr
+                cases[f"{arr.format}/K{k}"] = rec = checksum_path_case(
+                    np, torch, timer, arr)
+                emit("parity_checksum_path", case=f"{arr.format}/K{k}",
+                     path=n, **rec)
+    del timer
+    emit("hardened_done", seconds=round(seconds, 3),
+         launches_checksum={k: v for k, v in
+                            launches["fused_decode_by"].items()
+                            if k.endswith("/checksum")})
+    return {"launches": launches, "seconds": seconds,
+            "checksum_path": cases}
 
 
 def _topk_agree(torch, got_s, got_i, want_s, want_i, what: str) -> int:
@@ -1844,6 +2211,7 @@ def kernels_line(records, max_err, paths):
                                   "max_abs_err", "unfused_chain_ms",
                                   "kernel1_ms",
                                   "index_select_ms", "max_bf16_ulps",
+                                  "decode_kernel_ms", "checked_over_decode",
                                   "n_blocks", "stride", "n_ints",
                                   "gints_per_s", "plain_gints_per_s",
                                   "library_ms", "d")
@@ -1885,6 +2253,11 @@ def kernels_line(records, max_err, paths):
                          for k, r in records["probe_path"].items()},
              # adjacency_rebase over the gin path's whole gap stream
              gin_adjacency_rebase=variant(gin["gin_rebase"]),
+             # checksum over whole posting lists, as the hardened search
+             # path's startup gate launches it (K=12, 16, 20, each format)
+             checksum_path={k: variant(r) for k, r in
+                            paths["hardened_search"]["checksum_path"]
+                            .items()},
              launches_by_epilogue={k: {"total": v, "by_path": by_path[k]}
                                    for k, v in sorted(by.items())}),
         decode_entry("stream_decode_blocked", "stream_decode.cu",

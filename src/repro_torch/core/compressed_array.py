@@ -316,11 +316,23 @@ class CompressedIntArray:
 
         return dispatch.decode(self, plan=plan)
 
-    def decode(self, *, plan="auto") -> np.ndarray:
+    def decode(self, *, plan="auto", check: bool = False) -> np.ndarray:
         """Decode to host ``uint32[n]``: each block's valid prefix,
         concatenated. (Not a flat ``[:n]`` trim — a ``take_blocks`` gather
-        can put a partial block before a full one.)"""
-        grid = self.decode_blocked(plan=plan).cpu().numpy().view(np.uint32)
+        can put a partial block before a full one.)
+
+        ``check=True`` decodes through kernel 2's ``checksum`` epilogue and
+        verifies the per-block column written by ``encode(checksum=True)``
+        in the same pass, raising
+        :class:`repro_torch.robustness.validate.ChecksumError` (with block
+        coordinates) on a mismatch."""
+        if check:
+            from repro_torch.robustness.validate import decode_checked
+
+            grid = decode_checked(self, plan=plan)
+        else:
+            grid = self.decode_blocked(plan=plan)
+        grid = grid.cpu().numpy().view(np.uint32)
         mask = (np.arange(self.block_size)[None, :]
                 < self.counts_host[:, None])
         return grid[mask]

@@ -69,7 +69,9 @@ class QueryStats:
     n_blocks(t)``. ``probes_pruned`` counts (candidate × term) probes
     settled by the score bound alone; ``impact_ints_decoded`` counts
     per-posting impacts decoded from the weight streams. A deadline that
-    expires mid-query marks the result ``degraded``.
+    expires mid-query marks the result ``degraded``; the robustness fields
+    (``errors``, ``retries``, ``quarantined_blocks``, ``bound_fallbacks``)
+    are filled in by the hardened ``SearchEngine``.
     """
 
     blocks_decoded: int = 0
@@ -85,6 +87,12 @@ class QueryStats:
     per_term_pruned: dict = field(default_factory=dict)
     per_term_blocks: dict = field(default_factory=dict)  # term -> set of
     #   live block rows decoded at least once (strip-pulled or gathered)
+    # robustness accounting: a degraded result is still correct over the
+    # work that ran — smaller, never silently wrong
+    errors: int = 0  # typed DecodeErrors hit while answering
+    retries: int = 0  # transient-failure retries that succeeded
+    quarantined_blocks: int = 0  # blocks of quarantined segments not served
+    bound_fallbacks: int = 0  # maxscore→TAAT fallbacks (unsafe bounds)
     degraded: bool = False
     degraded_reasons: list = field(default_factory=list)
 

@@ -4,6 +4,8 @@ embedding bags over compressed id lists) and :class:`SearchEngine`
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch search --requests 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch search --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch search \
+        --degraded-smoke    # kill 1 of 8 logical shards, heal, parity
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch two-tower-retrieval --device cpu --requests 32
 
@@ -11,16 +13,19 @@ The port of the single-device paths of ``repro/launch/serve.py``. The
 search index's compressed streams live on the card for the engine's
 lifetime, skip tables prune on the host, and every decode runs through
 the CUDA kernels (``plan="auto"``). ``run_workload`` reports QPS, p50/p99
-latency and the decode-vs-skip-vs-pruned block accounting.
+latency and the decode-vs-skip-vs-pruned block accounting. The engine is
+hardened as the reference's: startup validation through kernel 2's
+``checksum`` epilogue, quarantine, retries, fault hooks, the unsafe-bound
+fallback to TAAT, and logical shards that can be lost and healed
+(``--degraded-smoke``).
 
 ``--arch two-tower-retrieval`` runs :class:`ServingEngine` at the
 reference's reduced config: a compressed candidate corpus resident on
 the card, requests microbatched to buckets 1/2/4/8, scored by kernel 2's
 ``dot_score`` epilogue against an item table computed once, and the
-``bag_sum`` embedding-bag endpoint. The mesh-sharded engines, the
-hardened search mode (validation, quarantine, retries, fault hooks,
-logical shards) and telemetry spans are still to port (ROADMAP queue 1
-items 9, 11 and 13); the port writes no benchmark file.
+``bag_sum`` embedding-bag endpoint. The mesh-sharded engines and
+telemetry spans are still to port (ROADMAP queue 1 items 13 and 11); the
+port writes no benchmark file.
 """
 from __future__ import annotations
 
@@ -218,25 +223,186 @@ class SearchEngine:
     ``run_workload`` drives a query list. Candidate sets are processed in
     ``probe_width`` chunks, so every membership/scoring pass comes from a
     bounded set of shapes.
+
+    **Degraded-mode serving** (the reference's hardened engine): with
+    ``validate=True`` every term's streams are validated at startup —
+    terms whose payload / metadata / checksum column fails are
+    **quarantined** (dropped from queries, which come back flagged
+    ``degraded``), terms whose ``max_impact`` bound is unsafe are kept but
+    force a ``topk_maxscore`` → exhaustive-TAAT fallback (exact, just
+    slower). The checked decode runs kernel 2's ``checksum`` epilogue on
+    the index's device; only the per-block column comes to the host.
+    Per-request ``Deadline`` budgets (``deadline_s``), bounded
+    retry-with-backoff on transient decode errors
+    (:class:`~repro_torch.robustness.DecodeError`; one carrying term
+    coordinates quarantines that segment and the query is re-answered
+    from the rest), and a logical-shard health layer
+    (``n_shards`` + :class:`~repro_torch.ft.StragglerDetector`:
+    ``heartbeat`` / ``check_health`` / ``kill_shard`` / ``heal``) keep the
+    engine answering — partial and flagged, never hung, never silently
+    wrong. Quarantine and heal move no index bytes.
     """
 
     def __init__(self, index, *, top_k: int = 10, plan="auto",
-                 probe_width: int = 512, device=None):
+                 probe_width: int = 512, validate: bool = False,
+                 deep_validate: bool = False,
+                 deadline_s: float | None = None, max_retries: int = 2,
+                 backoff_s: float = 0.0, fault_hook=None, n_shards: int = 0,
+                 clock=None, device=None):
+        from repro_torch.ft import StragglerDetector, shard_intervals
+
         self.device = resolve_device(device)
         self.index = index.to(self.device)  # no copy where it already lives
         self.top_k = top_k
         self.plan = plan
         self.probe_width = probe_width
+        # -- robustness state ------------------------------------------------
+        self.deadline_s = deadline_s
+        self.max_retries = max_retries
+        self.backoff_s = backoff_s
+        self.fault_hook = fault_hook  # fault_hook(attempt, terms, mode):
+        #   raise DecodeError to inject a failure for attempt k (tests)
+        self.clock = clock or time.monotonic
+        self.quarantined: dict = {}  # term -> reason (startup or at-serve)
+        self.bound_unsafe: set = set()  # terms with unsafe max_impact bounds
+        self.serve_stats = {"errors": 0, "retries": 0,
+                            "quarantined_terms": 0, "quarantined_blocks": 0,
+                            "bound_fallbacks": 0, "degraded_responses": 0}
+        # startup gate wall seconds: host validators, checked decode
+        self.validate_seconds = {"validators": 0.0, "checked_decode": 0.0}
+        # logical shards: the sorted term list partitioned into n_shards
+        # contiguous intervals (ft.elastic.shard_intervals) — the unit of
+        # simulated host loss. A dead shard's terms are dropped from
+        # queries (flagged degraded) until heal() re-partitions ownership.
+        self.term_order = sorted(self.index.terms)
+        self.n_shards = int(n_shards)
+        self.detector = StragglerDetector()
+        self.dead_shards: set = set()
+        self.shard_of: dict = {}
+        if self.n_shards:
+            self._assign_shards(shard_intervals(len(self.term_order),
+                                                self.n_shards))
+        if validate:
+            self._validate_index(deep=deep_validate)
 
-    def search(self, terms, mode: str = "and", *, stats=None, deadline=None):
-        """One query. ``mode``: 'and' | 'or' → sorted uint32 docids;
-        'topk' (disjunctive TAAT) | 'topk_maxscore' (block-max pruned,
-        bit-identical results) | 'topk_driver' (required-term DAAT) →
-        (docids, int32 scores), ordered (score desc, docid asc)."""
+    # -- startup validation / quarantine ----------------------------------
+    def _validate_index(self, *, deep: bool):
+        """Gate every term at startup.
+
+        Structure + stream validation, skip-table/df invariants, and — when
+        the stream carries a checksum column — a checksum-verified decode
+        through kernel 2's ``checksum`` epilogue. Beyond the reference, the
+        checked docid grid is also held against the skip table on the
+        device (:func:`~repro_torch.robustness.validate.check_skip_table`):
+        a flipped high bit of a block's base moves no checksum, and the
+        reference serves that block's docids shifted. Failing terms are
+        quarantined. A :class:`BoundViolationError` (unsafe ``max_impact``,
+        only checked with ``deep=True``) instead marks the term
+        ``bound_unsafe``: its results are still exact under every mode
+        except MaxScore pruning, so the engine keeps it and falls back to
+        exhaustive TAAT.
+        """
+        from repro_torch.robustness import (BoundViolationError, DecodeError,
+                                            decode_checked, validate_array,
+                                            validate_meta)
+        from repro_torch.robustness.validate import check_skip_table
+
+        secs = self.validate_seconds
+        for t in self.term_order:
+            tp = self.index.terms[t]
+            if not tp.df:
+                continue
+            streams = [a for a in (tp.arr, tp.impacts) if a is not None]
+            try:
+                t0 = time.perf_counter()
+                for a in streams:
+                    validate_array(a, term=t)
+                t1 = time.perf_counter()
+                secs["validators"] += t1 - t0
+                for a in streams:
+                    if a.checksums is not None:
+                        grid = decode_checked(a, plan=self.plan, term=t)
+                        if a is tp.arr:
+                            check_skip_table(tp, grid)
+                        del grid
+                t2 = time.perf_counter()
+                secs["checked_decode"] += t2 - t1
+                validate_meta(tp, deep=deep)
+                secs["validators"] += time.perf_counter() - t2
+            except BoundViolationError:
+                self.bound_unsafe.add(t)
+            except DecodeError as e:
+                self._quarantine(t, str(e))
+
+    def _bump(self, key: str, n: int = 1):
+        """Increment one robustness counter of ``serve_stats`` (the
+        in-process API benchmarks and tests read and reset)."""
+        self.serve_stats[key] += n
+
+    def _quarantine(self, term, reason: str):
+        if term in self.quarantined:
+            return
+        self.quarantined[term] = reason
+        self._bump("quarantined_terms")
+        tp = self.index.terms.get(term)
+        if tp is not None:
+            self._bump("quarantined_blocks", tp.n_blocks)
+
+    # -- logical-shard health (ft.heartbeat + ft.elastic) ------------------
+    def _assign_shards(self, intervals):
+        self.shards = list(intervals)
+        self.shard_of = {t: s for s, (lo, hi) in enumerate(self.shards)
+                         for t in self.term_order[lo:hi]}
+
+    def heartbeat(self, shard: int, step: int, now: float | None = None):
+        """One liveness beat from a logical shard (tests drive sim time)."""
+        self.detector.heartbeat(f"shard{shard}", step,
+                                self.clock() if now is None else now)
+
+    def check_health(self, now: float | None = None) -> dict:
+        """Classify shards via the straggler detector; newly-'dead' shards
+        are killed (their terms drop from queries until :meth:`heal`)."""
+        report = self.detector.stragglers(
+            self.clock() if now is None else now)
+        for host, state in report.items():
+            if state == "dead" and host.startswith("shard"):
+                self.dead_shards.add(int(host[len("shard"):]))
+        return report
+
+    def kill_shard(self, shard: int):
+        """Simulate losing one logical shard."""
+        self.dead_shards.add(int(shard))
+
+    def heal(self):
+        """Re-partition term ownership over the surviving shards.
+
+        Uses :func:`repro_torch.ft.elastic.reshard_plan` to map each new
+        interval onto slices of the old partition (returned for
+        inspection), then reassigns every term to a live owner — after
+        healing no query is degraded by shard loss (the terms stayed
+        resident on the device all along; what died was the logical
+        serving owner).
+        """
+        from repro_torch.ft import reshard_plan, shard_intervals
+
+        if not self.dead_shards:
+            return []
+        n_alive = self.n_shards - len(self.dead_shards)
+        if n_alive <= 0:
+            raise RuntimeError("no live shards left to heal onto")
+        plan = reshard_plan(len(self.term_order), self.n_shards, n_alive)
+        for s in self.dead_shards:
+            self.detector.hosts.pop(f"shard{s}", None)
+        self.n_shards = n_alive
+        self._assign_shards(shard_intervals(len(self.term_order), n_alive))
+        self.dead_shards = set()
+        return plan
+
+    # -- queries -----------------------------------------------------------
+    def _run_query(self, terms, mode: str, stats, deadline):
         from repro_torch.index import conjunctive, disjunctive, topk
 
-        terms = list(dict.fromkeys(terms))
-        if not terms:  # empty, well-typed
+        if not terms:  # everything quarantined / dead: empty, well-typed
             empty = np.zeros(0, np.uint32)
             return (empty if mode in ("and", "or")
                     else (empty, np.zeros(0, np.int32)))
@@ -253,6 +419,78 @@ class SearchEngine:
                         probe_width=self.probe_width, **kw)
         raise ValueError(f"unknown query mode {mode!r}")
 
+    def search(self, terms, mode: str = "and", *, stats=None, deadline=None):
+        """One query. ``mode``: 'and' | 'or' → sorted uint32 docids;
+        'topk' (disjunctive TAAT) | 'topk_maxscore' (block-max pruned,
+        bit-identical results) | 'topk_driver' (required-term DAAT) →
+        (docids, int32 scores), ordered (score desc, docid asc).
+
+        Hardened path: quarantined / dead-shard terms are dropped (query
+        flagged ``degraded`` via ``stats``), unsafe-bound terms force
+        ``topk_maxscore`` → exhaustive TAAT, a :class:`DecodeError` raised
+        mid-answer is retried up to ``max_retries`` times (term-coordinate
+        failures quarantine the segment first), and an expired ``deadline``
+        (or ``deadline_s`` default) yields a smaller, flagged result. The
+        query never hangs and never returns silently-wrong data.
+        """
+        from repro_torch.index import QueryStats
+        from repro_torch.robustness import Deadline, DecodeError
+
+        # -- admission
+        qst = QueryStats()  # per-call: the degraded flag is per query
+        if deadline is None and self.deadline_s is not None:
+            deadline = Deadline(self.deadline_s, clock=self.clock)
+        live = []
+        for t in dict.fromkeys(terms):
+            if t in self.quarantined:
+                qst.mark_degraded(f"quarantined-term:{t}")
+                tp = self.index.terms.get(t)
+                qst.quarantined_blocks += tp.n_blocks if tp else 0
+            elif self.shard_of.get(t) in self.dead_shards:
+                qst.mark_degraded(f"dead-shard:{self.shard_of[t]}")
+            else:
+                live.append(t)
+        eff = mode
+        if mode == "topk_maxscore" and any(t in self.bound_unsafe
+                                           for t in live):
+            eff = "topk"  # exhaustive TAAT: exact without bounds
+            qst.bound_fallbacks += 1
+            self._bump("bound_fallbacks")
+        # -- execute, retrying transient decode errors
+        attempt = 0
+        while True:
+            try:
+                if self.fault_hook is not None:
+                    self.fault_hook(attempt, live, eff)
+                out = self._run_query(live, eff, qst, deadline)
+                break
+            except DecodeError as e:
+                qst.errors += 1
+                self._bump("errors")
+                term = getattr(e, "term", None)
+                if term is not None and term in live:
+                    # the segment itself is bad — quarantine it and answer
+                    # the query from the remaining terms
+                    self._quarantine(term, str(e))
+                    live = [t for t in live if t != term]
+                    qst.mark_degraded(f"quarantined-term:{term}")
+                elif attempt >= self.max_retries:
+                    qst.mark_degraded("retries-exhausted")
+                    out = self._run_query([], eff, qst, deadline)
+                    break
+                else:
+                    attempt += 1
+                    qst.retries += 1
+                    self._bump("retries")
+                    if self.backoff_s:
+                        time.sleep(self.backoff_s * attempt)
+        # -- finalize
+        if qst.degraded:
+            self._bump("degraded_responses")
+        if stats is not None:
+            stats.merge(qst)
+        return out
+
     def warmup(self, queries):
         """Run each (mode, terms) query once."""
         for mode, terms in queries:
@@ -262,12 +500,17 @@ class SearchEngine:
         """Drive (mode, terms) queries sequentially; aggregate QPS/latency
         plus the skip-table decode accounting over the whole workload. A
         query's latency ends when its result is on the host. ``record``, a
-        list, receives each query's ``(result, QueryStats, seconds)``."""
+        list, receives each query's ``(result, QueryStats, seconds)``.
+        Each query posts a heartbeat for every live logical shard, so a
+        silenced shard goes stale and ``check_health`` classifies it
+        dead."""
         from repro_torch.index import QueryStats
 
         st = QueryStats()
+        serve_before = dict(self.serve_stats)
         lat = []
         n_results = 0
+        step = 0
         t_start = time.perf_counter()
         for mode, terms in queries:
             qst = st if record is None else QueryStats()
@@ -278,6 +521,10 @@ class SearchEngine:
                 record.append((out, qst, lat[-1]))
                 st.merge(qst)
             n_results += len(out[0] if isinstance(out, tuple) else out)
+            for s in range(self.n_shards):
+                if s not in self.dead_shards:
+                    self.heartbeat(s, step)
+            step += 1
         wall = time.perf_counter() - t_start
         # blocks considered = decoded + skip-table-skipped (per pass) +
         # threshold-pruned (never decoded by any pass)
@@ -304,6 +551,15 @@ class SearchEngine:
             "decode_calls": st.decode_calls,
             "decoded_ints_per_s": round(st.ints_decoded / wall, 1),
             "index": self.index.stats(),
+            # robustness accounting over this workload
+            "errors": st.errors,
+            "retries": st.retries,
+            "degraded_responses": (self.serve_stats["degraded_responses"]
+                                   - serve_before["degraded_responses"]),
+            "quarantined_terms": self.serve_stats["quarantined_terms"],
+            "quarantined_blocks": self.serve_stats["quarantined_blocks"],
+            "bound_fallbacks": st.bound_fallbacks,
+            "dead_shards": sorted(self.dead_shards),
         }
 
 
@@ -360,6 +616,147 @@ def serve_search(*, queries: int, group_k: int = 10, n_lists: int = 16,
     return stats
 
 
+class SimClock:
+    """A deterministic clock for the degraded-serving drills: every reading
+    advances it by ``tick`` seconds, like a real clock, and ``advance``
+    moves it on by more."""
+
+    def __init__(self, tick: float = 1e-3):
+        self.t = 0.0
+        self.tick = tick
+
+    def __call__(self) -> float:
+        self.t += self.tick
+        return self.t
+
+    def advance(self, seconds: float) -> None:
+        self.t += seconds
+
+
+def _check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def _same(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def shard_loss_drill(engine: SearchEngine, queries, clock: SimClock, *,
+                     victim: int = 3) -> dict:
+    """Lose one logical shard mid-workload and heal, on a served engine
+    built with ``n_shards`` and ``clock``.
+
+    1. A healthy workload (``run_workload``: every query beats every
+       shard); no response may be degraded.
+    2. The victim goes silent while the survivors keep beating, until
+       ``check_health`` (not a manual kill) classifies it dead.
+    3. Every query again: those touching the victim's terms must come back
+       flagged ``degraded`` (an OR answer a subset of the healthy one), all
+       others bit-identical to the healthy answers.
+    4. ``heal()`` re-partitions ownership over the survivors; every answer
+       must be bit-identical to the healthy one and unflagged.
+
+    Raises ``AssertionError`` on any violation. Returns the counts and each
+    step's seconds, and the healthy answers under ``"healthy"``.
+    """
+    from repro_torch.index import QueryStats
+
+    lo, hi = engine.shards[victim]
+    victim_terms = set(engine.term_order[lo:hi])
+    t0 = time.perf_counter()
+    record: list = []
+    healthy = engine.run_workload(queries, record=record)
+    _check(healthy["degraded_responses"] == 0, f"healthy run: {healthy}")
+    clean = [out for out, _, _ in record]
+    t1 = time.perf_counter()
+
+    for i in range(5):
+        clock.advance(1.0)
+        for s in range(engine.n_shards):
+            if s != victim:
+                engine.heartbeat(s, 1000 + i)
+    report = engine.check_health()
+    _check(report.get(f"shard{victim}") == "dead", f"health: {report}")
+    _check(engine.dead_shards == {victim},
+           f"dead shards {engine.dead_shards}")
+    degraded = 0
+    for (mode, terms), ref in zip(queries, clean):
+        st = QueryStats()
+        out = engine.search(terms, mode, stats=st)
+        touched = any(t in victim_terms for t in terms)
+        _check(st.degraded == touched, f"flag on {mode} {terms}")
+        if touched:
+            degraded += 1
+            if mode == "or":  # the surviving terms' exact union
+                _check(bool(np.isin(out, ref).all()),
+                       f"or {terms}: not a subset of the healthy answer")
+        else:
+            _check(_same(out, ref), f"{mode} {terms} changed by shard loss")
+    _check(degraded > 0, "no query touched the lost shard")
+    t2 = time.perf_counter()
+
+    plan = engine.heal()
+    _check(engine.dead_shards == set() and len(plan) == engine.n_shards,
+           f"heal: dead {engine.dead_shards}, plan {len(plan)} shards")
+    for (mode, terms), ref in zip(queries, clean):
+        st = QueryStats()
+        out = engine.search(terms, mode, stats=st)
+        _check(not st.degraded and _same(out, ref),
+               f"{mode} {terms} differs after heal")
+    return {"n_queries": len(queries), "victim_shard": victim,
+            "degraded_responses": degraded,
+            "healed_shards": engine.n_shards,
+            "seconds": {"healthy": t1 - t0, "degraded": t2 - t1,
+                        "healed": time.perf_counter() - t2},
+            "healthy": clean}
+
+
+def serve_search_degraded(*, queries: int = 32, group_k: int = 8,
+                          n_lists: int = 16, n_shards: int = 8,
+                          top_k: int = 10, seed: int = 0,
+                          device=None) -> dict:
+    """Degraded-serving smoke: a checksummed index served over
+    ``n_shards`` logical shards with ``validate=True`` (nothing may be
+    quarantined), then :func:`shard_loss_drill` — one shard silenced until
+    the straggler detector calls it dead, flagged partial results, then
+    ``heal()`` and bit-identical answers. Raises ``AssertionError`` on any
+    violation; records to no file."""
+    from repro_torch.index import build_index
+
+    rng = np.random.default_rng(seed)
+    universe = 1 << 20
+    lists, tfs = search_lists(rng, {group_k: n_lists}, universe=universe)
+    index = build_index(lists, tfs=tfs, n_docs=universe, checksum=True,
+                        device=device)
+    clock = SimClock()
+    engine = SearchEngine(index, top_k=top_k, validate=True,
+                          n_shards=n_shards, clock=clock, device=device)
+    print(f"degraded smoke: {index.n_terms} terms over {n_shards} logical "
+          f"shards on {engine.device}, validate=True "
+          f"(quarantined={engine.serve_stats['quarantined_terms']})")
+    _check(not engine.quarantined and not engine.bound_unsafe,
+           f"clean index failed its gate: {engine.quarantined} "
+           f"{engine.bound_unsafe}")
+    victim = 3
+    lo, _ = engine.shards[victim]
+    qs = search_queries(rng, index, queries)
+    qs.append(("or", [engine.term_order[lo]]))  # at least one query is hit
+    engine.warmup(qs)
+    drill = shard_loss_drill(engine, qs, clock, victim=victim)
+    print(f"killed shard {victim}: {drill['degraded_responses']}/{len(qs)} "
+          "responses flagged degraded, the rest bit-identical to healthy")
+    print(f"healed onto {engine.n_shards} shards: all {len(qs)} responses "
+          "bit-identical to healthy — degraded-serving smoke OK")
+    return {"n_queries": len(qs), "n_shards": n_shards,
+            "device": str(engine.device),
+            "degraded_responses": drill["degraded_responses"],
+            "healed_shards": engine.n_shards, **engine.serve_stats}
+
+
 def serve_engine(cfg, *, requests: int, candidates: int, top_k: int = 10,
                  seed: int = 0, device=None) -> dict:
     """Build the two-tower engine over a synthetic candidate corpus and
@@ -405,8 +802,14 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--degraded-smoke", action="store_true",
+                    help="search arch: kill one logical shard mid-workload "
+                         "and assert flagged partial results + healing")
     args = ap.parse_args(argv)
-    if args.arch == "search":
+    if args.arch == "search" and args.degraded_smoke:
+        stats = serve_search_degraded(queries=args.requests,
+                                      top_k=args.top_k, device=args.device)
+    elif args.arch == "search":
         stats = serve_search(queries=args.requests, top_k=args.top_k,
                              device=args.device)
     else:

@@ -8,6 +8,8 @@ where no card is present. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1205,3 +1207,104 @@ def test_kernel2_adjacency_rebase_past_the_grid_matches_plain(dev, fmt):
                          .astype(np.int32), device=dev)
     _kernel2_matches_plain(ops, {"edge_base": eb}, fmt, "adjacency_rebase",
                            128, True)
+
+
+# ---------------------------------------------------------------------------
+# checked decode (kernel 2's checksum epilogue) and the hardened engine
+# ---------------------------------------------------------------------------
+def _checked_array(dev, fmt, *, differential, seed, n=4000):
+    """Every byte length of ``fmt``, 32 blocks of 128 with a ragged tail,
+    with the checksum column."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(1, (30 if fmt == "streamvbyte" else 32) + 1, n)
+    vals = (rng.integers(0, 2**63, n, dtype=np.uint64)
+            % (np.uint64(1) << bits.astype(np.uint64)))
+    if differential:
+        vals = np.cumsum(vals % 997).astype(np.uint64)
+    return CompressedIntArray.encode(vals, format=fmt, block_size=128,
+                                     differential=differential,
+                                     checksum=True, device=dev)
+
+
+def _detect(arr, plan):
+    from repro_torch.robustness import (DecodeError, decode_checked,
+                                        validate_array)
+
+    try:
+        validate_array(arr, term=9)
+        return decode_checked(arr, plan=plan, term=9)
+    except DecodeError as e:
+        return e
+
+
+@pytest.mark.parametrize("seed", (0, 1, 2))
+@pytest.mark.parametrize("cls", ["bit_flip", "byte_drop", "payload_truncate",
+                                 "continuation_flip", "control_corrupt",
+                                 "width_inflate", "width_deflate",
+                                 "width_range", "count_over", "count_under",
+                                 "base_corrupt", "checksum_corrupt"])
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_checked_decode_on_the_card_matches_plain(dev, fmt, cls, seed):
+    """``validate_array`` then ``decode_checked`` through kernel 2 on the
+    card raises what the plain torch plan on the card raises — class,
+    block, term, message — and, where neither raises (the clean array, or
+    a flipped base bit that the position-weighted sum cannot see in a full
+    block), returns the plain plan's grid on the card."""
+    from repro_torch.robustness import DecodeError, faultgen
+
+    arr = _checked_array(dev, fmt, differential=cls == "base_corrupt",
+                         seed=seed)
+    before = epilogues.launches.by.get(f"{fmt}/checksum", 0)
+    grid = _detect(arr, "cuda")
+    assert epilogues.launches.by[f"{fmt}/checksum"] == before + 1
+    assert isinstance(grid, torch.Tensor) and grid.device == arr.device
+    assert torch.equal(grid, _detect(arr, "torch"))
+    c = faultgen.corrupt(arr, cls, seed)
+    if c is None:  # the class does not apply to this format
+        assert cls in faultgen.STREAM_CLASSES
+        return
+    assert c.arr.device == arr.device
+    got, want = _detect(c.arr, "cuda"), _detect(c.arr, "torch")
+    assert type(got) is type(want), (cls, c.detail, got, want)
+    if isinstance(want, DecodeError):
+        assert (got.block, got.term, str(got)) == (want.block, want.term,
+                                                   str(want))
+    else:  # a change the checksum cannot see (a base bit times c² ≡ 0)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["vbyte", "auto", "streamvbyte"])
+def test_hardened_engine_on_the_card(dev, fmt):
+    """Startup gate, quarantine and shard loss / heal on the card give the
+    plain plan's answers."""
+    from repro_torch.data.synthetic import posting_list_group, posting_tfs
+    from repro_torch.launch.serve import SimClock, shard_loss_drill
+    from repro_torch.robustness import faultgen
+
+    rng = np.random.default_rng(2)
+    lists = dict(enumerate(posting_list_group(rng, 10, 16, universe=1 << 20)))
+    tfs = {t: posting_tfs(rng, len(v)) for t, v in lists.items()}
+    index = build_index(lists, tfs=tfs, n_docs=1 << 20, format=fmt,
+                        checksum=True)
+    f0 = epilogues.launches.count
+    clock = SimClock()
+    eng = SearchEngine(index, validate=True, n_shards=8, clock=clock)
+    assert not eng.quarantined and not eng.bound_unsafe
+    assert epilogues.launches.count - f0 == 2 * index.n_terms  # checksum
+    qs = search_queries(rng, index, 12)
+    qs.append(("or", [eng.term_order[eng.shards[3][0]]]))
+    drill = shard_loss_drill(eng, qs, clock, victim=3)
+    plain = SearchEngine(index, plan="torch")
+    for (mode, terms), out in zip(qs, drill["healthy"]):
+        want = plain.search(terms, mode)
+        for x, y in zip(out if isinstance(out, tuple) else (out,),
+                        want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_array_equal(x, y)
+    terms = dict(index.terms)
+    bad = faultgen.corrupt(terms[4].arr, "bit_flip", 1)
+    terms[4] = dataclasses.replace(terms[4], arr=bad.arr)
+    eng2 = SearchEngine(dataclasses.replace(index, terms=terms),
+                        validate=True)
+    assert list(eng2.quarantined) == [4]
+    np.testing.assert_array_equal(eng2.search([4, 5], "or"),
+                                  plain.search([5], "or"))
