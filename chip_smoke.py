@@ -4,7 +4,7 @@
     python3 chip_smoke.py                       # the full run
     python3 chip_smoke.py --queries 4 --svb-queries 3 --vbyte-queries 3 \
         --k20-lists 2 --profile-queries 2 --tt-requests 32 --tt-bags 16 \
-        --gin-scale 0.05                        # a short one, every path
+        --gin-scale 0.05 --live-ops 2000        # a short one, every path
 
 Drives the port (``src/repro_torch``) through the entry points a user
 calls, on the card, and fails (exit code ≠ 0, no result line) on any
@@ -45,7 +45,7 @@ fault. One JSON line per phase:
    ways, each served by
    ``SearchEngine(plan="auto")`` with every launch count set to 0 just
    before its workload and read just after: ``format="vbyte"`` (the
-   first 25 queries), ``format="auto"`` (100 queries; its per-list
+   first 25 queries), ``format="auto"`` (the first 50; its per-list
    partition DPs run in worker processes, one ``build_index`` call per
    term, merged on the card) and ``format="streamvbyte"`` (the first 25).
    Every query's result and ``QueryStats`` is then held equal to the plain
@@ -77,6 +77,35 @@ fault. One JSON line per phase:
    ``parity_checksum_path``: the ``checksum`` epilogue on one whole list
    of each group K=12, 16, 20 of each index, held bit for bit and timed
    beside its bound and the format's decode kernel on the same list.
+   Then phase ``telemetry``: the reference's overhead measurement
+   (``benchmarks/serving.py::_obs_overhead``: seed 7, a K=8 group of 8
+   lists over 2^20 docs, 48 queries, 12 interleaved null / capture pairs)
+   on the card in a process of its own, gated at
+   ``null_path_overhead_pct`` < 3 and ``overhead_pct`` < 15; then one
+   full capture over the ``vbyte`` path's
+   first 25 queries with ``Telemetry(torch_annotations=True)`` and
+   ``torch.profiler`` on: the three exports, the per-stage table and the
+   report CLI's; every answer bit for bit the main path's, the summed
+   ``decode_calls_total`` equal to the ``dispatch.decode`` calls (and the
+   kernel launches at least that), every kernel of the port in the
+   profiler's trace under a ``decode`` range whose span names its format
+   and epilogue, ``serve_*_total`` mirroring ``serve_stats``.
+   Then phase ``live_index``: a ``LiveIndex`` on local disk
+   (``fsync=True``) on the card whose main segment is the ``auto`` path's
+   index (48 terms, epoch 1 committed with ``ingest.write_epoch``, the
+   commit ``merge`` makes); 20,000 acknowledged ops through ``LiveSearchEngine`` (adds of
+   new docs with 1–4 of the 48 terms at tf 1–4, deletes with p 0.2 over
+   the main segment's and the delta's docs); the ``auto`` path's first 25
+   queries as and / or / topk, each answer equal to the materialize()
+   oracle and to ``plan="torch"`` on the card; a restart replaying the
+   whole WAL (a query during replay flagged ``replaying``; load, CRC,
+   upload and replay seconds); one full-size merge (its phase seconds and
+   launches), answers unchanged. The ``plan="torch"`` answers and the
+   oracle come from a spawned worker on a copy of the directory, and the
+   crash-point sweep runs over the K=12 ∪ K=16 terms (2,000 more ops) in
+   another, both while this process serves: a merge crashed at a seeded
+   point with 50 writes racing it, recovery, the retried merge checked at
+   all 8 crash points and after commit.
 5. path ``two_tower`` — two-tower-retrieval at full width (2^23 users and
    items) served by ``ServingEngine`` over 2^20 compressed candidates:
    256 requests drained at most 8, 4, 2 and 1 at a time, then 64 bags
@@ -101,6 +130,7 @@ fault. One JSON line per phase:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -1393,9 +1423,14 @@ def phase_main_paths(np, torch, args) -> dict:
                 workers=workers)
         hardened = phase_hardened(np, torch, paths, qs, groups, path_queries,
                                   pool)
+    telemetry = phase_telemetry(np, torch, paths, qs, args)
+    live_index = phase_live_index(np, torch, paths, lists, tfs, qs, groups,
+                                  args)
     for name in path_queries:  # free the indexes
         del paths[name]["index"], paths[name]["digests"]
     paths["hardened_search"] = hardened
+    paths["telemetry"] = telemetry
+    paths["live_index"] = live_index
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -1704,6 +1739,801 @@ def phase_hardened(np, torch, paths: dict, qs: list, groups: dict,
                             if k.endswith("/checksum")})
     return {"launches": launches, "seconds": seconds,
             "checksum_path": cases}
+
+
+# ---------------------------------------------------------------------------
+# phase telemetry: spans, counters and exporters over the search path
+# ---------------------------------------------------------------------------
+OBS_SEED = 7  # the reference's overhead measurement: seed, lists, queries
+OBS_QUERIES = 48
+OBS_PAIRS = 12  # interleaved null / capture passes
+TELEMETRY_QUERIES = 25  # the vbyte path's first queries, captured
+NULL_PATH_GATE_PCT = 3.0  # the reference's gates
+CAPTURE_GATE_PCT = 15.0
+PORT_KERNELS = ("vbyte_decode_blocked", "stream_decode_blocked",
+                "binpack_decode_blocked", "fused_decode")
+
+
+def obs_overhead(np, torch, detail: bool = False) -> dict:
+    """The reference's telemetry overhead measurement
+    (``benchmarks/serving.py::_obs_overhead``, full size) on the card: a
+    K=8 group of 8 lists over 2^20 docs, 48 queries, best p50 of 12
+    interleaved null / full-capture passes (``overhead_pct``), and the
+    sites a captured query hits times the null site's cost over the null
+    p50 (``null_path_overhead_pct``). Beside the gates: every pass's p50
+    (``null_p50s_ms``, ``instrumented_p50s_ms``) and the garbage
+    collector's passes and seconds during the null and the capture passes
+    (``gc``), to tell the estimator's spread from a cost of the capture.
+    ``detail`` (``tools/obs_overhead.py``) adds, under ``detail``, each
+    query's best latency over the null and the capture passes beside the
+    sites it hits, and three control schedules of 12 pairs on the same
+    engine: null / null (``aa``), capture / null (``swapped``) and null /
+    capture with the garbage collector off (``gc_off``)."""
+    from repro_torch import obs
+    from repro_torch.data.synthetic import posting_list_group, posting_tfs
+    from repro_torch.index import build_index
+    from repro_torch.launch.serve import SearchEngine, search_queries
+    from repro_torch.obs.stats import percentile
+
+    rng = np.random.default_rng(OBS_SEED)
+    universe = 1 << 20
+    lists = dict(enumerate(posting_list_group(rng, 8, 8, universe=universe)))
+    tfs = {t: posting_tfs(rng, len(v)) for t, v in lists.items()}
+    index = build_index(lists, tfs=tfs, n_docs=universe)
+    engine = SearchEngine(index)
+    qs = search_queries(rng, index, OBS_QUERIES)
+    engine.warmup(qs)
+
+    gc_runs = {"null": [0, 0, 0, 0.0], "capture": [0, 0, 0, 0.0]}
+    gc_at = {}
+
+    def on_gc(phase, info):  # collections and their seconds, per pass kind
+        if phase == "start":
+            gc_at["t0"] = time.perf_counter()
+        elif "kind" in gc_at:
+            acc = gc_runs[gc_at["kind"]]
+            acc[info["generation"]] += 1
+            acc[3] += time.perf_counter() - gc_at["t0"]
+
+    lats = {"null": [], "capture": []}
+
+    def pass_p50(kind=None):
+        lat = []
+        if kind:
+            gc_at["kind"] = kind
+        for mode, terms in qs:
+            t0 = time.perf_counter()
+            engine.search(terms, mode)
+            lat.append(time.perf_counter() - t0)
+        gc_at.pop("kind", None)
+        if kind:
+            lats[kind].append(lat)
+        return percentile([s * 1e3 for s in lat], 50)
+
+    tele = obs.Telemetry()
+    pass_p50()
+    with obs.install(tele):
+        pass_p50()
+    nulls, ons = [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(OBS_PAIRS):
+            nulls.append(pass_p50("null"))
+            with obs.install(tele):
+                ons.append(pass_p50("capture"))
+    finally:
+        gc.callbacks.remove(on_gc)
+    null_p50, on_p50 = min(nulls), min(ons)
+    cap = obs.Telemetry()
+
+    def n_sites():
+        return sum(1 for r in cap.tracer.spans if r["type"] == "span") + sum(
+            m["count"] if m["type"] == "histogram" else m["value"]
+            for m in cap.registry.snapshot()["metrics"].values())
+
+    sites = []
+    with obs.install(cap):
+        for mode, terms in qs:
+            before = n_sites()
+            engine.search(terms, mode)
+            sites.append(n_sites() - before)
+    sites_per_query = sum(sites) / len(qs)
+    n_micro = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n_micro):
+        with obs.trace("x", a=1):
+            pass
+    null_site_ms = (time.perf_counter() - t0) / n_micro * 1e3
+    more = {}
+    if detail:
+        def pct(a, b):
+            return round((min(b) - min(a)) / min(a) * 100, 2)
+
+        def schedule(first, second, gc_off=False):
+            a, b = [], []
+            if gc_off:
+                gc.disable()
+            try:
+                for _ in range(OBS_PAIRS):
+                    for on, out in ((first, a), (second, b)):
+                        with obs.install(tele) if on else \
+                                contextlib.nullcontext():
+                            out.append(pass_p50())
+            finally:
+                gc.enable()
+            nul, cpt = (a, b) if not first else (b, a)
+            return {"overhead_pct": pct(nul, cpt),
+                    "first_p50s_ms": [round(x, 4) for x in a],
+                    "second_p50s_ms": [round(x, 4) for x in b]}
+
+        best = {k: np.min(np.asarray(v), 0) * 1e6 for k, v in lats.items()}
+        more = {"detail": {
+            "sites": sites,
+            "null_best_us": [round(float(x), 1) for x in best["null"]],
+            "capture_best_us": [round(float(x), 1)
+                                for x in best["capture"]],
+            "aa": schedule(False, False),
+            "swapped": schedule(True, False),
+            "gc_off": schedule(False, True, gc_off=True)}}
+    return {"n_queries": len(qs), "pairs": OBS_PAIRS,
+            "null_p50_ms": round(null_p50, 4),
+            "instrumented_p50_ms": round(on_p50, 4),
+            "overhead_pct": round((on_p50 - null_p50) / null_p50 * 100, 2),
+            "sites_per_query": round(sites_per_query, 1),
+            "null_site_us": round(null_site_ms * 1e3, 3),
+            "null_path_overhead_pct": round(
+                sites_per_query * null_site_ms / null_p50 * 100, 2),
+            "null_p50s_ms": [round(x, 4) for x in nulls],
+            "instrumented_p50s_ms": [round(x, 4) for x in ons],
+            "gc": {k: {"collections": v[:3], "seconds": round(v[3], 6)}
+                   for k, v in gc_runs.items()}, **more}
+
+
+def _overhead_worker(detail: bool = False) -> dict:
+    """:func:`obs_overhead` in a fresh (spawned) process, as the reference
+    measures it in a benchmark process of its own: the smoke's own heap,
+    millions of objects by this phase, makes every allocation's garbage
+    collection dearer and would be charged to the spans."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    gc.collect()
+    return {**obs_overhead(np, torch, detail),
+            "gc_objects": len(gc.get_objects())}
+
+
+def _counter_sum(metrics: dict, name: str) -> int:
+    return sum(v["value"] for k, v in metrics.items()
+               if k == name or k.startswith(name + "{"))
+
+
+def phase_telemetry(np, torch, paths: dict, qs: list, args) -> dict:
+    """Phase ``telemetry``: the reference's overhead gates on the card, then
+    one full capture (``torch_annotations=True``, ``torch.profiler`` on)
+    over the ``vbyte`` path's first queries: its three exports, the
+    per-stage table and the report CLI's; answers bit for bit against the
+    main path's (no telemetry), one ``decode_calls_total`` per
+    ``dispatch.decode`` call and at least one kernel launch each, every
+    kernel of the port in the profiler's trace under a ``decode`` range
+    whose span names its format and epilogue, and ``serve_*_total``
+    mirroring ``serve_stats``."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.kernels.vbyte_decode import dispatch
+    from repro_torch.launch.serve import (SearchEngine, stage_latency_summary,
+                                          write_metrics_out)
+    from repro_torch.obs.attribution import attribute_kernels
+
+    t_phase = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=1,
+                             mp_context=mp.get_context("spawn")) as pool:
+        gates = pool.submit(_overhead_worker).result()
+    emit("telemetry_overhead", **gates, process="spawned",
+         smoke_gc_objects=len(gc.get_objects()),
+         gates={"null_path_overhead_pct": NULL_PATH_GATE_PCT,
+                "overhead_pct": CAPTURE_GATE_PCT})
+    if not (gates["null_path_overhead_pct"] < NULL_PATH_GATE_PCT
+            and gates["overhead_pct"] < CAPTURE_GATE_PCT):
+        die(f"telemetry overhead over its gates: {gates}")
+
+    n = min(TELEMETRY_QUERIES, len(paths["vbyte"]["digests"]))
+    cap_qs = qs[:n]
+    engine = SearchEngine(paths["vbyte"]["index"], top_k=10, plan="auto",
+                          probe_width=512)
+    serve_before = dict(engine.serve_stats)
+    calls = [0]
+    real_decode = dispatch.decode
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real_decode(*a, **kw)
+
+    tele = obs.Telemetry(torch_annotations=True)
+    counters = _launch_counters()
+    outs = []
+    _reset(torch, counters)
+    dispatch.decode = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with obs.install(tele):
+                t0 = time.perf_counter()
+                for mode, terms in cap_qs:
+                    outs.append(engine.search(terms, mode))
+                capture_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+    finally:
+        dispatch.decode = real_decode
+    launches = _read(torch, counters)
+
+    tmp = tempfile.mkdtemp(prefix="telemetry_")
+    try:
+        t0 = time.perf_counter()
+        out_dir = args.metrics_out or os.path.join(tmp, "capture")
+        exports = write_metrics_out(tele, out_dir)
+        prof_path = os.path.join(tmp, "profiler.json")
+        prof.export_chrome_trace(prof_path)
+        with open(prof_path) as f:
+            events = json.load(f)["traceEvents"]
+        export_s = time.perf_counter() - t0
+        attr = attribute_kernels(events, tele.tracer.spans)
+        del events, prof
+        report = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report",
+             exports["jsonl"], "--top", "5"],
+            env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
+            text=True, timeout=300)
+        sizes = {k: os.path.getsize(p) for k, p in exports.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if report.returncode:
+        die(f"telemetry: report CLI failed: {report.stderr[-2000:]}")
+
+    if [_digest(o) for o in outs] != paths["vbyte"]["digests"][:n]:
+        die("telemetry: answers under the capture differ from the main "
+            "path's")
+    metrics = tele.registry.snapshot()["metrics"]
+    decode_calls = _counter_sum(metrics, "decode_calls_total")
+    decode_spans = len(tele.tracer.durations("decode"))
+    kernel_launches = sum(launches[k] for k in PORT_KERNELS)
+    if not (decode_calls == decode_spans == calls[0]):
+        die(f"telemetry: decode_calls_total {decode_calls}, decode spans "
+            f"{decode_spans}, dispatch.decode calls {calls[0]}")
+    if kernel_launches < decode_calls:
+        die(f"telemetry: {kernel_launches} kernel launches for "
+            f"{decode_calls} decode calls")
+    if not (attr["kernels"] == attr["attributed"] == kernel_launches
+            and attr["ranges"] == attr["spans"] == decode_spans):
+        die(f"telemetry: kernels not under a matching decode range "
+            f"({kernel_launches} launched): {attr}")
+    serve = {k: _counter_sum(metrics, f"serve_{k}_total")
+             for k in engine.serve_stats}
+    if serve != {k: v - serve_before[k]
+                 for k, v in engine.serve_stats.items()} or \
+            _counter_sum(metrics, "serve_requests_total") != n:
+        die(f"telemetry: serve counters {serve} != serve_stats "
+            f"{engine.serve_stats}")
+    if not launches["vbyte_decode_blocked"] or not launches["fused_decode"]:
+        die(f"telemetry: the path did not launch kernels 1 and 2: "
+            f"{launches}")
+    stages = stage_latency_summary(tele.tracer)
+    emit("telemetry_capture", queries=n, capture_seconds=round(capture_s, 3),
+         export_seconds=round(export_s, 3), export_bytes=sizes,
+         n_traces=len(tele.tracer.trees()), decode_calls=decode_calls,
+         kernel_launches=kernel_launches, launches=launches,
+         attribution={k: v for k, v in attr.items() if k != "examples"},
+         serve_counters=serve, answers_equal=True)
+    emit("telemetry_stages", stages=stages)
+    print(report.stdout.rstrip("\n"), flush=True)
+    seconds = time.perf_counter() - t_phase
+    emit("telemetry_done", seconds=round(seconds, 3))
+    return {"launches": launches, "seconds": seconds, "overhead": gates,
+            "stages": stages}
+
+
+# ---------------------------------------------------------------------------
+# phase live_index: crash-safe ingestion over the auto path's index
+# ---------------------------------------------------------------------------
+LIVE_QUERIES = 25  # the auto path's first queries, as and / or / topk
+SWEEP_GROUPS = (12, 16)  # the crash-point sweep's terms
+RACING_OPS = 50  # acknowledged writes racing the crashed merge
+
+
+class _Tally:
+    """Launch counts of the path's own runs, summed; comparisons against
+    the plain plan and the oracle run between them, or under
+    :meth:`aside` inside a tallied run (a merge's step hook), uncounted."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counters = _launch_counters()
+        self.total = self.last = None
+
+    def run(self, fn):
+        _reset(self.torch, self.counters)
+        try:
+            out = fn()
+        finally:  # a crashed merge's launches count too
+            got = self.last = _read(self.torch, self.counters)
+            self.total = got if self.total is None else _merge_launches(
+                self.total, got)
+        return out, got
+
+    @contextlib.contextmanager
+    def aside(self):
+        """Launches made inside the block are taken back out of the
+        counts when it ends."""
+        saved = {k: (c.count, dict(c.by)) for k, c in self.counters.items()}
+        try:
+            yield
+        finally:
+            for k, c in self.counters.items():
+                c.count = saved[k][0]
+                c.by.clear()
+                c.by.update(saved[k][1])
+
+
+def _int_launches(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if isinstance(v, int)}
+
+
+def _live_ops(np, rng, n_ops: int, universe: int, terms, main_docs,
+              p_del: float = 0.2) -> list:
+    """``benchmarks/ingestion.py::_make_ops``'s stream over a live index
+    that already holds ``main_docs``: adds of docs not present, each with
+    1–4 of ``terms`` at tf 1–4, and with probability ``p_del`` a delete of
+    a uniformly drawn present doc (main segment or delta)."""
+    exists = np.zeros(universe, bool)
+    exists[main_docs] = True
+    pool = np.empty(main_docs.size + n_ops, np.int64)
+    pool[:main_docs.size] = main_docs
+    n = main_docs.size
+    terms = np.asarray(terms)
+    ops = []
+    while len(ops) < n_ops:
+        if n and rng.random() < p_del:
+            i = int(rng.integers(n))
+            doc = int(pool[i])
+            pool[i] = pool[n - 1]
+            n -= 1
+            exists[doc] = False
+            ops.append(("del", doc, None))
+        else:
+            doc = int(rng.integers(universe))
+            if exists[doc]:
+                continue
+            ops.append(("add", doc, {
+                int(t): int(rng.integers(1, 5))
+                for t in rng.choice(terms, rng.integers(1, 5),
+                                    replace=False)}))
+            exists[doc] = True
+            pool[n] = doc
+            n += 1
+    return ops
+
+
+def _write_main(directory: str, index, tfs: dict, all_docs) -> None:
+    """Epoch 1 of a live index over ``index``: committed with
+    ``ingest.write_epoch``, the commit ``LiveIndex.merge`` makes."""
+    from repro_torch.index import ingest
+
+    os.makedirs(directory)
+    ingest.write_epoch(directory, index, {t: tfs[t] for t in index.terms},
+                       all_docs, epoch=1)
+
+
+def _oracle(np, live, queries, k: int = 10) -> list:
+    """Every answer recomputed from ``live.materialize()`` (the logical
+    state's lists and tfs) with ``impact_value`` / ``quantize_impacts``;
+    the main lists are decoded by the plain plan, so the oracle does not
+    lean on the kernels under test."""
+    from repro_torch.index import impact_value, quantize_impacts
+
+    prev, live.plan = live.plan, "torch"
+    try:
+        lists, tfs = live.materialize()
+    finally:
+        live.plan = prev
+    empty = np.zeros(0, np.int64)
+    out = []
+    for mode, terms in queries:
+        terms = list(dict.fromkeys(terms))
+        docs = [lists.get(t, empty) for t in terms]
+        if mode == "and":
+            res = docs[0]
+            for d in docs[1:]:
+                res = np.intersect1d(res, d, assume_unique=True)
+            out.append(res.astype(np.uint32))
+        elif mode == "or":
+            out.append(np.unique(np.concatenate(docs)).astype(np.uint32))
+        else:
+            cand = np.unique(np.concatenate(docs))
+            scores = np.zeros(cand.size, np.int64)
+            for t, d in zip(terms, docs):
+                if d.size:
+                    base = impact_value(live.n_docs, int(d.size),
+                                        live.impact_bits)
+                    scores[np.searchsorted(cand, d)] += quantize_impacts(
+                        base, tfs[t], live.impact_bits)
+            order = np.lexsort((cand, -scores))[:k]
+            out.append((cand[order].astype(np.uint32),
+                        scores[order].astype(np.int32)))
+    return out
+
+
+def _answers(engine, queries, plan=None) -> list:
+    live = engine.live
+    prev = live.plan
+    live.plan = prev if plan is None else plan
+    try:
+        return [engine.search(terms, mode) for mode, terms in queries]
+    finally:
+        live.plan = prev
+
+
+def _live_hold(np, got, want, what: str) -> None:
+    """Every answer of ``got`` equals ``want``'s, dtype and all; raises
+    ``AssertionError`` (the phase, or the worker's caller, reports it)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} answers, {len(want)} "
+                             "expected")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not _results_equal(np, a, b):
+            raise AssertionError(f"{what}: answer {i} differs")
+
+
+def _live_hold_all(np, engine, queries, want, what: str) -> None:
+    """The card's answers, the plain plan's on the card and the
+    materialize() oracle's all equal ``want``."""
+    _live_hold(np, _answers(engine, queries), want, f"{what} (card)")
+    _live_hold(np, _answers(engine, queries, "torch"), want,
+               f"{what} (plan='torch')")
+    _live_hold(np, _oracle(np, engine.live, queries), want,
+               f"{what} (oracle)")
+
+
+def _replay_probe(flags: list, term: int):
+    """A replay hook issuing one query during the replay of the first op."""
+    from repro_torch.index import QueryStats
+
+    def probe(ix, i, op):
+        if i == 0:
+            st = QueryStats()
+            ix.search([term], mode="or", stats=st)
+            flags.append((ix.state, st.degraded, list(st.degraded_reasons)))
+
+    return probe
+
+
+def _phase_hist(tele, name: str) -> dict:
+    out = {}
+    for k, m in tele.registry.snapshot()["metrics"].items():
+        if k.startswith(name + "{"):
+            out[k[len(name) + 1:-1]] = round(m["sum"], 6)
+    return out
+
+
+def _pct_us(np, xs) -> dict:
+    return {"p50_us": round(float(np.percentile(xs, 50)) * 1e6, 1),
+            "p99_us": round(float(np.percentile(xs, 99)) * 1e6, 1)}
+
+
+def _apply_ops(engine, ops) -> list:
+    """Apply ops through the engine; each op's ack latency (seconds)."""
+    lat = []
+    for kind, doc, terms in ops:
+        t0 = time.perf_counter()
+        if kind == "add":
+            engine.add(doc, terms)
+        else:
+            engine.delete(doc)
+        lat.append(time.perf_counter() - t0)
+    return lat
+
+
+def _live_plain_worker(directory: str, queries: list) -> dict:
+    """A spawned worker: open a copy of the live index on the card with
+    ``plan="torch"`` (the plain decoders) and answer ``queries`` through
+    it, then from its ``materialize()`` (the oracle)."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch.index import LiveIndex
+    from repro_torch.launch.serve import LiveSearchEngine
+
+    live = LiveIndex(directory, fsync=True, plan="torch")
+    engine = LiveSearchEngine(live, top_k=10)
+    t0 = time.perf_counter()
+    plain = _answers(engine, queries)
+    t1 = time.perf_counter()
+    oracle = _oracle(np, live, queries)
+    t2 = time.perf_counter()
+    live.close()
+    return {"torch": plain, "oracle": oracle,
+            "seconds": {"torch_plan": round(t1 - t0, 3),
+                        "oracle": round(t2 - t1, 3)}}
+
+
+def _live_sweep_worker(directory: str, ops: list, racing_ops: list,
+                       queries: list, crash_at: str, probe_term: int) -> dict:
+    """A spawned worker, the crash-point sweep on the card: ``ops``, then a
+    merge crashed at ``crash_at`` with ``racing_ops`` acknowledged while
+    it runs, recovery (a query during replay flagged ``replaying``), and
+    the retried merge checked at every crash point and after commit — each
+    time the card, ``plan="torch"`` and the materialize() oracle alike.
+    Returns the records to emit and the worker's launch counts."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch.index import CRASH_POINTS, CrashPoint, LiveIndex
+    from repro_torch.launch.serve import LiveSearchEngine
+
+    tally = _Tally(torch)
+    live = LiveIndex(directory, fsync=True)
+    engine = LiveSearchEngine(live, top_k=10)
+    _apply_ops(engine, ops)
+    pre, _ = tally.run(lambda: _answers(engine, queries))
+    _live_hold_all(np, engine, queries, pre, "before the crash")
+    racing = {}
+
+    def race(name):
+        # acknowledged writes racing the merge (the rotated WAL and the
+        # active delta), so a crash at any point leaves ops to replay
+        if racing or name not in ("after_rotate", crash_at):
+            return
+        with tally.aside():  # the merge's launches alone are counted
+            _apply_ops(engine, racing_ops)
+            racing["at"] = name
+            racing["want"] = _answers(engine, queries)
+            _live_hold_all(np, engine, queries, racing["want"],
+                           f"writes racing the merge at {name}")
+
+    try:
+        tally.run(lambda: live.merge(crash_at=crash_at, step_hook=race))
+        raise AssertionError(f"the crash at {crash_at!r} did not fire")
+    except CrashPoint:
+        pass
+    crashed_launches = tally.last
+    want = racing["want"]
+    live.close()
+    flags = []
+    t0 = time.perf_counter()
+    live = LiveIndex(directory, fsync=True,
+                     replay_hook=_replay_probe(flags, probe_term))
+    t_recover = time.perf_counter() - t0
+    engine = LiveSearchEngine(live, top_k=10)
+    if flags != [("replaying", True, ["replaying"])]:
+        raise AssertionError(f"the replay-time query was not flagged: "
+                             f"{flags}")
+    got, _ = tally.run(lambda: _answers(engine, queries))
+    _live_hold(np, got, want, f"after recovery from {crash_at}")
+    _live_hold_all(np, engine, queries, want,
+                   f"after recovery from {crash_at}")
+    recovery = {"kind": "crash", "scope": "K12+K16", "crash_point": crash_at,
+                "seconds": round(t_recover, 3),
+                "steps": {k: round(v, 3)
+                          for k, v in live.recovery_seconds.items()},
+                "replayed_ops": live.counters["replayed_ops"],
+                "rolled_forward": live.counters["rolled_forward"],
+                "wal_bytes_truncated": live.counters["wal_bytes_truncated"],
+                "replay_query_flagged": "replaying", "answers_equal": True}
+    checked = []
+
+    def at_point(name):
+        with tally.aside():
+            _live_hold_all(np, engine, queries, want, f"mid-merge at {name}")
+        checked.append(name)
+
+    t0 = time.perf_counter()
+    info, retried_launches = tally.run(
+        lambda: live.merge(step_hook=at_point))
+    t_retry = time.perf_counter() - t0
+    if checked != list(CRASH_POINTS):
+        raise AssertionError(f"the step hook ran at {checked}")
+    _live_hold_all(np, engine, queries, want,
+                   "after the retried merge's commit")
+    live.close()
+    sweep = {"scope": "K12+K16", "ops": len(ops),
+             "racing_ops": len(racing_ops), "racing_at": racing["at"],
+             "queries": len(queries), "crash_point": crash_at,
+             "checked_points": checked,
+             "retried_merge_seconds": round(t_retry, 3), **info,
+             "merge_launches": {
+                 "crashed": _int_launches(crashed_launches),
+                 "retried": _int_launches(retried_launches)},
+             "answers_equal": True}
+    return {"recovery": recovery, "sweep": sweep, "launches": tally.total}
+
+
+def phase_live_index(np, torch, paths: dict, lists: dict, tfs: dict,
+                     qs: list, groups: dict, args) -> dict:
+    """Phase ``live_index``: a ``LiveIndex`` on local disk (``fsync=True``)
+    on the card, its main segment the ``auto`` path's index (committed as
+    epoch 1 with ``ingest.write_epoch``, the commit ``merge`` makes), then
+    ``--live-ops`` acknowledged ops through ``LiveSearchEngine``, a
+    restart replaying the whole WAL (a query during replay flagged
+    ``replaying``), the ``auto`` path's first queries as and / or / topk
+    (every answer equal to ``plan="torch"`` on the card and to the
+    materialize() oracle, both computed in a spawned worker on a copy of
+    the directory while this process serves), and one full-size merge,
+    after which the answers are unchanged. The crash-point sweep — a merge
+    crashed at a seeded point with writes racing it, recovery, then the
+    retried merge checked at all 8 points and after commit — runs over the
+    K=12 ∪ K=16 terms in another spawned worker, at the same time."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.index import CRASH_POINTS, LiveIndex
+    from repro_torch.launch.serve import LiveSearchEngine
+
+    t_phase = time.perf_counter()
+    index = paths["auto"]["index"]
+    t_groups = _group_terms(groups)
+    probe_term = t_groups[12][0]
+    rng = np.random.default_rng(args.seed)
+    lq = [({"and": "and", "or": "or"}.get(m, "topk"), t)
+          for m, t in qs[:LIVE_QUERIES]]
+    tally = _Tally(torch)
+    tele = obs.Telemetry()
+    workdir = tempfile.mkdtemp(prefix="live_index_")
+    obs.install(tele)
+    try:
+        with ProcessPoolExecutor(max_workers=2,
+                                 mp_context=mp.get_context("spawn")) as pool:
+            # the sweep's live index over the K=12 ∪ K=16 terms, started
+            # first: it runs beside the full-size work below
+            sweep = sorted(t for k in SWEEP_GROUPS
+                           for t in t_groups.get(k, []))
+            sub = dataclasses.replace(index, terms={t: index.terms[t]
+                                                    for t in sweep})
+            sub_docs = np.unique(np.concatenate([lists[t] for t in sweep]))
+            d_sw = os.path.join(workdir, "sweep")
+            _write_main(d_sw, sub, tfs, sub_docs)
+            n_sweep = max(1, args.live_ops // 10)
+            sweep_ops = _live_ops(np, rng, n_sweep + RACING_OPS,
+                                  index.n_docs, sweep, sub_docs)
+            in_sweep = set(sweep)
+            sq = [(m, [t for t in terms if t in in_sweep])
+                  for m, terms in lq]
+            sq = [(m, terms) for m, terms in sq if terms]
+            crash_at = str(np.random.default_rng(args.seed).choice(
+                CRASH_POINTS))
+            sweep_job = pool.submit(_live_sweep_worker, d_sw,
+                                    sweep_ops[:n_sweep], sweep_ops[n_sweep:],
+                                    sq, crash_at, probe_term)
+
+            # 1. the main segment: the auto path's index at epoch 1
+            t0 = time.perf_counter()
+            all_docs = np.unique(np.concatenate(
+                [lists[t] for t in index.terms])).astype(np.int64)
+            d_full = os.path.join(workdir, "full")
+            _write_main(d_full, index, tfs, all_docs)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            live = LiveIndex(d_full, fsync=True)
+            t_open = time.perf_counter() - t0
+            engine = LiveSearchEngine(live, top_k=10)
+            emit("live_segment", terms=index.n_terms,
+                 postings=index.n_postings, docs=int(all_docs.size),
+                 universe=live.n_docs, device=str(live.device),
+                 segment_bytes=os.path.getsize(os.path.join(
+                     d_full, "segments", "seg_00000001", "postings.npz")),
+                 write_seconds=round(t_write, 3),
+                 open_seconds=round(t_open, 3),
+                 open_steps={k: round(v, 3)
+                             for k, v in live.recovery_seconds.items()},
+                 written_by="ingest.write_epoch, merge's commit")
+
+            # 2. acknowledged ops (WAL appended and fsynced before each ack)
+            ops = _live_ops(np, rng, args.live_ops, live.n_docs,
+                            sorted(index.terms), all_docs)
+            t0 = time.perf_counter()
+            ack = _apply_ops(engine, ops)
+            t_ops = time.perf_counter() - t0
+            hist = tele.registry.histogram("wal_append_seconds", fsync=True)
+            acked = (live.doc_count(), live.n_delta_docs, live.n_pending)
+            emit("live_ingest", ops=len(ops),
+                 adds=sum(k == "add" for k, _, _ in ops),
+                 deletes=sum(k == "del" for k, _, _ in ops),
+                 seconds=round(t_ops, 3),
+                 acked_ops_per_s=round(len(ops) / t_ops, 1),
+                 ack_latency=_pct_us(np, ack),
+                 wal_append_seconds={
+                     "count": hist.count,
+                     "p50_bucket_us": hist.quantile(0.5) * 1e6,
+                     "p99_bucket_us": hist.quantile(0.99) * 1e6,
+                     "mean_us": round(hist.mean * 1e6, 1)},
+                 fsync=True, n_delta_docs=live.n_delta_docs,
+                 tombstones=live.n_pending - live.n_delta_docs,
+                 doc_count=live.doc_count())
+
+            # 3. restart: load, CRC-check, upload, replay every acked op
+            live.close()
+            flags = []
+            t0 = time.perf_counter()
+            live = LiveIndex(d_full, fsync=True,
+                             replay_hook=_replay_probe(flags, probe_term))
+            t_reopen = time.perf_counter() - t0
+            engine = LiveSearchEngine(live, top_k=10)
+            if flags != [("replaying", True, ["replaying"])]:
+                raise AssertionError(f"the replay-time query was not "
+                                     f"flagged: {flags}")
+            if (live.doc_count(), live.n_delta_docs, live.n_pending) \
+                    != acked:
+                raise AssertionError("the restart did not replay every "
+                                     "acked op")
+            emit("live_recovery", kind="restart", scope="full",
+                 seconds=round(t_reopen, 3),
+                 steps={k: round(v, 3)
+                        for k, v in live.recovery_seconds.items()},
+                 replayed_ops=live.counters["replayed_ops"],
+                 replay_query_flagged="replaying", state_equal=True)
+
+            # 4. queries on the card; plan="torch" and the oracle in a
+            #    worker, on a copy of the directory
+            d_plain = os.path.join(workdir, "plain")
+            shutil.copytree(d_full, d_plain)
+            plain_job = pool.submit(_live_plain_worker, d_plain, lq)
+            rec = []
+            wl, q_launches = tally.run(
+                lambda: engine.run_workload(lq, record=rec))
+            card = [o for o, _, _ in rec]
+            if not q_launches["binpack_decode_blocked"]:
+                raise AssertionError(f"the queries launched no kernel 4: "
+                                     f"{q_launches}")
+
+            # 5. the full-size merge; the logical state and answers stay
+            t0 = time.perf_counter()
+            info, m_launches = tally.run(live.merge)
+            t_merge = time.perf_counter() - t0
+            phases = _phase_hist(tele, "ingest_merge_phase_seconds")
+            after, _ = tally.run(lambda: _answers(engine, lq))
+            _live_hold(np, after, card, "after the full merge")
+            live.close()
+
+            plain = plain_job.result()
+            _live_hold(np, plain["torch"], card, "plan='torch'")
+            _live_hold(np, plain["oracle"], card, "materialize() oracle")
+            emit("live_queries", queries=len(lq),
+                 modes=dict(Counter(m for m, _ in lq)),
+                 **{k: wl[k] for k in ("qps", "p50_ms", "p99_ms", "mean_ms",
+                                       "n_results", "blocks_decoded",
+                                       "ints_decoded", "delta_postings",
+                                       "delta_hits", "tombstones_applied",
+                                       "degraded_responses")},
+                 launches=q_launches,
+                 launches_per_query={k: round(v / len(lq), 2)
+                                     for k, v in q_launches.items()
+                                     if isinstance(v, int)},
+                 oracle_equal=True, torch_plan_equal=True,
+                 worker_seconds=plain["seconds"])
+            emit("live_merge", scope="full", seconds=round(t_merge, 3),
+                 phase_seconds=phases, launches=m_launches, **info,
+                 answers_equal=True)
+
+            # 6. the crash-point sweep's results
+            sw = sweep_job.result()
+            emit("live_recovery", **sw["recovery"])
+            emit("live_sweep", terms=len(sweep), postings=sub.n_postings,
+                 **sw["sweep"], launches=sw["launches"])
+    except AssertionError as e:
+        die(f"live_index: {e}")
+    finally:
+        obs.uninstall()
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = _merge_launches(tally.total, sw["launches"])
+    if not launches["binpack_decode_blocked"]:
+        die(f"live_index: kernel 4 was never launched: {launches}")
+    seconds = time.perf_counter() - t_phase
+    emit("live_index_done", seconds=round(seconds, 3), launches=launches)
+    return {"launches": launches, "seconds": seconds}
 
 
 def _topk_agree(torch, got_s, got_i, want_s, want_i, what: str) -> int:
@@ -2285,7 +3115,7 @@ def kernels_line(records, max_err, paths):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--queries", type=int, default=100,
+    ap.add_argument("--queries", type=int, default=50,
                     help="queries of the format='auto' path")
     ap.add_argument("--svb-queries", type=int, default=25,
                     help="queries of the format='streamvbyte' path")
@@ -2302,6 +3132,10 @@ def main(argv=None) -> int:
     ap.add_argument("--gin-scale", type=float, default=1.0,
                     help="fraction of ogbn-products' nodes and edges in the "
                          "gin path's graph")
+    ap.add_argument("--live-ops", type=int, default=20_000,
+                    help="acknowledged ops of the live_index phase")
+    ap.add_argument("--metrics-out", default=None, metavar="DIR",
+                    help="keep the telemetry capture's exports in DIR")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "__init__.py").is_file():

@@ -29,6 +29,12 @@ numpy, and each decode's result comes back with one device→host copy
 (``.cpu()``), which waits for the card. Impacts are exact int32, so every
 plan gives bit-identical scores; ties break by ascending docid.
 :class:`QueryStats` counts decoded vs skipped vs threshold-pruned blocks.
+
+Telemetry (``repro_torch.obs``) opens the reference's stage spans at the
+same sites — ``gallop`` (a probe pass), ``merge`` (a bulk merge pass),
+``score``, ``seed`` (MaxScore's θ seeding), ``topk`` and ``topk-select``
+— with the reference's attributes. Attributes that need host values are
+computed only when a span is recording, and no span waits for the card.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import torch
 
 from repro_torch.kernels.vbyte_decode import dispatch
 from repro_torch.kernels.vbyte_decode.ops import normalize_probe
+from repro_torch.obs import trace as _trace
 from repro_torch.robustness.validate import Deadline  # noqa: F401  (re-exported)
 
 from .builder import InvertedIndex, TermPostings
@@ -71,7 +78,9 @@ class QueryStats:
     per-posting impacts decoded from the weight streams. A deadline that
     expires mid-query marks the result ``degraded``; the robustness fields
     (``errors``, ``retries``, ``quarantined_blocks``, ``bound_fallbacks``)
-    are filled in by the hardened ``SearchEngine``.
+    are filled in by the hardened ``SearchEngine``; the live-index fields
+    (``delta_postings``, ``delta_hits``, ``tombstones_applied``) by
+    :class:`~repro_torch.index.ingest.LiveIndex`.
     """
 
     blocks_decoded: int = 0
@@ -93,6 +102,12 @@ class QueryStats:
     retries: int = 0  # transient-failure retries that succeeded
     quarantined_blocks: int = 0  # blocks of quarantined segments not served
     bound_fallbacks: int = 0  # maxscore→TAAT fallbacks (unsafe bounds)
+    # live-index accounting (index.ingest): postings served from the
+    # uncompressed delta layer, result docs sourced from it, and main-
+    # segment postings suppressed by the tombstone set at query time
+    delta_postings: int = 0
+    delta_hits: int = 0
+    tombstones_applied: int = 0
     degraded: bool = False
     degraded_reasons: list = field(default_factory=list)
 
@@ -126,10 +141,28 @@ class QueryStats:
                 for r in theirs:  # dedup-append (degraded_reasons order)
                     if r not in mine:
                         mine.append(r)
+            elif isinstance(mine, set):
+                mine.update(theirs)
             else:
                 raise TypeError(
                     f"QueryStats.merge: no merge rule for field "
                     f"{f.name!r} of type {type(mine).__name__}")
+
+    def span_attrs(self) -> dict:
+        """Flat attribute dict for trace spans: every scalar counter plus
+        the degraded flag/reasons; the per-term dicts summarize as sizes."""
+        out = {}
+        values = vars(self)
+        for name, terms_key in _span_fields(type(self)):
+            v = values[name]
+            t = type(v)  # exact types first: the common case, one lookup
+            if t in _SCALARS or isinstance(v, _SCALARS):
+                out[name] = v
+            elif t is dict or isinstance(v, dict):
+                out[terms_key] = len(v)
+            elif isinstance(v, list):
+                out[name] = list(v)
+        return out
 
     def count(self, term: int, decoded: int, skipped: int, ints: int):
         self.blocks_decoded += decoded
@@ -150,6 +183,20 @@ class QueryStats:
         """Record live block rows of ``term`` decoded at least once."""
         self.per_term_blocks.setdefault(term, set()).update(
             int(r) for r in rows)
+
+
+_SCALARS = (bool, int, float)
+_FIELDS: dict = {}
+
+
+def _span_fields(cls) -> tuple:
+    """A dataclass's ``(field name, name_terms)`` pairs, worked out once per
+    class (``topk`` spans read every ``QueryStats`` field per query)."""
+    names = _FIELDS.get(cls)
+    if names is None:
+        names = _FIELDS[cls] = tuple((f.name, f"{f.name}_terms")
+                                     for f in dataclasses.fields(cls))
+    return names
 
 
 def _pow2(x: int) -> int:
@@ -227,6 +274,23 @@ def _route_probes(tp: TermPostings, chunk: np.ndarray):
 def _probe_pass(tp: TermPostings, chunk: np.ndarray, *, impact: int,
                 probe_width: int, plan, stats, use_skip: bool,
                 weights=None, touched=None) -> np.ndarray:
+    """Skip-gallop stage span around :func:`_probe_pass_impl`."""
+    with _trace("gallop", term=tp.term, probes=len(chunk)) as sp:
+        if sp and stats is not None:
+            b0, i0 = stats.blocks_decoded, stats.ints_decoded
+        out = _probe_pass_impl(tp, chunk, impact=impact,
+                               probe_width=probe_width, plan=plan,
+                               stats=stats, use_skip=use_skip,
+                               weights=weights, touched=touched)
+        if sp and stats is not None:
+            sp.set(blocks_decoded=stats.blocks_decoded - b0,
+                   ints_decoded=stats.ints_decoded - i0)
+        return out
+
+
+def _probe_pass_impl(tp: TermPostings, chunk: np.ndarray, *, impact: int,
+                     probe_width: int, plan, stats, use_skip: bool,
+                     weights=None, touched=None) -> np.ndarray:
     """One (term, candidate-chunk) pass: int32 [len(chunk)] per-candidate
     result — the membership bitmap (``impact=0``), the constant bm25 impact
     contribution (``impact>0``), or the exact per-posting impact
@@ -335,6 +399,21 @@ def _probe_pass(tp: TermPostings, chunk: np.ndarray, *, impact: int,
 
 def _merge_pass(tp: TermPostings, chunk: np.ndarray, *, impact: int,
                 plan, stats, weights=None, touched=None) -> np.ndarray:
+    """Merge stage span around :func:`_merge_pass_impl`."""
+    with _trace("merge", term=tp.term, candidates=len(chunk)) as sp:
+        if sp and stats is not None:
+            b0, i0 = stats.blocks_decoded, stats.ints_decoded
+        out = _merge_pass_impl(tp, chunk, impact=impact, plan=plan,
+                               stats=stats, weights=weights,
+                               touched=touched)
+        if sp and stats is not None:
+            sp.set(blocks_decoded=stats.blocks_decoded - b0,
+                   ints_decoded=stats.ints_decoded - i0)
+        return out
+
+
+def _merge_pass_impl(tp: TermPostings, chunk: np.ndarray, *, impact: int,
+                     plan, stats, weights=None, touched=None) -> np.ndarray:
     """Bulk variant of :func:`_probe_pass` for candidate sets too large to
     probe: int64 [len(chunk)] per-candidate contribution. Each block that
     contains any candidate decodes exactly once (one gathered decode per
@@ -385,6 +464,20 @@ def _score_term(tp: TermPostings, base_impact: int, cand: np.ndarray,
     decode-and-merge for strip-sized candidate sets, chunked probe
     epilogues for small ones. ``touched`` collects the block rows actually
     gathered, so MaxScore never books a probe-decoded block as pruned."""
+    with _trace("score", term=tp.term, candidates=int(sel.size)) as sp:
+        if sp and stats is not None:
+            b0, i0 = stats.blocks_decoded, stats.ints_decoded
+        _score_term_impl(tp, base_impact, cand, sel, scores, has_tf=has_tf,
+                         probe_width=probe_width, plan=plan, stats=stats,
+                         touched=touched)
+        if sp and stats is not None:
+            sp.set(blocks_decoded=stats.blocks_decoded - b0,
+                   ints_decoded=stats.ints_decoded - i0)
+
+
+def _score_term_impl(tp: TermPostings, base_impact: int, cand: np.ndarray,
+                     sel: np.ndarray, scores: np.ndarray, *, has_tf: bool,
+                     probe_width: int, plan, stats, touched=None):
     wts = tp.impacts if has_tf else None
     if sel.size > MERGE_MIN_PROBES:
         scores[sel] += _merge_pass(
@@ -505,17 +598,19 @@ def _taat_scores(index: InvertedIndex, terms, *, plan, stats, use_skip,
                                   stats=stats, use_skip=use_skip)
     if not parts:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    cand = np.unique(np.concatenate(list(parts.values()))).astype(np.int64)
-    scores = np.zeros(cand.size, np.int64)
-    for t, docs in parts.items():
-        tp = index.terms[t]
-        if index.has_tf:
-            # per-posting impacts: decode the aligned weight stream
-            imps = _decode_impact_stream(tp, plan=plan, stats=stats)
-            scores[np.searchsorted(cand, docs.astype(np.int64))] += imps
-        else:
-            scores[np.searchsorted(cand, docs.astype(np.int64))] \
-                += index.impact(t)
+    with _trace("score", terms=len(parts)):
+        cand = np.unique(
+            np.concatenate(list(parts.values()))).astype(np.int64)
+        scores = np.zeros(cand.size, np.int64)
+        for t, docs in parts.items():
+            tp = index.terms[t]
+            if index.has_tf:
+                # per-posting impacts: decode the aligned weight stream
+                imps = _decode_impact_stream(tp, plan=plan, stats=stats)
+                scores[np.searchsorted(cand, docs.astype(np.int64))] += imps
+            else:
+                scores[np.searchsorted(cand, docs.astype(np.int64))] \
+                    += index.impact(t)
     return cand, scores
 
 
@@ -641,30 +736,32 @@ def _maxscore(index: InvertedIndex, terms, k: int, *, plan, probe_width,
     # accounting subtracts these so "pruned" means never decoded anywhere
     touched: dict[int, set] = {}
     if max(tp.n_blocks for tp in tps) > 4 * strip_blocks:
-        seeds = [c for c in cursors if c.tp.n_blocks <= strip_blocks]
-        parts = []
-        for c in seeds:
-            docs, imps = c.pull(int(c.tp.last_doc[-1]), None, 0,
-                                plan=plan, stats=st)
-            if docs.size:
-                parts.append((docs, imps))
-                seed_docs.append((c, docs))
-        if parts:
-            cand = np.unique(np.concatenate([p[0] for p in parts]))
-            scores = np.zeros(cand.size, np.int64)
-            for docs, imps in parts:
-                scores[np.searchsorted(cand, docs)] += imps
-            for c in cursors:
-                if c not in seeds:
-                    _score_term(c.tp, c.base_impact, cand,
-                                np.arange(cand.size), scores,
-                                has_tf=index.has_tf,
-                                probe_width=probe_width, plan=plan,
-                                stats=st,
-                                touched=touched.setdefault(c.tp.term, set()))
-            order = np.lexsort((cand, -scores))[:k]
-            top_d, top_s = cand[order], scores[order]
-            seeded = cand
+        with _trace("seed"):
+            seeds = [c for c in cursors if c.tp.n_blocks <= strip_blocks]
+            parts = []
+            for c in seeds:
+                docs, imps = c.pull(int(c.tp.last_doc[-1]), None, 0,
+                                    plan=plan, stats=st)
+                if docs.size:
+                    parts.append((docs, imps))
+                    seed_docs.append((c, docs))
+            if parts:
+                cand = np.unique(np.concatenate([p[0] for p in parts]))
+                scores = np.zeros(cand.size, np.int64)
+                for docs, imps in parts:
+                    scores[np.searchsorted(cand, docs)] += imps
+                for c in cursors:
+                    if c not in seeds:
+                        _score_term(c.tp, c.base_impact, cand,
+                                    np.arange(cand.size), scores,
+                                    has_tf=index.has_tf,
+                                    probe_width=probe_width, plan=plan,
+                                    stats=st,
+                                    touched=touched.setdefault(c.tp.term,
+                                                               set()))
+                order = np.lexsort((cand, -scores))[:k]
+                top_d, top_s = cand[order], scores[order]
+                seeded = cand
 
     timed_out = False
     while True:
@@ -783,6 +880,17 @@ def topk(
     if isinstance(k, bool) or not isinstance(k, (int, np.integer)) or k < 1:
         raise ValueError(f"k must be a positive integer, got {k!r}")
     k = int(k)
+    with _trace("topk", mode=mode, k=k) as sp:
+        out = _topk_impl(index, terms, k, mode=mode, plan=plan,
+                         probe_width=probe_width, stats=stats,
+                         use_skip=use_skip, deadline=deadline)
+        if sp and stats is not None:
+            sp.attrs.update(stats.span_attrs())
+        return out
+
+
+def _topk_impl(index: InvertedIndex, terms, k: int, *, mode, plan,
+               probe_width, stats, use_skip, deadline):
     if mode == "or" or (mode == "maxscore" and not use_skip):
         cand, scores = _taat_scores(index, terms, plan=plan, stats=stats,
                                     use_skip=use_skip, deadline=deadline)
@@ -848,5 +956,6 @@ def topk(
         raise ValueError(
             f"unknown topk mode {mode!r}; expected "
             "'or'/'maxscore'/'and'/'driver'")
-    order = np.lexsort((cand, -scores))[:k]
-    return cand[order].astype(np.uint32), scores[order].astype(np.int32)
+    with _trace("topk-select", candidates=int(cand.size)):
+        order = np.lexsort((cand, -scores))[:k]
+        return cand[order].astype(np.uint32), scores[order].astype(np.int32)

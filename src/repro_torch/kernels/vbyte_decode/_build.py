@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -175,6 +176,8 @@ class _Library:
 
 
 _LOADED: dict[tuple[str, Path], _Library] = {}
+_LOAD_LOCK = threading.Lock()  # a merge thread and a query thread may both
+#   reach a library's first use
 
 
 def library(name: str, csrc: Path = CSRC) -> _Library:
@@ -183,5 +186,9 @@ def library(name: str, csrc: Path = CSRC) -> _Library:
     key = (name, csrc)
     lib = _LOADED.get(key)
     if lib is None:
-        lib = _LOADED[key] = _Library(name, build((key,))[name].path)
+        with _LOAD_LOCK:
+            lib = _LOADED.get(key)
+            if lib is None:
+                lib = _LOADED[key] = _Library(name,
+                                              build((key,))[name].path)
     return lib

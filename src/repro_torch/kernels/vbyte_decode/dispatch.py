@@ -23,12 +23,23 @@ CPU. There is no measured autotune cache yet (ROADMAP queue 1 item 5).
 ``chunk`` and ``block_tile`` stay in the plan for API parity with the
 reference; the CUDA core has one routing for every chunk width, so they
 change nothing here.
+
+Telemetry (``repro_torch.obs``): every :func:`decode` call bumps
+``decode_calls_total{plan, format, epilogue}`` once and runs inside one
+``decode`` span (``format``, ``plan`` — the plan's :attr:`DecodePlan.label`
+— ``epilogue``, ``blocks``, ``chunk``, ``sharded``), a call that kernel
+2's limits split across launches included. With nothing installed each
+costs one global read.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.obs import counter_inc as _obs_counter_inc
+from repro_torch.obs import trace as _obs_trace
 
 from . import epilogues as eplib
 from .binpack_kernel import binpack_decode_blocked_cuda
@@ -57,10 +68,23 @@ class DecodePlan:
                 f"plan chunk width must be a positive multiple of 8 or "
                 f"None; got {self.chunk!r}")
 
+    @functools.cached_property
+    def label(self) -> str:
+        """The plan's name in metrics and spans, in the reference's form:
+        ``cuda_fused``, ``torch_unfused``, ``..._w<chunk>``."""
+        return f"{self.path}{'_fused' if self.fused else '_unfused'}" \
+               + (f"_w{self.chunk}" if self.chunk is not None else "")
+
+
+# the named plans, one object each: every decode call names its plan in
+# a counter and a span, and the label is worked out once per object
+_DEFAULT_PLANS = {"cuda": DecodePlan("cuda", fused=True),
+                  "torch": DecodePlan("torch", fused=True)}
+
 
 def default_plan(device: torch.device) -> DecodePlan:
     """The kernels on the card, the torch decoder elsewhere."""
-    return DecodePlan("cuda" if device.type == "cuda" else "torch", fused=True)
+    return _DEFAULT_PLANS["cuda" if device.type == "cuda" else "torch"]
 
 
 def resolve_plan(plan, *, device: torch.device) -> DecodePlan:
@@ -69,9 +93,9 @@ def resolve_plan(plan, *, device: torch.device) -> DecodePlan:
     if plan in (None, "auto"):
         return default_plan(device)
     if plan in ("cuda", "kernel"):
-        return DecodePlan("cuda", fused=True)
+        return _DEFAULT_PLANS["cuda"]
     if plan == "torch":
-        return DecodePlan("torch", fused=True)
+        return _DEFAULT_PLANS["torch"]
     if plan == "ref":
         return DecodePlan("ref", fused=False)
     if plan in ("fused", "unfused"):
@@ -164,14 +188,19 @@ def decode(
     p = resolve_plan(plan, device=counts.device)
     kw = dict(format=format, block_size=block_size, differential=differential)
 
-    if epilogue == "stream":
-        return _decode_grid(operands, plan=p, **kw)
-    if p.fused and p.path == "cuda":
-        return _fused_within_limits(operands, extras, epilogue=epilogue,
-                                    plan=p, **kw)
-    # torch fused (one torch pass on the device) or unfused: grid, then body
-    grid = _decode_grid(operands, plan=p, **kw)
-    return eplib.apply_grid(epilogue, grid, operands["counts"], extras)
+    _obs_counter_inc("decode_calls_total", plan=p.label, format=format,
+                     epilogue=epilogue)
+    with _obs_trace("decode", format=format, plan=p.label, epilogue=epilogue,
+                    blocks=int(nb), chunk=p.chunk, sharded=False):
+        if epilogue == "stream":
+            return _decode_grid(operands, plan=p, **kw)
+        if p.fused and p.path == "cuda":
+            return _fused_within_limits(operands, extras, epilogue=epilogue,
+                                        plan=p, **kw)
+        # torch fused (one torch pass on the device) or unfused: grid, then
+        # the epilogue body
+        grid = _decode_grid(operands, plan=p, **kw)
+        return eplib.apply_grid(epilogue, grid, operands["counts"], extras)
 
 
 def _query_elems(table: torch.Tensor, d: int) -> int:

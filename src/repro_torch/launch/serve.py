@@ -6,6 +6,11 @@ embedding bags over compressed id lists) and :class:`SearchEngine`
     PYTHONPATH=src python -m repro_torch.launch.serve --arch search --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch search \
         --degraded-smoke    # kill 1 of 8 logical shards, heal, parity
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch search \
+        --ingest-smoke      # WAL ingest, crash a merge, recover, parity
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch search \
+        --metrics-out DIR   # telemetry capture: metrics.prom, trace.jsonl,
+                            # trace-chrome.json
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch two-tower-retrieval --device cpu --requests 32
 
@@ -17,28 +22,36 @@ latency and the decode-vs-skip-vs-pruned block accounting. The engine is
 hardened as the reference's: startup validation through kernel 2's
 ``checksum`` epilogue, quarantine, retries, fault hooks, the unsafe-bound
 fallback to TAAT, and logical shards that can be lost and healed
-(``--degraded-smoke``).
+(``--degraded-smoke``). :class:`LiveSearchEngine` serves a WAL-backed
+:class:`~repro_torch.index.LiveIndex` (``--ingest-smoke``).
+
+Telemetry (``repro_torch.obs``): ``SearchEngine.search`` opens the
+reference's ``request`` / ``admission`` / ``execute`` / ``finalize``
+spans and bumps its ``serve_*_total`` counters; ``ServingEngine`` opens a
+``microbatch`` span per served batch. ``--metrics-out DIR`` captures a
+workload and writes the exports.
 
 ``--arch two-tower-retrieval`` runs :class:`ServingEngine` at the
 reference's reduced config: a compressed candidate corpus resident on
 the card, requests microbatched to buckets 1/2/4/8, scored by kernel 2's
 ``dot_score`` epilogue against an item table computed once, and the
-``bag_sum`` embedding-bag endpoint. The mesh-sharded engines and
-telemetry spans are still to port (ROADMAP queue 1 items 13 and 11); the
-port writes no benchmark file.
+``bag_sum`` embedding-bag endpoint. The mesh-sharded engines are still to
+port (ROADMAP queue 1 item 13); the port writes no benchmark file.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.obs import counter_inc as _obs_counter_inc
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.obs.stats import latency_summary
-
 
 
 # ---------------------------------------------------------------------------
@@ -186,14 +199,16 @@ class ServingEngine:
             b = self.bucket_of(take)
             chunk = requests[i:i + take]
             t0 = time.perf_counter()
-            uid = np.full(b, 1, np.int32)
-            hist = np.ones((b, self.cfg.seq_len), np.int32)
-            for j, (u, h) in enumerate(chunk):
-                uid[j] = u
-                hist[j] = h
-            top_s, top_i = self.retrieve(torch.as_tensor(uid),
-                                         torch.as_tensor(hist))
-            self._sync()
+            with _obs_trace("microbatch", bucket=int(b), requests=int(take)):
+                uid = np.full(b, 1, np.int32)
+                hist = np.ones((b, self.cfg.seq_len), np.int32)
+                for j, (u, h) in enumerate(chunk):
+                    uid[j] = u
+                    hist[j] = h
+                top_s, top_i = self.retrieve(torch.as_tensor(uid),
+                                             torch.as_tensor(hist))
+                self._sync()
+            _obs_counter_inc("serve_requests_total", take, engine="serving")
             dt = time.perf_counter() - t0
             if record is not None:
                 record.append((top_s[:take].cpu(), top_i[:take].cpu()))
@@ -334,10 +349,13 @@ class SearchEngine:
             except DecodeError as e:
                 self._quarantine(t, str(e))
 
-    def _bump(self, key: str, n: int = 1):
-        """Increment one robustness counter of ``serve_stats`` (the
-        in-process API benchmarks and tests read and reset)."""
+    def _bump(self, key: str, n: int = 1, **labels):
+        """Increment one robustness counter: the ``serve_stats`` dict (the
+        in-process API benchmarks and tests read and reset) and, when
+        telemetry is installed, the ``serve_<key>_total`` labeled counter
+        in the metrics registry."""
         self.serve_stats[key] += n
+        _obs_counter_inc(f"serve_{key}_total", n, engine="search", **labels)
 
     def _quarantine(self, term, reason: str):
         if term in self.quarantined:
@@ -436,60 +454,75 @@ class SearchEngine:
         from repro_torch.index import QueryStats
         from repro_torch.robustness import Deadline, DecodeError
 
-        # -- admission
-        qst = QueryStats()  # per-call: the degraded flag is per query
-        if deadline is None and self.deadline_s is not None:
-            deadline = Deadline(self.deadline_s, clock=self.clock)
-        live = []
-        for t in dict.fromkeys(terms):
-            if t in self.quarantined:
-                qst.mark_degraded(f"quarantined-term:{t}")
-                tp = self.index.terms.get(t)
-                qst.quarantined_blocks += tp.n_blocks if tp else 0
-            elif self.shard_of.get(t) in self.dead_shards:
-                qst.mark_degraded(f"dead-shard:{self.shard_of[t]}")
-            else:
-                live.append(t)
-        eff = mode
-        if mode == "topk_maxscore" and any(t in self.bound_unsafe
-                                           for t in live):
-            eff = "topk"  # exhaustive TAAT: exact without bounds
-            qst.bound_fallbacks += 1
-            self._bump("bound_fallbacks")
-        # -- execute, retrying transient decode errors
-        attempt = 0
-        while True:
-            try:
-                if self.fault_hook is not None:
-                    self.fault_hook(attempt, live, eff)
-                out = self._run_query(live, eff, qst, deadline)
-                break
-            except DecodeError as e:
-                qst.errors += 1
-                self._bump("errors")
-                term = getattr(e, "term", None)
-                if term is not None and term in live:
-                    # the segment itself is bad — quarantine it and answer
-                    # the query from the remaining terms
-                    self._quarantine(term, str(e))
-                    live = [t for t in live if t != term]
-                    qst.mark_degraded(f"quarantined-term:{term}")
-                elif attempt >= self.max_retries:
-                    qst.mark_degraded("retries-exhausted")
-                    out = self._run_query([], eff, qst, deadline)
-                    break
-                else:
-                    attempt += 1
-                    qst.retries += 1
-                    self._bump("retries")
-                    if self.backoff_s:
-                        time.sleep(self.backoff_s * attempt)
-        # -- finalize
-        if qst.degraded:
-            self._bump("degraded_responses")
-        if stats is not None:
-            stats.merge(qst)
-        return out
+        with _obs_trace("request", mode=mode, terms=len(terms)) as rspan:
+            with _obs_trace("admission"):
+                qst = QueryStats()  # per-call: the degraded flag is per query
+                if deadline is None and self.deadline_s is not None:
+                    deadline = Deadline(self.deadline_s, clock=self.clock)
+                live = []
+                for t in dict.fromkeys(terms):
+                    if t in self.quarantined:
+                        qst.mark_degraded(f"quarantined-term:{t}")
+                        tp = self.index.terms.get(t)
+                        qst.quarantined_blocks += tp.n_blocks if tp else 0
+                    elif self.shard_of.get(t) in self.dead_shards:
+                        qst.mark_degraded(f"dead-shard:{self.shard_of[t]}")
+                    else:
+                        live.append(t)
+                eff = mode
+                if mode == "topk_maxscore" and any(t in self.bound_unsafe
+                                                   for t in live):
+                    eff = "topk"  # exhaustive TAAT: exact without bounds
+                    qst.bound_fallbacks += 1
+                    self._bump("bound_fallbacks")
+            with _obs_trace("execute", mode=eff):
+                # retrying transient decode errors
+                attempt = 0
+                while True:
+                    try:
+                        if self.fault_hook is not None:
+                            self.fault_hook(attempt, live, eff)
+                        out = self._run_query(live, eff, qst, deadline)
+                        break
+                    except DecodeError as e:
+                        qst.errors += 1
+                        self._bump("errors", error=type(e).__name__)
+                        term = getattr(e, "term", None)
+                        if term is not None and term in live:
+                            # the segment itself is bad — quarantine it and
+                            # answer the query from the remaining terms
+                            self._quarantine(term, str(e))
+                            live = [t for t in live if t != term]
+                            qst.mark_degraded(f"quarantined-term:{term}")
+                        elif attempt >= self.max_retries:
+                            qst.mark_degraded("retries-exhausted")
+                            out = self._run_query([], eff, qst, deadline)
+                            break
+                        else:
+                            attempt += 1
+                            qst.retries += 1
+                            self._bump("retries")
+                            if self.backoff_s:
+                                time.sleep(self.backoff_s * attempt)
+            with _obs_trace("finalize"):
+                _obs_counter_inc("serve_requests_total", mode=mode,
+                                 engine="search")
+                if qst.degraded:
+                    self._bump("degraded_responses")
+                    for r in qst.degraded_reasons:
+                        cat, _, where = r.partition(":")
+                        _obs_counter_inc("serve_degraded_total", reason=cat,
+                                         engine="search")
+                        if cat == "deadline":
+                            _obs_counter_inc("serve_deadline_hits_total",
+                                             where=where, engine="search")
+                if rspan:
+                    rspan.set(mode_effective=eff, degraded=qst.degraded,
+                              n_results=int(len(out[0]) if isinstance(
+                                  out, tuple) else len(out)))
+                if stats is not None:
+                    stats.merge(qst)
+            return out
 
     def warmup(self, queries):
         """Run each (mode, terms) query once."""
@@ -579,6 +612,41 @@ def search_queries(rng, index, n_queries: int, *,
     return out
 
 
+def stage_latency_summary(tracer, stages=("decode", "gallop", "merge",
+                                          "score", "topk", "topk-select",
+                                          "seed", "request", "admission",
+                                          "execute")) -> dict:
+    """Per-stage latency block from a tracer's finished spans: for each
+    stage name with ≥1 span, count + p50/p99/mean milliseconds (host
+    time, as every span measures)."""
+    from repro_torch.obs.stats import percentile
+
+    out = {}
+    for name in stages:
+        ds = [d * 1e3 for d in tracer.durations(name)]
+        if ds:
+            out[name] = {"count": len(ds),
+                         "p50_ms": round(percentile(ds, 50), 3),
+                         "p99_ms": round(percentile(ds, 99), 3),
+                         "mean_ms": round(sum(ds) / len(ds), 3)}
+    return out
+
+
+def write_metrics_out(tele, out_dir: str) -> dict:
+    """Export one telemetry capture: Prometheus exposition
+    (``metrics.prom``), the JSONL span log (``trace.jsonl``), and the
+    Chrome/Perfetto trace (``trace-chrome.json``). Returns the paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {"prometheus": os.path.join(out_dir, "metrics.prom"),
+             "jsonl": os.path.join(out_dir, "trace.jsonl"),
+             "chrome": os.path.join(out_dir, "trace-chrome.json")}
+    with open(paths["prometheus"], "w") as f:
+        f.write(tele.registry.to_prometheus())
+    tele.tracer.write_jsonl(paths["jsonl"])
+    tele.tracer.write_chrome_trace(paths["chrome"])
+    return paths
+
+
 def search_lists(rng, groups: dict, *, universe: int):
     """Synthetic posting lists and tfs: for each paper length group K in
     ``groups`` (K → number of lists), lists with lengths in [2^K, 2^{K+1})
@@ -594,8 +662,16 @@ def search_lists(rng, groups: dict, *, universe: int):
 
 
 def serve_search(*, queries: int, group_k: int = 10, n_lists: int = 16,
-                 top_k: int = 10, seed: int = 0, device=None) -> dict:
-    """Build a synthetic posting-list index and drive a query workload."""
+                 top_k: int = 10, seed: int = 0, device=None,
+                 metrics_out: str | None = None) -> dict:
+    """Build a synthetic posting-list index and drive a query workload.
+
+    ``metrics_out=DIR`` installs a telemetry capture around the measured
+    workload and writes the three exports there (see
+    :func:`write_metrics_out`); the per-stage latency breakdown comes back
+    under ``observability``. Nothing is recorded to a benchmark file.
+    """
+    from repro_torch import obs
     from repro_torch.index import build_index
 
     rng = np.random.default_rng(seed)
@@ -607,12 +683,27 @@ def serve_search(*, queries: int, group_k: int = 10, n_lists: int = 16,
     engine = SearchEngine(index, top_k=top_k, device=device)
     qs = search_queries(rng, index, queries)
     engine.warmup(qs)
-    stats = engine.run_workload(qs)
+    tele = obs.Telemetry() if metrics_out else None
+    if tele is not None:
+        obs.install(tele)
+    try:
+        stats = engine.run_workload(qs)
+    finally:
+        if tele is not None:
+            obs.uninstall()
     print(f"served {stats['n_queries']} queries on {stats['device']}: "
           f"{stats['qps']} QPS, p50 {stats['p50_ms']} ms, "
           f"p99 {stats['p99_ms']} ms, block skip rate "
           f"{stats['block_skip_rate']}, pruned block rate "
           f"{stats['pruned_block_rate']}")
+    if tele is not None:
+        paths = write_metrics_out(tele, metrics_out)
+        obs_stats = {"n_queries": len(qs),
+                     "n_traces": len(tele.tracer.trees()),
+                     "stages": stage_latency_summary(tele.tracer)}
+        print(f"telemetry capture -> {metrics_out} "
+              f"({obs_stats['n_traces']} span trees)")
+        stats = dict(stats, observability=obs_stats, metrics_paths=paths)
     return stats
 
 
@@ -757,6 +848,245 @@ def serve_search_degraded(*, queries: int = 32, group_k: int = 8,
             "healed_shards": engine.n_shards, **engine.serve_stats}
 
 
+class LiveSearchEngine:
+    """Serving facade over a mutable :class:`repro_torch.index.LiveIndex`.
+
+    The static ``SearchEngine`` serves one immutable index; this one serves
+    the live logical state (main segment − tombstones ∪ delta) and surfaces
+    the ingestion layer's degraded states as the rest of serving does:
+
+    * ``replaying`` — the index is still replaying its WAL after a
+      restart; answers are correct for the replayed prefix and flagged
+      degraded via ``QueryStats``.
+    * ``merge_in_progress`` — a merge is draining the delta; queries keep
+      full fidelity (bit-identical to quiescent), the flag is reported in
+      workload stats.
+
+    Mutations (``add``/``delete``) proxy to the live index and are durable
+    (WAL-appended + fsynced) before they return.
+    """
+
+    def __init__(self, live, *, top_k: int = 10):
+        self.live = live
+        self.top_k = top_k
+
+    def add(self, doc, terms):
+        self.live.add(doc, terms)
+
+    def delete(self, doc):
+        self.live.delete(doc)
+
+    def search(self, terms, mode: str = "and", *, stats=None):
+        with _obs_trace("request", mode=mode, terms=len(terms),
+                        engine="live") as rspan:
+            _obs_counter_inc("serve_requests_total", mode=mode,
+                             engine="live")
+            if mode == "topk":
+                out = self.live.search(terms, mode="topk", k=self.top_k,
+                                       stats=stats)
+            else:
+                out = self.live.search(terms, mode=mode, stats=stats)
+            if rspan and stats is not None:
+                rspan.set(degraded=stats.degraded, state=self.live.state)
+            return out
+
+    def run_workload(self, queries, *, record: list | None = None) -> dict:
+        """Drive (mode, terms) queries; aggregate QPS/latency plus the
+        live-index accounting (delta-sourced hits, tombstone suppressions,
+        merge/replay states). ``record``, a list, receives each query's
+        ``(result, QueryStats, seconds)``."""
+        from repro_torch.index import QueryStats
+
+        st = QueryStats()
+        lat = []
+        n_results = 0
+        degraded = 0
+        merging = 0
+        t_start = time.perf_counter()
+        for mode, terms in queries:
+            q = QueryStats()
+            t0 = time.perf_counter()
+            out = self.search(terms, mode, stats=q)
+            lat.append(time.perf_counter() - t0)
+            if record is not None:
+                record.append((out, q, lat[-1]))
+            n_results += len(out[0] if isinstance(out, tuple) else out)
+            degraded += int(q.degraded)
+            merging += int(self.live.state == "merge_in_progress")
+            st.merge(q)
+        wall = time.perf_counter() - t_start
+        return {
+            "n_queries": len(queries),
+            **latency_summary(lat, wall, len(queries)),
+            "n_results": int(n_results),
+            "epoch": self.live.epoch,
+            "state": self.live.state,
+            "merge_in_progress_queries": merging,
+            "n_delta_docs": self.live.n_delta_docs,
+            "pending_ops": self.live.n_pending,
+            "doc_count": self.live.doc_count(),
+            "blocks_decoded": st.blocks_decoded,
+            "ints_decoded": st.ints_decoded,
+            "delta_postings": st.delta_postings,
+            "delta_hits": st.delta_hits,
+            "tombstones_applied": st.tombstones_applied,
+            "degraded_responses": degraded,
+        }
+
+
+def _ingest_ops(rng, *, n_ops: int, universe: int, n_terms: int):
+    """A seeded add/delete op stream plus the resulting logical state (the
+    reference's draws, in the reference's order)."""
+    state: dict[int, dict[int, int]] = {}
+    ops = []
+    for _ in range(n_ops):
+        if state and rng.random() < 0.25:
+            doc = int(rng.choice(sorted(state)))
+            ops.append(("del", doc, None))
+            del state[doc]
+        else:
+            doc = int(rng.integers(universe))
+            if doc in state:
+                continue
+            k = int(rng.integers(1, 5))
+            terms = {int(t): int(rng.integers(1, 5))
+                     for t in rng.choice(n_terms, size=k, replace=False)}
+            ops.append(("add", doc, terms))
+            state[doc] = terms
+    return ops, state
+
+
+def _rebuild_oracle(state: dict, *, universe: int, block_size: int = 128,
+                    device=None):
+    """Rebuilt-from-scratch index over a logical doc→terms state — the
+    definition of correct the live index is compared against."""
+    from repro_torch.index import build_index
+
+    lists: dict[int, list] = {}
+    tfs: dict[int, list] = {}
+    for doc in sorted(state):
+        for t, tf in state[doc].items():
+            lists.setdefault(t, []).append(doc)
+            tfs.setdefault(t, []).append(tf)
+    return build_index(
+        {t: np.asarray(v, np.int64) for t, v in lists.items()},
+        tfs={t: np.asarray(v, np.int64) for t, v in tfs.items()},
+        format="auto", n_docs=universe, block_size=block_size,
+        checksum=True, device=device)
+
+
+def serve_ingest_smoke(*, ops: int = 200, queries: int = 24,
+                       top_k: int = 10, seed: int = 0, device=None) -> dict:
+    """End-to-end ingestion smoke, the reference's: ingest a seeded
+    add/delete stream into a WAL-backed ``LiveIndex`` on ``device``,
+    **crash** a merge at a seeded named crash point, recover by reopening
+    the directory, and hold AND/OR/top-k bit-identical to an index rebuilt
+    from scratch from the acknowledged logical state — before and after
+    the crash, at every crash point of the retried merge, after it
+    commits, and after a restart whose replay-time query must be flagged
+    ``replaying``. Raises ``AssertionError`` on any divergence; records to
+    no file."""
+    import shutil
+    import tempfile
+
+    from repro_torch.index import (CRASH_POINTS, CrashPoint, LiveIndex,
+                                   QueryStats)
+    from repro_torch.index import query as iq
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    universe = 50_000
+    n_terms = 12
+    workdir = tempfile.mkdtemp(prefix="ingest_smoke_")
+    try:
+        live = LiveIndex(workdir, n_docs=universe, fsync=False, device=dev)
+        stream, state = _ingest_ops(rng, n_ops=ops, universe=universe,
+                                    n_terms=n_terms)
+        for kind, doc, terms in stream:
+            (live.add(doc, terms) if kind == "add" else live.delete(doc))
+
+        qs = []
+        for _ in range(queries):
+            k = int(rng.integers(1, 4))
+            terms = [int(t) for t in rng.choice(n_terms, size=k,
+                                                replace=False)]
+            qs.append((("and", "or", "topk")[int(rng.integers(3))], terms))
+
+        def assert_parity(ix, tag):
+            oracle = _rebuild_oracle(state, universe=universe, device=dev)
+            for mode, terms in qs:
+                if mode == "and":
+                    a, b = ix.search(terms, mode="and"), \
+                        iq.conjunctive(oracle, terms)
+                elif mode == "or":
+                    a, b = ix.search(terms, mode="or"), \
+                        iq.disjunctive(oracle, terms)
+                else:
+                    a = ix.search(terms, mode="topk", k=top_k)
+                    b = iq.topk(oracle, terms, top_k, mode="or")
+                _check(_same(a, b), f"{tag}: {mode} {terms}")
+
+        assert_parity(live, "pre-crash")
+        crash_at = str(rng.choice(CRASH_POINTS))
+        try:
+            live.merge(crash_at=crash_at)
+            raise AssertionError("injected crash did not fire")
+        except CrashPoint:
+            pass
+        live.close()
+        print(f"ingested {len(stream)} ops ({live.counters['acked_ops']} "
+              f"acked) on {dev}, crashed merge at {crash_at!r}")
+
+        live = LiveIndex(workdir, fsync=False, device=dev)  # recovery
+        assert_parity(live, f"recovered({crash_at})")
+        # retry the merge; queries at every named point stay bit-identical
+        live.merge(step_hook=lambda name: assert_parity(
+            live, f"mid-merge({name})"))
+        assert_parity(live, "post-merge")
+
+        engine = LiveSearchEngine(live, top_k=top_k)
+        wl = engine.run_workload(qs)
+        # a live write, then a restart that replays it: a query issued
+        # *during* replay is flagged degraded("replaying")
+        doc = int(rng.integers(universe))
+        while doc in state:
+            doc = int(rng.integers(universe))
+        engine.add(doc, {0: 1})
+        state[doc] = {0: 1}
+        assert_parity(live, "post-workload-write")
+        live.close()
+        replay_flags = []
+
+        def replay_probe(ix, i, op):
+            q = QueryStats()
+            ix.search([0], mode="or", stats=q)
+            replay_flags.append((q.degraded, list(q.degraded_reasons)))
+
+        live = LiveIndex(workdir, fsync=False, replay_hook=replay_probe,
+                         device=dev)
+        _check(bool(replay_flags) and all(
+            d and r == ["replaying"] for d, r in replay_flags),
+            f"replay flags {replay_flags}")
+        assert_parity(live, "post-restart")
+        stats = {
+            "n_ops": len(stream),
+            "n_queries": len(qs),
+            "device": str(dev),
+            "crash_point": crash_at,
+            "recovered_replayed_ops": live.counters["replayed_ops"],
+            "rolled_forward": live.counters["rolled_forward"],
+            **{k: wl[k] for k in ("qps", "p50_ms", "p99_ms", "delta_hits",
+                                  "tombstones_applied", "doc_count",
+                                  "epoch") if k in wl},
+        }
+        live.close()
+        print(f"recovery parity OK at {crash_at!r} + all "
+              f"{len(CRASH_POINTS)} mid-merge points — ingest smoke OK")
+        return stats
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def serve_engine(cfg, *, requests: int, candidates: int, top_k: int = 10,
                  seed: int = 0, device=None) -> dict:
     """Build the two-tower engine over a synthetic candidate corpus and
@@ -802,16 +1132,28 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--metrics-out", default=None, metavar="DIR",
+                    help="search arch: capture telemetry over the workload "
+                         "and write metrics.prom / trace.jsonl / "
+                         "trace-chrome.json to DIR")
     ap.add_argument("--degraded-smoke", action="store_true",
                     help="search arch: kill one logical shard mid-workload "
                          "and assert flagged partial results + healing")
+    ap.add_argument("--ingest-smoke", action="store_true",
+                    help="search arch: ingest a WAL-backed live index, "
+                         "crash the merge at a seeded point, recover, and "
+                         "assert query parity vs a rebuilt index")
     args = ap.parse_args(argv)
-    if args.arch == "search" and args.degraded_smoke:
+    if args.arch == "search" and args.ingest_smoke:
+        stats = serve_ingest_smoke(ops=max(args.requests, 50),
+                                   top_k=args.top_k, device=args.device)
+    elif args.arch == "search" and args.degraded_smoke:
         stats = serve_search_degraded(queries=args.requests,
                                       top_k=args.top_k, device=args.device)
     elif args.arch == "search":
         stats = serve_search(queries=args.requests, top_k=args.top_k,
-                             device=args.device)
+                             device=args.device,
+                             metrics_out=args.metrics_out)
     else:
         # the reference's CLI serves the reduced config of the architecture
         from repro_torch.models import registry

@@ -28,8 +28,11 @@ on every plan.
 Index-level corruptions (skip table, ``max_impact`` bound, impact
 payload) operate on a ``TermPostings`` and return a replaced copy;
 whole-shard loss is injected at the serving layer
-(``SearchEngine.kill_shard``). The reference's durability classes (WAL
-and segment files of a live index) come with the port of ingestion.
+(``SearchEngine.kill_shard``). The durability classes
+(:data:`DURABILITY_CLASSES`, :func:`corrupt_dir`) corrupt the WAL,
+segment and manifest files of a closed live-index directory; with the
+same seed they corrupt the same bytes of the same file as the
+reference's on the same directory.
 """
 from __future__ import annotations
 
@@ -322,3 +325,268 @@ INDEX_CLASSES = {
     "max_impact_under": corrupt_max_impact,
     "impact_bit_flip": corrupt_impacts,
 }
+
+
+# --- durability corruption classes (LiveIndex directory) --------------------
+# These operate on a *closed* ``repro_torch.index.ingest.LiveIndex`` directory —
+# the WAL files, segment dirs and manifest on disk — and model storage
+# faults rather than in-memory stream corruption. The contract is
+# **detect-or-recover** (tests/test_torch_ingest.py): reopening the directory
+# either recovers to the exact acknowledged state (``expect="recover"``,
+# minus ``ops_lost`` trailing ops for the sheared-tail classes, which model
+# a crash *during* an append that was never acknowledged) or raises a
+# typed ``WalError``/``SegmentError`` (``expect="detect"``). Silently
+# serving wrong history is never an outcome.
+
+@dataclass(frozen=True)
+class DirCorruption:
+    """One injected durability fault on a LiveIndex directory."""
+
+    cls: str
+    path: str  # file corrupted
+    detail: str
+    expect: str  # "recover" | "detect"
+    ops_lost: int = 0  # trailing unacked-op shear (torn-tail classes only)
+
+
+def _live_wals(directory: str):
+    """Unmerged WAL paths in id order, with their record spans."""
+    import json as _json
+    import os as _os
+
+    from repro_torch.index.wal import parse_wal_name, wal_path
+
+    with open(_os.path.join(directory, "MANIFEST.json")) as f:
+        merged = int(_json.load(f)["merged_wal"])
+    ids = sorted(i for nm in _os.listdir(directory)
+                 if (i := parse_wal_name(nm)) is not None and i > merged)
+    return [wal_path(directory, i) for i in ids]
+
+
+def _record_spans(path: str):
+    """Byte spans ``[(start, end), ...]`` of each valid WAL record."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    hdr = struct.Struct("<II")
+    spans, off = [], 0
+    while off + hdr.size <= len(data):
+        length, _ = hdr.unpack_from(data, off)
+        end = off + hdr.size + length
+        if end > len(data):
+            break
+        spans.append((off, end))
+        off = end
+    return spans
+
+
+def _wal_torn_tail(directory, rng):
+    """A crash mid-append: a half-written record at the tail of the active
+    WAL. No acknowledged op is affected — recovery truncates it."""
+    import os as _os
+    wals = _live_wals(directory)
+    if not wals:
+        return None
+    path = wals[-1]
+    junk = bytes(rng.integers(0, 256, size=int(rng.integers(1, 7)),
+                              dtype=np.uint8))
+    with open(path, "ab") as f:
+        f.write(junk)  # shorter than a header: unmistakably torn
+    return DirCorruption("wal_torn_tail", path,
+                         f"{len(junk)} partial bytes appended",
+                         expect="recover", ops_lost=0)
+
+
+def _wal_tail_shear(directory, rng):
+    """A crash that tore the *final* append mid-record: truncate inside the
+    last record. That op was still in flight (ack follows the fsync), so
+    recovery legitimately rolls back exactly one op."""
+    wals = _live_wals(directory)
+    if not wals:
+        return None
+    path = wals[-1]
+    spans = _record_spans(path)
+    if not spans:
+        return None
+    s, e = spans[-1]
+    cut = int(rng.integers(s + 1, e))
+    with open(path, "r+b") as f:
+        f.truncate(cut)
+    return DirCorruption("wal_tail_shear", path,
+                         f"truncated at {cut} inside record [{s},{e})",
+                         expect="recover", ops_lost=1)
+
+
+def _wal_record_flip(directory, rng):
+    """Bit rot in an acknowledged, non-final WAL record — durable data
+    after it proves this is not a torn append. Must detect (WalError)."""
+    for path in _live_wals(directory):
+        spans = _record_spans(path)
+        if len(spans) >= 2:
+            s, e = spans[int(rng.integers(len(spans) - 1))]
+            i = int(rng.integers(s + 8, e))  # payload byte, not header
+            with open(path, "r+b") as f:
+                f.seek(i)
+                b = f.read(1)[0]
+                f.seek(i)
+                f.write(bytes([b ^ (1 << int(rng.integers(8)))]))
+            return DirCorruption("wal_record_flip", path,
+                                 f"payload byte {i} bit-flipped",
+                                 expect="detect")
+    return None
+
+
+def _wal_length_corrupt(directory, rng):
+    """Corrupt a non-final record's length field (framing), keeping the
+    claimed extent inside the file so it cannot pass as a torn tail.
+    The mis-framed payload fails its CRC — must detect."""
+    for path in _live_wals(directory):
+        spans = _record_spans(path)
+        if len(spans) >= 2:
+            s, e = spans[int(rng.integers(len(spans) - 1))]
+            new_len = max((e - s - 8) // 2, 1)  # shrink: stays in-file
+            with open(path, "r+b") as f:
+                f.seek(s)
+                f.write(int(new_len).to_bytes(4, "little"))
+            return DirCorruption("wal_length_corrupt", path,
+                                 f"record at {s} length rewritten to "
+                                 f"{new_len}", expect="detect")
+    return None
+
+
+def _segment_paths(directory):
+    import json as _json
+    import os as _os
+    with open(_os.path.join(directory, "MANIFEST.json")) as f:
+        man = _json.load(f)
+    return [_os.path.join(directory, "segments", nm)
+            for nm in man["segments"]]
+
+
+def _segment_truncate(directory, rng):
+    """Truncated segment payload (short write / lost extent). The
+    whole-file CRC in segment.json must catch it — detect."""
+    import os as _os
+    segs = _segment_paths(directory)
+    if not segs:
+        return None
+    npz = _os.path.join(segs[0], "postings.npz")
+    size = _os.path.getsize(npz)
+    cut = int(rng.integers(1, size))
+    with open(npz, "r+b") as f:
+        f.truncate(cut)
+    return DirCorruption("segment_truncate", npz,
+                         f"truncated {size} -> {cut} bytes", expect="detect")
+
+
+def _segment_bit_flip(directory, rng):
+    """Bit rot inside the segment payload — CRC must catch it."""
+    import os as _os
+    segs = _segment_paths(directory)
+    if not segs:
+        return None
+    npz = _os.path.join(segs[0], "postings.npz")
+    size = _os.path.getsize(npz)
+    i = int(rng.integers(size))
+    with open(npz, "r+b") as f:
+        f.seek(i)
+        b = f.read(1)[0]
+        f.seek(i)
+        f.write(bytes([b ^ (1 << int(rng.integers(8)))]))
+    return DirCorruption("segment_bit_flip", npz,
+                         f"byte {i} bit-flipped", expect="detect")
+
+
+def _segment_meta_garbage(directory, rng):
+    """Unparseable segment metadata for a manifest-listed segment —
+    nothing to roll forward to, must detect."""
+    import os as _os
+    segs = _segment_paths(directory)
+    if not segs:
+        return None
+    meta = _os.path.join(segs[0], "segment.json")
+    with open(meta, "wb") as f:
+        f.write(b"{ not json" + bytes(rng.integers(32, 127, size=8,
+                                                   dtype=np.uint8)))
+    return DirCorruption("segment_meta_garbage", meta,
+                         "segment.json overwritten with garbage",
+                         expect="detect")
+
+
+def _manifest_garbage(directory, rng):
+    """Unparseable manifest: the commit point itself is unreadable, so the
+    acknowledged epoch is unknowable — must detect."""
+    import os as _os
+    path = _os.path.join(directory, "MANIFEST.json")
+    with open(path, "wb") as f:
+        f.write(bytes(rng.integers(0, 256, size=24, dtype=np.uint8)))
+    return DirCorruption("manifest_garbage", path,
+                         "MANIFEST.json overwritten with garbage",
+                         expect="detect")
+
+
+def _manifest_stale(directory, rng):
+    """The manifest rolled back to a pre-merge version (e.g. restored from
+    an old backup) while the merged segment survived and its drained WALs
+    are gone. Recovery must adopt the newer segment (roll forward) — the
+    segment is the only durable copy of that history."""
+    import json as _json
+    import os as _os
+    path = _os.path.join(directory, "MANIFEST.json")
+    with open(path) as f:
+        man = _json.load(f)
+    if man["epoch"] < 1 or not man["segments"]:
+        return None  # needs a committed merge to stale away
+    old = dict(man)
+    old.update(epoch=man["epoch"] - 1, segments=[],
+               merged_wal=max(man["merged_wal"] - 1, 0))
+    with open(path, "w") as f:
+        _json.dump(old, f)
+    return DirCorruption("manifest_stale", path,
+                         f"manifest rolled back to epoch {old['epoch']}",
+                         expect="recover")
+
+
+def _manifest_missing(directory, rng):
+    """The manifest vanished entirely after a committed merge. Same roll-
+    forward contract: the surviving segment + WAL suffix reconstruct the
+    acknowledged state."""
+    import json as _json
+    import os as _os
+    path = _os.path.join(directory, "MANIFEST.json")
+    with open(path) as f:
+        man = _json.load(f)
+    if man["epoch"] < 1 or not man["segments"]:
+        return None
+    _os.remove(path)
+    return DirCorruption("manifest_missing", path, "MANIFEST.json deleted",
+                         expect="recover")
+
+
+DURABILITY_CLASSES: dict[str, Callable[..., Any]] = {
+    "wal_torn_tail": _wal_torn_tail,
+    "wal_tail_shear": _wal_tail_shear,
+    "wal_record_flip": _wal_record_flip,
+    "wal_length_corrupt": _wal_length_corrupt,
+    "segment_truncate": _segment_truncate,
+    "segment_bit_flip": _segment_bit_flip,
+    "segment_meta_garbage": _segment_meta_garbage,
+    "manifest_garbage": _manifest_garbage,
+    "manifest_stale": _manifest_stale,
+    "manifest_missing": _manifest_missing,
+}
+
+
+def corrupt_dir(directory: str, cls: str, seed: int) -> DirCorruption | None:
+    """Apply one named durability fault to a closed LiveIndex directory.
+
+    Returns ``None`` when the class doesn't apply (no unmerged WAL
+    records, no committed segment to corrupt, ...).
+    """
+    try:
+        fn = DURABILITY_CLASSES[cls]
+    except KeyError:
+        raise ValueError(f"unknown durability class {cls!r}; expected one "
+                         f"of {tuple(DURABILITY_CLASSES)}") from None
+    return fn(directory, np.random.default_rng(seed))

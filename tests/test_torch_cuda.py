@@ -1308,3 +1308,212 @@ def test_hardened_engine_on_the_card(dev, fmt):
     assert list(eng2.quarantined) == [4]
     np.testing.assert_array_equal(eng2.search([4, 5], "or"),
                                   plain.search([5], "or"))
+
+
+# ---------------------------------------------------------------------------
+# telemetry and the live index on the card
+# ---------------------------------------------------------------------------
+LIVE_TERMS = 8
+LIVE_UNIVERSE = 1 << 16
+LIVE_QUERIES = ([0, 3], [1], [2, 5, 7], [4, 6], [0, 1, 2])
+
+
+def _live_ops(rng, live, state, n_ops, *, p_del=0.25):
+    for _ in range(n_ops):
+        if state and rng.random() < p_del:
+            doc = int(rng.choice(sorted(state)))
+            live.delete(doc)
+            del state[doc]
+        else:
+            doc = int(rng.integers(LIVE_UNIVERSE))
+            if doc in state:
+                continue
+            terms = {int(t): int(rng.integers(1, 5)) for t in rng.choice(
+                LIVE_TERMS, size=int(rng.integers(1, 4)), replace=False)}
+            live.add(doc, terms)
+            state[doc] = terms
+
+
+def _live_answers(live):
+    out = []
+    for q in LIVE_QUERIES:
+        out += [live.search(q, mode="and"), live.search(q, mode="or"),
+                live.search(q, mode="topk", k=10)]
+    return out
+
+
+def _same_answers(a, b):
+    return len(a) == len(b) and all(
+        all(x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(p if isinstance(p, tuple) else (p,),
+                            q if isinstance(q, tuple) else (q,)))
+        for p, q in zip(a, b))
+
+
+def _live_on_card(path, rng, state, *, n_ops=400, merge=True):
+    from repro_torch.index import LiveIndex
+
+    live = LiveIndex(str(path), n_docs=LIVE_UNIVERSE, fsync=False)
+    assert live.device.type == "cuda"
+    _live_ops(rng, live, state, n_ops)
+    if merge:
+        live.merge()
+        _live_ops(rng, live, state, n_ops // 2)  # delta over the segment
+    return live
+
+
+def test_live_index_on_the_card_equals_torch_plan(dev, tmp_path):
+    """A LiveIndex on the card answers as the same directory opened on
+    plan='torch' (the plain decoders on the card), and its queries and
+    merges launch the decode kernels."""
+    import shutil
+
+    from repro_torch.index import LiveIndex
+
+    rng = np.random.default_rng(5)
+    state = {}
+    counts = lambda: (kernel.launches.count + stream_kernel.launches.count
+                      + binpack_kernel.launches.count)
+    live = _live_on_card(tmp_path / "ix", rng, state)
+    k0 = counts()
+    live.merge()
+    k1 = counts()
+    assert k1 > k0  # the merge decoded the main lists on the card
+    _live_ops(rng, live, state, 100)
+    live.close()
+    shutil.copytree(tmp_path / "ix", tmp_path / "plain")
+    live = LiveIndex(str(tmp_path / "ix"), fsync=False)
+    plain = LiveIndex(str(tmp_path / "plain"), fsync=False, plan="torch")
+    assert all(tp.arr.device.type == "cuda"
+               for tp in plain.main.terms.values())
+    got = _live_answers(live)
+    assert counts() > k1
+    k2 = counts()
+    assert _same_answers(got, _live_answers(plain))
+    assert counts() == k2  # the plain plan launches none of them
+    assert live.doc_count() == plain.doc_count() == len(state)
+    live.close()
+    plain.close()
+
+
+def test_merge_while_querying_on_the_card(dev, tmp_path):
+    """A merge in one thread while another queries: every answer the
+    reader sees mid-merge equals the quiescent one."""
+    import threading
+
+    rng = np.random.default_rng(6)
+    live = _live_on_card(tmp_path / "ix", rng, {})
+    quiescent = _live_answers(live)
+    stop, seen, bad = threading.Event(), [], []
+
+    def reader():
+        while not stop.is_set():
+            state = live.state
+            if not _same_answers(_live_answers(live), quiescent):
+                bad.append(state)
+            seen.append(state)
+
+    th = threading.Thread(target=reader)
+    th.start()
+    try:
+        for _ in range(2):
+            live.merge()
+    finally:
+        stop.set()
+        th.join(timeout=300)
+    assert not th.is_alive()
+    assert not bad and seen
+    assert _same_answers(_live_answers(live), quiescent)
+    live.close()
+
+
+def test_concurrent_writers_during_merge_on_the_card(dev, tmp_path):
+    """The reference's concurrent-writers case on the card: writer threads
+    racing merges, then parity with a rebuilt index and after a restart."""
+    import threading
+
+    from repro_torch.index import LiveIndex, conjunctive, disjunctive, topk
+
+    live = LiveIndex(str(tmp_path / "ix"), n_docs=LIVE_UNIVERSE, fsync=False)
+    state = {}
+    for i in range(40):
+        live.add(i, {i % LIVE_TERMS: 1})
+        state[i] = {i % LIVE_TERMS: 1}
+    acked, errs = [], []
+
+    def writer(base):
+        rng = np.random.default_rng(base)
+        try:
+            for doc in range(1000 * (base + 1), 1000 * (base + 1) + 200):
+                terms = {int(rng.integers(LIVE_TERMS)): int(rng.integers(1, 4))}
+                live.add(doc, terms)
+                acked.append((doc, terms))
+        except Exception as e:  # pragma: no cover - failure detail
+            errs.append(e)
+
+    threads = [threading.Thread(target=writer, args=(b,)) for b in range(3)]
+    for th in threads:
+        th.start()
+    for _ in range(3):
+        live.merge()
+    for th in threads:
+        th.join(timeout=300)
+        assert not th.is_alive()
+    assert errs == []
+    for doc, terms in acked:
+        state[doc] = terms
+    lists, tfs = {}, {}
+    for doc in sorted(state):
+        for t, tf in state[doc].items():
+            lists.setdefault(t, []).append(doc)
+            tfs.setdefault(t, []).append(tf)
+    oracle = build_index({t: np.asarray(v) for t, v in lists.items()},
+                         tfs={t: np.asarray(v) for t, v in tfs.items()},
+                         format="auto", n_docs=LIVE_UNIVERSE, checksum=True)
+    want = []
+    for q in LIVE_QUERIES:
+        want += [conjunctive(oracle, q), disjunctive(oracle, q),
+                 topk(oracle, q, 10, mode="or")]
+    assert _same_answers(_live_answers(live), want)
+    live.close()
+    live = LiveIndex(str(tmp_path / "ix"), fsync=False)
+    assert _same_answers(_live_answers(live), want)
+    live.close()
+
+
+def test_decode_span_encloses_each_kernel_launch(dev, tmp_path):
+    """Under Telemetry(torch_annotations=True) every kernel of the port in
+    a torch.profiler trace lies under a ``decode`` range whose span names
+    the kernel's format and epilogue."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.data.synthetic import posting_list_group, posting_tfs
+    from repro_torch.obs.attribution import attribute_kernels
+
+    rng = np.random.default_rng(8)
+    lists = dict(enumerate(posting_list_group(rng, 10, 8, universe=1 << 20)))
+    tfs = {t: posting_tfs(rng, len(v)) for t, v in lists.items()}
+    for fmt in ("vbyte", "auto", "streamvbyte"):
+        index = build_index(lists, tfs=tfs, n_docs=1 << 20, format=fmt)
+        engine = SearchEngine(index)
+        qs = search_queries(rng, index, 10)
+        engine.warmup(qs)
+        tele = obs.Telemetry(torch_annotations=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with obs.install(tele):
+                for mode, terms in qs:
+                    engine.search(terms, mode)
+            torch.cuda.synchronize()
+        path = tmp_path / f"{fmt}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        got = attribute_kernels(events, tele.tracer.spans)
+        assert got["kernels"] > 0, (fmt, got)
+        assert got["attributed"] == got["kernels"], (fmt, got)
+        assert got["outside"] == got["mismatched"] == 0, (fmt, got)
+        assert got["ranges"] == got["spans"] == len(
+            tele.tracer.durations("decode")), (fmt, got)

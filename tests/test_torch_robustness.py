@@ -666,3 +666,94 @@ def test_degraded_smoke_matches_reference():
     for k in ("n_queries", "n_shards", "degraded_responses",
               "healed_shards") + SERVE_KEYS:
         assert rs[k] == ts[k], k
+
+
+# ---------------------------------------------------------------------------
+# SearchEngine over a LiveIndex-merged segment (format="auto"), both packages
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def merged_segments(tmp_path_factory):
+    """The index the ingestion path produces: the reference test's docs
+    streamed into a LiveIndex of each package, merged into a
+    ``format="auto"`` segment and reloaded from disk — ``(reference's,
+    port's)``."""
+    import os
+
+    from repro.index import LiveIndex as RLive
+    from repro.index.ingest import load_segment as r_load
+    from repro_torch.index import LiveIndex as TLive
+    from repro_torch.index.ingest import load_segment as t_load
+
+    out = []
+    for tag, mk, load in (("r", lambda d: RLive(d, n_docs=1 << 16,
+                                                fsync=False, plan="jnp"),
+                           r_load),
+                          ("t", lambda d: TLive(d, n_docs=1 << 16,
+                                                fsync=False, device=CPU),
+                           lambda seg: t_load(seg, device=CPU))):
+        d = str(tmp_path_factory.mktemp("live") / tag)
+        rng = np.random.default_rng(4)
+        live = mk(d)
+        for doc in np.unique(rng.integers(0, 1 << 16, 500)):
+            live.add(int(doc), {int(t): int(rng.integers(1, 5))
+                                for t in rng.choice(8, rng.integers(1, 4),
+                                                    replace=False)})
+        live.merge()
+        seg = os.path.join(d, "segments", sorted(os.listdir(
+            os.path.join(d, "segments")))[0])
+        index, _tfs, _docs = load(seg)
+        live.close()
+        out.append(index)
+    return tuple(out)
+
+
+class TestEngineOnMergedSegment:
+    def test_startup_validation_passes_clean_merged_segment(
+            self, merged_segments):
+        ri, ti = merged_segments
+        assert ti.format == "auto"
+        fmts = {tp.arr.format for tp in ti.terms.values()}
+        assert fmts and fmts <= set(FORMATS)
+        assert fmts == {tp.arr.format for tp in ri.terms.values()}
+        reng, teng = _engines(ri, ti, validate=True, deep_validate=True)
+        assert not teng.quarantined and not teng.bound_unsafe
+        _same_engine_state(reng, teng)
+        out, st = _search_both(reng, teng, [0, 1, 2], "topk_maxscore")
+        from repro_torch.index import topk as t_topk
+        for a, b in zip(out, t_topk(ti, [0, 1, 2], 10, mode="or")):
+            np.testing.assert_array_equal(a, b)
+        assert not st.degraded
+
+    def test_startup_quarantine_on_corrupt_merged_term(self,
+                                                       merged_segments):
+        ri, ti = merged_segments
+        rterms, tterms = dict(ri.terms), dict(ti.terms)
+        rbad = rfg.corrupt(rterms[5].arr, "bit_flip", 11)
+        tbad = tfg.corrupt(tterms[5].arr, "bit_flip", 11)
+        _same_leaves(rbad.arr, tbad.arr)
+        rterms[5] = dataclasses.replace(rterms[5], arr=rbad.arr)
+        tterms[5] = dataclasses.replace(tterms[5], arr=tbad.arr)
+        reng, teng = _engines(dataclasses.replace(ri, terms=rterms),
+                              dataclasses.replace(ti, terms=tterms),
+                              validate=True)
+        assert 5 in teng.quarantined
+        _same_engine_state(reng, teng)
+        out, st = _search_both(reng, teng, [5, 6], "or")
+        np.testing.assert_array_equal(
+            out, TSearchEngine(ti, device=CPU).search([6], "or"))
+        assert st.degraded
+
+    def test_heal_after_shard_loss_on_merged_segment(self, merged_segments):
+        ri, ti = merged_segments
+        reng, teng = _engines(ri, ti, n_shards=3)
+        all_terms = list(ti.terms)
+        clean, _ = _search_both(reng, teng, all_terms, "or")
+        reng.kill_shard(0)
+        teng.kill_shard(0)
+        partial, st = _search_both(reng, teng, all_terms, "or")
+        assert st.degraded and partial.size < clean.size
+        reng.heal()
+        teng.heal()
+        assert not teng.dead_shards
+        healed, _ = _search_both(reng, teng, all_terms, "or")
+        np.testing.assert_array_equal(healed, clean)
