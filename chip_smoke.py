@@ -45,15 +45,16 @@ fault. One JSON line per phase:
    ways, each served by
    ``SearchEngine(plan="auto")`` with every launch count set to 0 just
    before its workload and read just after: ``format="vbyte"`` (the
-   first 25 queries), ``format="auto"`` (the first 50; its per-list
+   first 10 queries), ``format="auto"`` (the first 10; its per-list
    partition DPs run in worker processes, one ``build_index`` call per
-   term, merged on the card) and ``format="streamvbyte"`` (the first 25).
+   term, merged on the card) and ``format="streamvbyte"`` (the first 10),
+   2 queries of each of the 5 modes.
    Every query's result and ``QueryStats`` is then held equal to the plain
    ``plan="torch"`` engine's on the card (the replay runs in 6 spawned
    worker processes, each placing the index on the card from its numpy
    leaves without the checksum columns the indexes are built with: the
    same answers, accounting and bits/int, so the column is off the request
-   path), and 10 AND/OR answers per path against numpy set operations
+   path), and every AND/OR answer (4 per path) against numpy set operations
    on the host lists. A profiler window gives each path's device busy
    share.
    Then phase ``hardened_search`` over the three indexes, the launch
@@ -69,7 +70,7 @@ fault. One JSON line per phase:
    on a K=12 term: ``topk_maxscore`` falls back to TAAT with the clean
    engine's answers; a transient fault retried to the exact answer, a
    persistent one empty and flagged after 3 errors; and, in one worker
-   process per path, the shard-loss drill over the path's first 25
+   process per path, the shard-loss drill over the path's first 10
    queries (``serve.shard_loss_drill``: healthy, shard 3 silenced until
    the detector calls it dead, exactly the queries over its terms
    flagged and the rest bit-identical, then ``heal()`` and every answer
@@ -83,19 +84,21 @@ fault. One JSON line per phase:
    on the card in a process of its own, gated at
    ``null_path_overhead_pct`` < 3 and ``overhead_pct`` < 15; then one
    full capture over the ``vbyte`` path's
-   first 25 queries with ``Telemetry(torch_annotations=True)`` and
+   first 10 queries with ``Telemetry(torch_annotations=True)`` and
    ``torch.profiler`` on: the three exports, the per-stage table and the
    report CLI's; every answer bit for bit the main path's, the summed
    ``decode_calls_total`` equal to the ``dispatch.decode`` calls (and the
    kernel launches at least that), every kernel of the port in the
    profiler's trace under a ``decode`` range whose span names its format
-   and epilogue, ``serve_*_total`` mirroring ``serve_stats``.
+   and epilogue (after the profiler's warm-up window over the first
+   query: without one, the first kernel records of a session can be
+   lost), ``serve_*_total`` mirroring ``serve_stats``.
    Then phase ``live_index``: a ``LiveIndex`` on local disk
    (``fsync=True``) on the card whose main segment is the ``auto`` path's
    index (48 terms, epoch 1 committed with ``ingest.write_epoch``, the
    commit ``merge`` makes); 20,000 acknowledged ops through ``LiveSearchEngine`` (adds of
    new docs with 1–4 of the 48 terms at tf 1–4, deletes with p 0.2 over
-   the main segment's and the delta's docs); the ``auto`` path's first 25
+   the main segment's and the delta's docs); the ``auto`` path's first 10
    queries as and / or / topk, each answer equal to the materialize()
    oracle and to ``plan="torch"`` on the card; a restart replaying the
    whole WAL (a query during replay flagged ``replaying``; load, CRC,
@@ -125,6 +128,20 @@ fault. One JSON line per phase:
    graph's gap stream, then kernel 2's adjacency_rebase over it with the
    forward's ``edge_base`` (beside kernel 1, the plain version and the
    unfused chain).
+   Phase ``gin_train``, between ``gin_parity`` and those checks: gin-tu
+   trained on the same graph (bf16 compute, float32 aggregation; each
+   step decodes the adjacency with kernel 2's adjacency_rebase and sums
+   by owner and, backward, by source with owner_sum): one step's
+   gradients within GIN_GRAD_RTOL of the plain plan's on the card; 10
+   steps of ``make_train_step`` (AdamW, peak_lr 1e-2, warm-up 1): each
+   loss finite and the last below the first, ms per step by part, peak
+   bytes, launches per step; a replay of the 10 steps from the same
+   initial state and a restart from a checkpoint saved after step 4 into
+   a fresh state, both giving the same losses and state bit for bit;
+   then the backward kernel bit for bit against its plain version on the
+   CPU over sampled rows (the step's grouping by source, and the
+   in-degree grouping with rows past LONG_ROW) and timed beside its
+   bound, its plain version and cuSPARSE SpMM over the transposed CSR.
 7. the ``kernels`` line, the card line, and the result line.
 """
 from __future__ import annotations
@@ -187,12 +204,22 @@ GIN_RTOL = 2.0**-4
 # the top GIN_SAMPLE_TOP by in-degree and GIN_SAMPLE_OTHERS more
 GIN_SAMPLE_TOP = 64
 GIN_SAMPLE_OTHERS = 1 << 16
+# phase gin_train: steps of make_train_step (AdamW as the reference's GIN
+# test: peak_lr 1e-2, warm-up 1), the step after which a checkpoint is
+# saved and restored, and the bound on one step's gradients by the kernel
+# plan against the plain plan's on the card, relative L2 per leaf: the
+# plain plan sums by owner and by source with index_add_ in another order,
+# which moves some bf16 roundings of the activations by one ulp (2^-8) in
+# each of the 5 layers and in the backward's bf16 products
+GIN_TRAIN_STEPS = 10
+GIN_CKPT_STEP = 4
+GIN_GRAD_RTOL = 2.0**-4
 # the search index's length groups (K -> lists; K=20's count is a flag)
 SEARCH_GROUPS = {12: 16, 16: 16}
 # phase hardened_search: the shard-loss drill serves each search path's
 # first HARDENED_QUERIES queries over HARDENED_SHARDS logical shards and
 # loses shard VICTIM_SHARD; the retry checks allow RETRIES retries
-HARDENED_QUERIES = 25
+HARDENED_QUERIES = 10
 HARDENED_SHARDS = 8
 VICTIM_SHARD = 3
 RETRIES = 2
@@ -256,18 +283,24 @@ class ColdTimer:
     the card then runs them back to back and the start→end interval is
     device time only. One call per sleep keeps a plain version's hundreds
     of small ops inside CUDA's pending-launch queue. If queueing outlasted
-    the sleep, the sleep is doubled and the launch measured again.
+    the sleep, the sleep is doubled and the launch measured again. Each
+    :meth:`ms` starts from a short sleep (~0.5 ms), so a kernel that the
+    host queues in microseconds does not wait out the sleep a plain
+    version needed: the smoke times thousands of launches.
     """
+
+    SLEEP_CYCLES = 1 << 20
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device="cuda")
-        self.sleep_cycles = 1 << 24
+        self.sleep_cycles = self.SLEEP_CYCLES
 
     def ms(self, fn, reps: int, warmup: int = 2) -> float:
         for _ in range(warmup):
             fn()
+        self.sleep_cycles = self.SLEEP_CYCLES
         return sum(self._once(fn) for _ in range(reps)) / reps
 
     def ms_sync(self, fn, reps: int, warmup: int = 1) -> float:
@@ -293,7 +326,7 @@ class ColdTimer:
 
     def _once(self, fn) -> float:
         torch = self.torch
-        for _ in range(8):
+        for _ in range(12):
             torch.cuda.synchronize()
             s0, s1, start, end = (torch.cuda.Event(enable_timing=True)
                                   for _ in range(4))
@@ -364,6 +397,21 @@ def _bound(*, bytes_moved: float, ops: float,
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _gather_sum_bound(*, rows: int, n_owners: int, n_edges: int,
+                      n_valid: int, d: int, in_bytes: int):
+    """owner_sum's bound: ``(ms, "bytes" | "operations", gathered_ms)``.
+    Bytes: each input read once (``rows × d`` of ``h``, ``src``, the row
+    offsets) and the f32 output written once; operations: one add per
+    valid edge and feature at the f32 rate. ``gathered_ms`` counts every
+    gathered row as read from memory instead (the bound PRs 16–19 stated):
+    above the least time where ``h`` stays in the 50 MB L2."""
+    fixed = 4 * n_edges + 4 * (n_owners + 1) + 4 * n_owners * d
+    ms, by = _bound(bytes_moved=rows * d * in_bytes + fixed,
+                    ops=n_valid * d, ops_per_s=F32_FLOPS_PER_S)
+    return ms, by, _bound(bytes_moved=n_valid * d * in_bytes + fixed,
+                          ops=n_valid * d, ops_per_s=F32_FLOPS_PER_S)[0]
 
 
 def _bf16_ulps(torch, a, b) -> int:
@@ -1183,7 +1231,8 @@ def _launch_counters():
             "stream_decode_blocked": stream_kernel.launches,
             "binpack_decode_blocked": binpack_kernel.launches,
             "fused_decode": epilogues.launches,
-            "owner_sum": segment_sum.launches}
+            "owner_sum": segment_sum.launches,
+            "owner_sum_backward": segment_sum.backward_launches}
 
 
 def _reset(torch, counters):
@@ -1747,7 +1796,7 @@ def phase_hardened(np, torch, paths: dict, qs: list, groups: dict,
 OBS_SEED = 7  # the reference's overhead measurement: seed, lists, queries
 OBS_QUERIES = 48
 OBS_PAIRS = 12  # interleaved null / capture passes
-TELEMETRY_QUERIES = 25  # the vbyte path's first queries, captured
+TELEMETRY_QUERIES = 10  # the vbyte path's first queries, captured
 NULL_PATH_GATE_PCT = 3.0  # the reference's gates
 CAPTURE_GATE_PCT = 15.0
 PORT_KERNELS = ("vbyte_decode_blocked", "stream_decode_blocked",
@@ -1903,6 +1952,48 @@ def _overhead_worker(detail: bool = False) -> dict:
             "gc_objects": len(gc.get_objects())}
 
 
+def capture(torch, engine, qs, tele, counters, *, warmup: bool = True):
+    """``qs`` served by ``engine`` under ``tele`` and ``torch.profiler``,
+    the launch counts set to 0 just before and read just after: ``(answers,
+    profiler, seconds, dispatch.decode calls, launches)``. With
+    ``warmup`` the profiler first runs a warm-up window over the first
+    query (untraced, uncounted): CUPTI is enabled there, and the capture's
+    window starts with it running; without it, the first kernel records
+    of a session can be lost (``tools/capture_check.py``)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import obs
+    from repro_torch.kernels.vbyte_decode import dispatch
+
+    calls = [0]
+    real_decode = dispatch.decode
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real_decode(*a, **kw)
+
+    outs = []
+    sched = schedule(wait=0, warmup=1, active=1) if warmup else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        if warmup:
+            engine.search(qs[0][1], qs[0][0])
+            torch.cuda.synchronize()
+            prof.step()
+        _reset(torch, counters)
+        dispatch.decode = counted
+        try:
+            with obs.install(tele):
+                t0 = time.perf_counter()
+                for mode, terms in qs:
+                    outs.append(engine.search(terms, mode))
+                seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        finally:
+            dispatch.decode = real_decode
+    return outs, prof, seconds, calls[0], _read(torch, counters)
+
+
 def _counter_sum(metrics: dict, name: str) -> int:
     return sum(v["value"] for k, v in metrics.items()
                if k == name or k.startswith(name + "{"))
@@ -1916,15 +2007,12 @@ def phase_telemetry(np, torch, paths: dict, qs: list, args) -> dict:
     main path's (no telemetry), one ``decode_calls_total`` per
     ``dispatch.decode`` call and at least one kernel launch each, every
     kernel of the port in the profiler's trace under a ``decode`` range
-    whose span names its format and epilogue, and ``serve_*_total``
-    mirroring ``serve_stats``."""
+    whose span names its format and epilogue (:func:`capture`), and
+    ``serve_*_total`` mirroring ``serve_stats``."""
     import shutil
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import obs
-    from repro_torch.kernels.vbyte_decode import dispatch
     from repro_torch.launch.serve import (SearchEngine, stage_latency_summary,
                                           write_metrics_out)
     from repro_torch.obs.attribution import attribute_kernels
@@ -1946,31 +2034,10 @@ def phase_telemetry(np, torch, paths: dict, qs: list, args) -> dict:
     engine = SearchEngine(paths["vbyte"]["index"], top_k=10, plan="auto",
                           probe_width=512)
     serve_before = dict(engine.serve_stats)
-    calls = [0]
-    real_decode = dispatch.decode
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return real_decode(*a, **kw)
-
     tele = obs.Telemetry(torch_annotations=True)
     counters = _launch_counters()
-    outs = []
-    _reset(torch, counters)
-    dispatch.decode = counted
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with obs.install(tele):
-                t0 = time.perf_counter()
-                for mode, terms in cap_qs:
-                    outs.append(engine.search(terms, mode))
-                capture_s = time.perf_counter() - t0
-            torch.cuda.synchronize()
-    finally:
-        dispatch.decode = real_decode
-    launches = _read(torch, counters)
-
+    outs, prof, capture_s, calls, launches = capture(
+        torch, engine, cap_qs, tele, counters)
     tmp = tempfile.mkdtemp(prefix="telemetry_")
     try:
         t0 = time.perf_counter()
@@ -2001,9 +2068,9 @@ def phase_telemetry(np, torch, paths: dict, qs: list, args) -> dict:
     decode_calls = _counter_sum(metrics, "decode_calls_total")
     decode_spans = len(tele.tracer.durations("decode"))
     kernel_launches = sum(launches[k] for k in PORT_KERNELS)
-    if not (decode_calls == decode_spans == calls[0]):
+    if not (decode_calls == decode_spans == calls):
         die(f"telemetry: decode_calls_total {decode_calls}, decode spans "
-            f"{decode_spans}, dispatch.decode calls {calls[0]}")
+            f"{decode_spans}, dispatch.decode calls {calls}")
     if kernel_launches < decode_calls:
         die(f"telemetry: {kernel_launches} kernel launches for "
             f"{decode_calls} decode calls")
@@ -2039,7 +2106,7 @@ def phase_telemetry(np, torch, paths: dict, qs: list, args) -> dict:
 # ---------------------------------------------------------------------------
 # phase live_index: crash-safe ingestion over the auto path's index
 # ---------------------------------------------------------------------------
-LIVE_QUERIES = 25  # the auto path's first queries, as and / or / topk
+LIVE_QUERIES = 10  # the auto path's first queries, as and / or / topk
 SWEEP_GROUPS = (12, 16)  # the crash-point sweep's terms
 RACING_OPS = 50  # acknowledged writes racing the crashed merge
 
@@ -2833,6 +2900,7 @@ def run_gin(np, torch, args) -> dict:
          logits_max_abs=float(logits_raw.abs().max()),
          seconds=round(time.perf_counter() - t0, 3))
     del logits_raw, raw
+    train = run_gin_train(np, torch, args, cfg, batch, comp, nbr_f, own_f)
     with torch.inference_mode():
         share = _profile(torch, "gin",
                          lambda: gnn.forward(params, batch, cfg), 1,
@@ -2844,7 +2912,329 @@ def run_gin(np, torch, args) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "seconds": seconds, "peak": peak,
-            "busy_share": share, **kernels}
+            "busy_share": share, "train": train, **kernels}
+
+
+class _StepClock:
+    """CUDA events at the edges of a train step's parts, by wrapping the
+    functions the step calls for the clock's lifetime: ``decode``
+    (``decode_compressed_edges`` inside the loss), ``forward`` (the rest of
+    the loss: :meth:`loss` wraps it), ``backward`` (from the loss to the
+    optimizer) and ``optimizer`` (AdamW)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import gnn
+        from repro_torch.train import train_state
+
+        self.torch, self.gnn, self.ts = torch, gnn, train_state
+        self.real = (gnn.decode_compressed_edges, train_state.adamw_update)
+        self.marks = {}
+
+    def mark(self, name):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks[name] = ev
+
+    def loss(self, fn):
+        def timed(*a, **kw):
+            out = fn(*a, **kw)
+            self.mark("loss_end")
+            return out
+        return timed
+
+    def __enter__(self):
+        decode, adamw = self.real
+
+        def timed_decode(*a, **kw):
+            self.mark("decode_start")
+            out = decode(*a, **kw)
+            self.mark("decode_end")
+            return out
+
+        def timed_adamw(*a, **kw):
+            self.mark("opt_start")
+            out = adamw(*a, **kw)
+            self.mark("end")
+            return out
+
+        self.gnn.decode_compressed_edges = timed_decode
+        self.ts.adamw_update = timed_adamw
+        return self
+
+    def __exit__(self, *exc):
+        self.gnn.decode_compressed_edges, self.ts.adamw_update = self.real
+        return False
+
+    def step_ms(self) -> dict:
+        """The last step's parts in ms (``mark("start")`` before it)."""
+        self.torch.cuda.synchronize()
+        m = self.marks
+        out = {"decode": m["decode_start"].elapsed_time(m["decode_end"]),
+               "forward": (m["start"].elapsed_time(m["decode_start"])
+                           + m["decode_end"].elapsed_time(m["loss_end"])),
+               "backward": m["loss_end"].elapsed_time(m["opt_start"]),
+               "optimizer": m["opt_start"].elapsed_time(m["end"]),
+               "step": m["start"].elapsed_time(m["end"])}
+        m.clear()
+        return out
+
+
+def _train_steps(torch, step_fn, state, batch, steps, clock=None,
+                 on_step=None):
+    """``steps`` train steps from ``state``: (state, losses, step ms)."""
+    losses, times = [], []
+    for i in range(steps):
+        if clock is not None:
+            clock.mark("start")
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        if clock is not None:
+            times.append(clock.step_ms())
+        if on_step is not None:
+            on_step(i, state)
+    return state, losses, times
+
+
+def _state_equal(torch, a: dict, b: dict) -> bool:
+    from repro_torch.convert import gnn_train_state_tree
+    from repro_torch.tree import flatten
+
+    fa, fb = (flatten(gnn_train_state_tree(x)) for x in (a, b))
+    return [k for k, _ in fa] == [k for k, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def _plain_grads(torch, params, batch, cfg):
+    """One step's gradients by the plain plan on the card: the decode's
+    torch plan and owner_sum's plain version (gather + ``index_add_``) in
+    ``gin_layer``, through autograd. Each layer's plain sum is recomputed
+    in the backward (``torch.utils.checkpoint``): autograd would otherwise
+    keep every layer's float32 ``[E, d]`` messages, 15.8 GB each at the
+    ogbn-products shape."""
+    import dataclasses
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.segment_sum import owner_sum_plain
+    from repro_torch.models import gnn
+    from repro_torch.nn import gnn as nn_gnn
+    from repro_torch.train import param_leaves
+
+    def plain(h, src, seg, edge_valid=None, *, accumulate, by_source=None):
+        return checkpoint(
+            lambda x: owner_sum_plain(x, src, seg.row_offsets, edge_valid,
+                                      accumulate=accumulate),
+            h, use_reentrant=False)
+
+    real = nn_gnn.owner_sum
+    nn_gnn.owner_sum = plain
+    try:
+        loss, _ = gnn.loss_fn(params, batch,
+                              dataclasses.replace(cfg, decode_plan="torch"))
+        leaves = param_leaves(params)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        nn_gnn.owner_sum = real
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def run_gin_train(np, torch, args, cfg, batch, comp, nbr, own) -> dict:
+    """Phase ``gin_train``: gin-tu at full width trained on the gin path's
+    graph (its compressed adjacency decoded by kernel 2's adjacency_rebase
+    every step; owner_sum forward and backward): GIN_TRAIN_STEPS steps of
+    ``make_train_step`` (loss, ms per step by part, peak bytes, launches
+    per step), a replay from the same initial state and a restart from a
+    checkpoint saved at GIN_CKPT_STEP, both bit for bit; one step's
+    gradients against the plain plan's; then the backward kernel held bit
+    for bit against its plain version on the CPU over sampled rows and
+    timed (bound, plain, cuSPARSE) at the step's shape."""
+    import copy
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import (gnn_train_state_from_tree,
+                                     gnn_train_state_tree)
+    from repro_torch.models import gnn
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   make_train_step, param_leaves)
+
+    t_path = time.perf_counter()
+    opt = OptimizerConfig(peak_lr=1e-2, warmup_steps=1,
+                          total_steps=GIN_TRAIN_STEPS)
+    loss_fn = lambda p, b: gnn.loss_fn(p, b, cfg)  # noqa: E731
+    state0 = init_train_state(gnn.init_params(cfg, seed=args.seed + 1,
+                                              device="cuda"))
+    leaves0 = param_leaves(state0["params"])
+
+    # one step's gradients: kernel plan against the plain plan
+    loss_k, _ = loss_fn(state0["params"], batch)
+    g_kernel = dict(zip(leaves0, torch.autograd.grad(
+        loss_k, list(leaves0.values()))))
+    loss_p, g_plain = _plain_grads(torch, state0["params"], batch, cfg)
+    grad_err = {k: float((g_kernel[k] - g_plain[k]).norm()
+                         / g_plain[k].norm().clamp(min=1e-30))
+                for k in g_kernel}
+    worst = max(grad_err, key=grad_err.get)
+    emit("gin_train_grads", loss_kernel_plan=float(loss_k.detach()),
+         loss_plain_plan=loss_p, leaves=len(grad_err),
+         max_rel_l2_err=grad_err[worst], worst_leaf=worst,
+         rel_l2_rtol=GIN_GRAD_RTOL)
+    if not grad_err[worst] <= GIN_GRAD_RTOL:
+        die(f"gin_train: kernel-plan gradients differ from the plain "
+            f"plan's: {worst} rel L2 {grad_err[worst]} > {GIN_GRAD_RTOL}")
+    del loss_k, g_kernel, g_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the run: GIN_TRAIN_STEPS steps, a checkpoint after GIN_CKPT_STEP
+    ckpt_dir = tempfile.mkdtemp(prefix="gin_ckpt_")
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+
+    def save(i, st):
+        if i == GIN_CKPT_STEP:
+            mgr.save(i, gnn_train_state_tree(st))
+
+    counters = _launch_counters()
+    state = copy.deepcopy(state0)
+    _reset(torch, counters)
+    with _StepClock(torch) as clock:
+        state, losses, times = _train_steps(
+            torch, make_train_step(clock.loss(loss_fn), opt), state, batch,
+            GIN_TRAIN_STEPS, clock, save)
+    launches = _read(torch, counters)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: launches[k] / GIN_TRAIN_STEPS for k in (
+        "owner_sum", "owner_sum_backward", "vbyte_decode_blocked")}
+    per_step["fused_decode/vbyte/adjacency_rebase"] = launches[
+        "fused_decode_by"].get("vbyte/adjacency_rebase", 0) / GIN_TRAIN_STEPS
+    ms = {k: [round(t[k], 3) for t in times] for k in times[0]}
+    emit("gin_train", steps=GIN_TRAIN_STEPS, peak_lr=opt.peak_lr,
+         warmup_steps=opt.warmup_steps, losses=losses, ms_per_step=ms,
+         median_ms={k: float(np.median(v)) for k, v in ms.items()},
+         peak_device_bytes=peak, launches=launches,
+         launches_per_step=per_step)
+    finite = bool(np.isfinite(losses).all())
+    if not (finite and losses[-1] < losses[0]):
+        die(f"gin_train: losses finite={finite}, first {losses[0]}, last "
+            f"{losses[-1]}")
+    if not (per_step["fused_decode/vbyte/adjacency_rebase"] >= 1
+            and per_step["owner_sum"] >= cfg.n_layers
+            and per_step["owner_sum_backward"] >= cfg.n_layers - 1):
+        die(f"gin_train: a step did not launch kernel 2's adjacency_rebase "
+            f"and owner_sum both ways: {per_step}")
+
+    # a replay from the same initial state, and a restart from the
+    # checkpoint into a fresh state: the same losses and state, bit for bit
+    t0 = time.perf_counter()
+    replay, r_losses, _ = _train_steps(
+        torch, make_train_step(loss_fn, opt), copy.deepcopy(state0), batch,
+        GIN_TRAIN_STEPS)
+    replay_equal = r_losses == losses and _state_equal(torch, replay, state)
+    del replay
+    fresh = init_train_state(gnn.init_params(cfg, seed=args.seed + 2,
+                                             device="cuda"))
+    tree, at = mgr.restore_latest(gnn_train_state_tree(fresh))
+    del fresh
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    resumed = gnn_train_state_from_tree(tree, cfg, device="cuda")
+    resumed, c_losses, _ = _train_steps(
+        torch, make_train_step(loss_fn, opt), resumed, batch,
+        GIN_TRAIN_STEPS - at - 1)
+    restart_equal = (at == GIN_CKPT_STEP and c_losses == losses[at + 1:]
+                     and _state_equal(torch, resumed, state))
+    emit("gin_train_replay", replay_equal=replay_equal,
+         restart_from_step=at, restart_equal=restart_equal,
+         restart_losses=c_losses, seconds=round(time.perf_counter() - t0, 3))
+    if not (replay_equal and restart_equal):
+        die(f"gin_train: replay equal {replay_equal} (losses {r_losses}), "
+            f"restart from step {at} equal {restart_equal} (losses "
+            f"{c_losses}; uninterrupted {losses})")
+    del resumed, state, state0, leaves0
+    gc.collect()
+    torch.cuda.empty_cache()
+    backward = gin_backward_kernel(np, torch, comp, nbr, own, cfg, args)
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="gin_train", seconds=round(seconds, 3))
+    return {"launches": launches, "seconds": seconds, "peak": peak,
+            "losses": losses, "ms": ms, "owner_sum_backward": backward}
+
+
+def gin_backward_kernel(np, torch, comp, nbr, own, cfg, args) -> dict:
+    """The backward owner_sum at the gin_train step's shape: float32
+    gradients ``[N, d_hidden]`` summed over the edges grouped by source
+    (``segments_by_source`` of the decoded edges), equal bit for bit to
+    its plain version on the CPU over sampled rows (the top GIN_SAMPLE_TOP
+    and GIN_SAMPLE_OTHERS more); and, with the roles of the groupings
+    swapped (a sum over the source grouping whose backward runs over the
+    in-degree grouping, rows past LONG_ROW), the same check; then the
+    launch timed beside its bound, its plain version and cuSPARSE SpMM
+    over the transposed CSR (f32)."""
+    from repro_torch.kernels.segment_sum import (LONG_ROW, backward_launches,
+                                                 owner_sum, owner_sum_plain,
+                                                 segments, segments_by_source)
+
+    timer = ColdTimer(torch)
+    ro, valid = comp["row_offsets"], comp["edge_valid"]
+    seg = segments(ro)
+    N, E, d = comp["row_gap_bases"].numel(), nbr.numel(), cfg.d_hidden
+    src_m = torch.where(valid, nbr, -1)
+    tsrc, tseg = segments_by_source(nbr, own, N, valid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    g = torch.randn(N, d, device="cuda", generator=gen)
+    checks = {}
+    for label, fwd, back in (
+            ("by_source", (src_m, seg), (tsrc, tseg)),
+            ("by_owner", (tsrc, tseg), (src_m, seg))):
+        x = torch.zeros(N, d, device="cuda", requires_grad=True)
+        before = backward_launches.count
+        owner_sum(x, *fwd, by_source=back).backward(g)
+        if backward_launches.count == before:
+            die(f"gin_train: the {label} backward launched no kernel")
+        b_src, b_seg = back
+        b_ro = b_seg.row_offsets.cpu()
+        rows, e_idx, sub_ro = _owner_sample(np, torch, b_ro, GIN_SAMPLE_TOP,
+                                            GIN_SAMPLE_OTHERS, args.seed)
+        want = owner_sum_plain(g.cpu(), b_src.cpu()[e_idx], sub_ro)
+        got = x.grad[rows.to("cuda")].cpu()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            die(f"gin_train: the backward kernel ({label}) differs from "
+                f"its plain version on the sampled rows")
+        deg = b_ro[1:] - b_ro[:-1]
+        checks[label] = {"sampled_rows": int(rows.numel()),
+                         "sampled_edges": int(e_idx.numel()),
+                         "max_row_edges": int(deg.max()),
+                         "rows_past_long_row": int((deg >= LONG_ROW).sum()),
+                         "max_abs_err": 0}
+        del x
+    emit("parity_owner_sum_backward", **checks)
+    n_valid = int(tseg.row_offsets[-1])
+    bound, by, gathered = _gather_sum_bound(rows=N, n_owners=N, n_edges=E,
+                                            n_valid=n_valid, d=d,
+                                            in_bytes=4)
+    spm = torch.sparse_csr_tensor(tseg.row_offsets, tsrc[:n_valid],
+                                  torch.ones(n_valid, device="cuda"),
+                                  size=(N, N))
+    out = owner_sum(g, tsrc, tseg)
+    lib_err = float((spm @ g - out).abs().max())
+    rec = {"n_rows": N, "n_edges": E, "n_valid_edges": n_valid, "d": d,
+           "grad_dtype": "float32", "accumulate": "float32",
+           "max_abs_err": 0, "checks": checks,
+           "ms": timer.ms(lambda: owner_sum(g, tsrc, tseg), reps=5),
+           "plain_ms": timer.ms_sync(
+               lambda: owner_sum_plain(g, tsrc, tseg.row_offsets), reps=2),
+           "library_ms": timer.ms_sync(lambda: spm @ g, reps=5),
+           "library": "cuSPARSE SpMM over the transposed CSR, f32",
+           "library_max_abs_err": lib_err, "bound_ms": bound,
+           "bound_by": by, "gathered_rows_bound_ms": gathered}
+    emit("parity_owner_sum_backward", shape="layers2_5_grad",
+         **{k: v for k, v in rec.items() if k != "checks"})
+    del spm, out, g, tsrc, tseg, timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _owner_sample(np, torch, ro, n_top: int, n_others: int, seed: int):
@@ -2920,9 +3310,9 @@ def gin_kernels(np, torch, comp, src, feats, cfg, args) -> dict:
                 f"sampled owners")
         d = h.shape[1]
         n_valid = int(valid.sum())
-        bound, by = _bound(bytes_moved=n_valid * d * h.element_size()
-                           + 4 * E + 4 * (N + 1) + 4 * N * d,
-                           ops=n_valid * d, ops_per_s=F32_FLOPS_PER_S)
+        bound, by, gathered = _gather_sum_bound(
+            rows=h.shape[0], n_owners=N, n_edges=E, n_valid=n_valid, d=d,
+            in_bytes=h.element_size())
         hf = h.float()
         spm = torch.sparse_csr_tensor(ro, src, valid.float(), size=(N, N))
         lib = spm @ hf
@@ -2942,6 +3332,7 @@ def gin_kernels(np, torch, comp, src, feats, cfg, args) -> dict:
             "library": "cuSPARSE SpMM, f32 values and h",
             "library_max_abs_err": lib_err,
             "bound_ms": bound, "bound_by": by,
+            "gathered_rows_bound_ms": gathered,
             "top_owner_edges": top_edges,
             "top_owner_ms": timer.ms(lambda: owner_sum(h, src_top, seg_top),
                                      reps=5),
@@ -3044,7 +3435,7 @@ def kernels_line(records, max_err, paths):
                                   "decode_kernel_ms", "checked_over_decode",
                                   "n_blocks", "stride", "n_ints",
                                   "gints_per_s", "plain_gints_per_s",
-                                  "library_ms", "d")
+                                  "library_ms", "d", "gathered_rows_bound_ms")
                 if f in r}
 
     def decode_entry(name, source, replaces):
@@ -3056,8 +3447,10 @@ def kernels_line(records, max_err, paths):
 
     gin = paths["gin"]
     owner = gin["owner_sum"]["layer1"]
+    back = paths["gin_train"]["owner_sum_backward"]
     max_err = {**max_err, "owner_sum": max(
         r["max_abs_err"] for r in gin["owner_sum"].values()),
+        "owner_sum_backward": back["max_abs_err"],
         "fused_decode": max(max_err["fused_decode"],
                             gin["gin_rebase"]["max_abs_err"])}
     line = {"kernels": [
@@ -3100,30 +3493,47 @@ def kernels_line(records, max_err, paths):
              replaces_note="jax.ops.segment_sum (an XLA scatter-add; the "
                            "reference has no pallas_call there)",
              library_ms=owner["library_ms"], library=owner["library"],
+             gathered_rows_bound_ms=owner["gathered_rows_bound_ms"],
              shapes={k: variant(r) for k, r in gin["owner_sum"].items()}),
+        dict(entry("owner_sum_backward", "owner_sum.cu", "nn/gnn.py:43",
+                   back, src="src/repro_torch/kernels/segment_sum/csrc/",
+                   ref="src/repro/"),
+             replaces_note="the transpose of jnp.take in gin_layer (XLA's "
+                           "scatter-add of the gradient, from jax.grad; "
+                           "the reference has no pallas_call there): the "
+                           "same kernel over the edges grouped by source",
+             library_ms=back["library_ms"], library=back["library"],
+             gathered_rows_bound_ms=back["gathered_rows_bound_ms"],
+             launches_per_step=paths["gin_train"]["launches"][
+                 "owner_sum_backward"] / GIN_TRAIN_STEPS,
+             shape={k: back[k] for k in ("n_rows", "n_valid_edges", "d",
+                                         "grad_dtype", "accumulate")},
+             checks=back["checks"]),
     ], "library_ms_note": "no single PyTorch call computes any of the "
                           "decodes; the gather epilogues' unfused_chain_ms "
                           "is decode kernel + one PyTorch call; owner_sum's "
-                          "library_ms is cuSPARSE SpMM in f32",
+                          "library_ms is cuSPARSE SpMM in f32 (the "
+                          "backward's over the transposed CSR)",
         "shapes": "B=128, stride 128, 4096 blocks, differential, cold L2; "
                   "gather tables [8389120, 256] bf16 and [8389120, 128] f32; "
                   "decode scale: every search-index posting in one launch; "
                   "owner_sum: the gin graph's layer 1 (bf16 [N, 100], f32 "
-                  "sums)"}
+                  "sums); owner_sum_backward: f32 gradients [N, 64] over "
+                  "the gin graph's edges grouped by source"}
     print(json.dumps(line), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--queries", type=int, default=50,
+    ap.add_argument("--queries", type=int, default=10,
                     help="queries of the format='auto' path")
-    ap.add_argument("--svb-queries", type=int, default=25,
+    ap.add_argument("--svb-queries", type=int, default=10,
                     help="queries of the format='streamvbyte' path")
-    ap.add_argument("--vbyte-queries", type=int, default=25,
+    ap.add_argument("--vbyte-queries", type=int, default=10,
                     help="queries of the format='vbyte' path")
     ap.add_argument("--k20-lists", type=int, default=16,
                     help="K=20 lists of every path")
-    ap.add_argument("--profile-queries", type=int, default=5,
+    ap.add_argument("--profile-queries", type=int, default=3,
                     help="queries per search path traced by torch.profiler")
     ap.add_argument("--tt-requests", type=int, default=256,
                     help="requests of the two_tower path")
@@ -3142,6 +3552,9 @@ def main(argv=None) -> int:
         die(f"no src/repro_torch next to {Path(__file__).name}: run it from "
             "a checkout of the repository", 2)
     sys.path.insert(0, str(SRC))
+    # cuBLAS picks the same algorithms and reduction order on every call
+    # (phase gin_train's replay and restart are held bit for bit)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -3158,6 +3571,7 @@ def main(argv=None) -> int:
     paths = phase_main_paths(np, torch, args)
     paths["two_tower"] = run_two_tower(np, torch, args)
     paths["gin"] = run_gin(np, torch, args)
+    paths["gin_train"] = paths["gin"].pop("train")
     emit("done", seconds=round(time.perf_counter() - t_start, 3),
          path_seconds={k: round(v["seconds"], 3) for k, v in paths.items()})
     print(card, flush=True)

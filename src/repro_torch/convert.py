@@ -1,5 +1,5 @@
 """Carry state across from the JAX package: compressed arrays, the
-compressed index, and the two-tower and GIN parameters.
+compressed index, the two-tower and GIN parameters, and GIN's train state.
 
 These functions build the port's objects from plain numpy leaves, so an
 index built by the reference (or saved from it) serves on the card with
@@ -117,3 +117,47 @@ def gnn_params_from_numpy(params: dict, cfg, device=None):
                                _tensor(lp["b2"], dev)))
     return GIN(layers, _tensor(params["head"]["w"], dev),
                _tensor(params["head"]["b"], dev))
+
+
+def gnn_train_state_tree(state: dict) -> dict:
+    """A GIN train state (``repro_torch.train.init_train_state``) as the
+    reference's train-state tree: ``params`` (``GIN.tree()``), ``opt/m`` and
+    ``opt/v`` under the same paths, ``opt/step`` and, where the run
+    compresses gradients, ``ef``. Its leaves are the state's own tensors;
+    ``repro_torch.checkpoint.CheckpointManager`` writes them in the
+    reference's leaf order and under its paths, so either package restores
+    the other's checkpoint directory."""
+    from repro_torch.tree import nest
+
+    opt = state["opt"]
+    tree = {"params": state["params"].tree(),
+            "opt": {"m": nest(opt["m"]), "v": nest(opt["v"]),
+                    "step": opt["step"]}}
+    if "ef" in state:
+        tree["ef"] = nest(state["ef"])
+    return tree
+
+
+def gnn_train_state_from_tree(tree: dict, cfg, device=None) -> dict:
+    """The port's GIN train state from the reference's train-state tree
+    (numpy arrays or tensors, as a checkpoint restores them), on
+    ``device`` (default: the card); its parameters require grad."""
+    from repro_torch.train import param_leaves
+    from repro_torch.tree import flatten
+
+    dev = resolve_device(device)
+    params = gnn_params_from_numpy(tree["params"], cfg, device=dev)
+    for p in param_leaves(params).values():
+        p.requires_grad_(True)
+
+    def leaves(t):
+        return {k: _tensor(v, dev) for k, v in flatten(t)}
+
+    opt = tree["opt"]
+    state = {"params": params,
+             "opt": {"m": leaves(opt["m"]), "v": leaves(opt["v"]),
+                     "step": torch.tensor(np.asarray(opt["step"]),
+                                          dtype=torch.int32, device=dev)}}
+    if tree.get("ef") is not None:
+        state["ef"] = leaves(tree["ef"])
+    return state

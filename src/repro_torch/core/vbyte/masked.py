@@ -54,6 +54,44 @@ def in_integer_positions(cont: torch.Tensor) -> torch.Tensor:
     return c1 * (1 + c2 * (1 + c3 * (1 + c4)))
 
 
+def decode_stream(data: torch.Tensor, n_max: int, *, nbytes: int | None = None,
+                  differential: bool = False, base: int = 0
+                  ) -> tuple[torch.Tensor, int]:
+    """Decode one tight VByte stream (the port of ``repro/core/vbyte/
+    masked.py::decode_stream``): ``data`` uint8 ``[S]``, zero-padded past
+    ``nbytes`` (default: all of it); at most ``n_max`` integers. Returns
+    ``(out, n_decoded)``: ``out`` int32 ``[n_max]`` holding the uint32
+    bits, zero past ``n_decoded``; with ``differential`` the inclusive
+    prefix sum from ``base``, mod 2^32. The checkpoint manager's host
+    decoder for integer leaves."""
+    S = data.shape[-1]
+    dev = data.device
+    b = data.reshape(-1).to(torch.int64)
+    idx = torch.arange(S, device=dev)
+    valid = (idx < (S if nbytes is None else int(nbytes))).to(torch.int64)
+    cont = (b >> 7) * valid
+    end = (1 - cont) * valid
+    out_idx = torch.cumsum(end, dim=0) - end  # exclusive prefix sum
+    pos = in_integer_positions(cont)
+    contrib = ((b & 0x7F) << (7 * pos)) & U32_MASK
+    n_decoded = min(int(end.sum()), n_max)
+    if n_max == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev), 0
+    keep = (valid > 0) & (out_idx < n_max)
+    contrib = torch.where(keep, contrib, torch.zeros_like(contrib))
+    ids = torch.where(keep, out_idx, torch.full_like(out_idx, n_max - 1))
+    out = torch.zeros(n_max, dtype=torch.int64, device=dev)
+    out.index_add_(0, ids, contrib)
+    out = out & U32_MASK
+    live = torch.arange(n_max, device=dev) < n_decoded
+    zero = torch.zeros_like(out)
+    out = torch.where(live, out, zero)
+    if differential:
+        out = torch.where(live, (base + torch.cumsum(out, dim=0)) & U32_MASK,
+                          zero)
+    return to_i32_bits(out), n_decoded
+
+
 def decode_blocked(
     payload: torch.Tensor,
     counts: torch.Tensor,

@@ -3,7 +3,8 @@
 ``posting_list_group`` mirrors the paper's ClueWeb09 experiment: sorted
 document ids drawn from a 50M-document universe, grouped by list length
 2^K..2^{K+1}-1 — shorter lists have larger gaps and compress worse.
-``random_graph`` makes a graph with skewed in-degrees for the GNN.
+``random_graph`` makes a graph with skewed in-degrees for the GNN, and
+``molecule_batch`` a batch of small graphs for its graph task.
 """
 from __future__ import annotations
 
@@ -64,4 +65,22 @@ def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int,
         "edge_dst": dst.astype(np.int32),
         "feats": feats,
         "labels": labels,
+    }
+
+
+def molecule_batch(rng: np.random.Generator, batch: int, nodes_per: int,
+                   edges_per: int, d_feat: int, n_classes: int):
+    """Batched small graphs (graph classification), block-diagonal edge
+    index."""
+    N, E = batch * nodes_per, batch * edges_per
+    offs = np.repeat(np.arange(batch) * nodes_per, edges_per)
+    src = rng.integers(0, nodes_per, size=E) + offs
+    dst = rng.integers(0, nodes_per, size=E) + offs
+    return {
+        "feats": rng.standard_normal((N, d_feat), dtype=np.float32),
+        "edge_src": src.astype(np.int32),
+        "edge_dst": dst.astype(np.int32),
+        "graph_ids": np.repeat(np.arange(batch), nodes_per).astype(np.int32),
+        "labels": rng.integers(0, n_classes, size=batch).astype(np.int32),
+        "n_graphs": batch,
     }

@@ -283,8 +283,8 @@ def _probe_pass(tp: TermPostings, chunk: np.ndarray, *, impact: int,
                                stats=stats, use_skip=use_skip,
                                weights=weights, touched=touched)
         if sp and stats is not None:
-            sp.set(blocks_decoded=stats.blocks_decoded - b0,
-                   ints_decoded=stats.ints_decoded - i0)
+            sp.attrs.update(blocks_decoded=stats.blocks_decoded - b0,
+                            ints_decoded=stats.ints_decoded - i0)
         return out
 
 
@@ -407,8 +407,8 @@ def _merge_pass(tp: TermPostings, chunk: np.ndarray, *, impact: int,
                                stats=stats, weights=weights,
                                touched=touched)
         if sp and stats is not None:
-            sp.set(blocks_decoded=stats.blocks_decoded - b0,
-                   ints_decoded=stats.ints_decoded - i0)
+            sp.attrs.update(blocks_decoded=stats.blocks_decoded - b0,
+                            ints_decoded=stats.ints_decoded - i0)
         return out
 
 
@@ -471,8 +471,8 @@ def _score_term(tp: TermPostings, base_impact: int, cand: np.ndarray,
                          probe_width=probe_width, plan=plan, stats=stats,
                          touched=touched)
         if sp and stats is not None:
-            sp.set(blocks_decoded=stats.blocks_decoded - b0,
-                   ints_decoded=stats.ints_decoded - i0)
+            sp.attrs.update(blocks_decoded=stats.blocks_decoded - b0,
+                            ints_decoded=stats.ints_decoded - i0)
 
 
 def _score_term_impl(tp: TermPostings, base_impact: int, cand: np.ndarray,

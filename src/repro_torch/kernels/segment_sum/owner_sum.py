@@ -15,6 +15,16 @@ card; for tensors on the CPU it computes the same function with
 version. :func:`segments` and :func:`segments_from_owners` prepare the
 CSR layout once (plain torch): row offsets and, on the card, the owners
 ordered longest first.
+
+Gradients: where grad is enabled and ``h`` requires it, :func:`owner_sum`
+runs as a ``torch.autograd.Function`` whose backward is the same kernel
+over the transposed grouping (:func:`segments_by_source`, built once per
+forward): ``grad_h[u] = Σ_{e: src[e] = u, e valid} grad_out[owner(e)]``,
+``u``'s edges in edge order (the order in which the reference's
+scatter-add, the transpose of its gather, adds on the CPU), summed in the
+forward's accumulate type and cast to ``h``'s. No atomics: the same bits
+on every run. Forward launches count in ``launches``, backward ones in
+``backward_launches``.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ MAX_UNITS = 256  # 16-byte (or narrower) feature units per launch
 ACCUMULATE = (torch.float32, torch.bfloat16)
 
 launches = LaunchCounter()
+backward_launches = LaunchCounter()
 
 
 @dataclass(frozen=True)
@@ -76,6 +87,38 @@ def segments_from_owners(owner: torch.Tensor, n_owners: int
     ro = torch.zeros(n_owners + 1, dtype=torch.int64, device=owner.device)
     ro[1:] = counts.cumsum(0)
     return perm, segments(ro)
+
+
+def segments_by_source(src: torch.Tensor, owner: torch.Tensor, n_nodes: int,
+                       edge_valid: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, Segments]:
+    """The transposed grouping that :func:`owner_sum`'s backward sums over:
+    ``(tsrc, tseg)``, the valid edges grouped by source row (``n_nodes``
+    rows, one a row of ``h``), each source's edges in their given order
+    (one stable sort), and ``tsrc`` (int32) the owner of each. Masked
+    edges (``edge_valid`` False, ``src`` < 0, or ``owner`` < 0: an edge
+    of no owner) are left out: they sort past every row, where ``tseg``'s
+    offsets never reach. No host synchronisation."""
+    src = src.reshape(-1)
+    keep = (src >= 0) & (owner.reshape(-1) >= 0)
+    if edge_valid is not None:
+        keep = keep & edge_valid.reshape(-1)
+    key = torch.where(keep, src.to(torch.int64), n_nodes)
+    perm = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=n_nodes + 1)[:n_nodes]
+    ro = torch.zeros(n_nodes + 1, dtype=torch.int64, device=src.device)
+    ro[1:] = counts.cumsum(0)
+    tsrc = owner.reshape(-1).to(torch.int32)[perm].contiguous()
+    return tsrc, segments(ro)
+
+
+def _csr_owners(seg: Segments, n_edges: int) -> torch.Tensor:
+    """int32 ``[n_edges]``: the owner of each edge of ``seg``, -1 past its
+    last offset."""
+    ro = seg.row_offsets.to(torch.int64)
+    e = torch.arange(n_edges, dtype=torch.int64, device=ro.device)
+    own = torch.searchsorted(ro, e, right=True) - 1
+    return torch.where(own < seg.n_owners, own, -1).to(torch.int32)
 
 
 def _check(h, src, seg, edge_valid, accumulate):
@@ -160,7 +203,9 @@ def _gran(h: torch.Tensor) -> int:
 
 def owner_sum(h: torch.Tensor, src: torch.Tensor, seg: Segments,
               edge_valid: torch.Tensor | None = None, *,
-              accumulate=torch.float32) -> torch.Tensor:
+              accumulate=torch.float32,
+              by_source: tuple[torch.Tensor, Segments] | None = None
+              ) -> torch.Tensor:
     """``[n_owners, d]`` in ``accumulate``'s type: the sum of ``h[src[e]]``
     over each owner's valid edges, in edge order.
 
@@ -173,6 +218,39 @@ def owner_sum(h: torch.Tensor, src: torch.Tensor, seg: Segments,
     feature units on the current stream, no synchronisation.
     """
     _check(h, src, seg, edge_valid, accumulate)
+    if torch.is_grad_enabled() and h.requires_grad:
+        if by_source is None:
+            by_source = segments_by_source(
+                src, _csr_owners(seg, src.numel()), h.shape[0], edge_valid)
+        if by_source[1].n_owners != h.shape[0]:
+            raise ValueError(f"by_source groups {by_source[1].n_owners} "
+                             f"rows, h has {h.shape[0]}")
+        return _OwnerSum.apply(h, src, seg, edge_valid, accumulate,
+                               by_source)
+    return _owner_sum(h, src, seg, edge_valid, accumulate, launches)
+
+
+class _OwnerSum(torch.autograd.Function):
+    """owner_sum, differentiable in ``h``: the backward is owner_sum of the
+    output's gradient over the transposed grouping."""
+
+    @staticmethod
+    def forward(ctx, h, src, seg, edge_valid, accumulate, by_source):
+        ctx.h_dtype, ctx.accumulate, ctx.by_source = (h.dtype, accumulate,
+                                                      by_source)
+        return _owner_sum(h, src, seg, edge_valid, accumulate, launches)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        tsrc, tseg = ctx.by_source
+        grad = _owner_sum(grad_out.contiguous(), tsrc, tseg, None,
+                          ctx.accumulate, backward_launches)
+        return grad.to(ctx.h_dtype), None, None, None, None, None
+
+
+def _owner_sum(h, src, seg, edge_valid, accumulate, launch_count):
+    """The sum itself: the plain version on the CPU, else the kernel's
+    launches, each counted in ``launch_count``."""
     if not h.is_cuda:
         return owner_sum_plain(h, src, seg.row_offsets, edge_valid,
                                accumulate=accumulate)
@@ -209,5 +287,5 @@ def owner_sum(h: torch.Tensor, src: torch.Tensor, seg: Segments,
                 out.data_ptr() + c0 * out.element_size(), d,
                 int(accumulate == torch.bfloat16), counter.data_ptr(),
                 stream)
-            launches.bump()
+            launch_count.bump()
     return out

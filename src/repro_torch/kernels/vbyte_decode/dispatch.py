@@ -28,8 +28,11 @@ Telemetry (``repro_torch.obs``): every :func:`decode` call bumps
 ``decode_calls_total{plan, format, epilogue}`` once and runs inside one
 ``decode`` span (``format``, ``plan`` — the plan's :attr:`DecodePlan.label`
 — ``epilogue``, ``blocks``, ``chunk``, ``sharded``), a call that kernel
-2's limits split across launches included. With nothing installed each
-costs one global read.
+2's limits split across launches included. The span is the call's only
+record: the counter is added from it when the registry is read
+(``obs.counted_trace``), the same counts as the reference's bump per
+call.
+With nothing installed it costs one global read.
 """
 from __future__ import annotations
 
@@ -38,10 +41,11 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.obs import counter_inc as _obs_counter_inc
-from repro_torch.obs import trace as _obs_trace
+from repro_torch.obs import counted_trace as _obs_counted_trace
 
 from . import epilogues as eplib
+
+_DECODE_COUNT = ("decode_calls_total", ("plan", "format", "epilogue"))
 from .binpack_kernel import binpack_decode_blocked_cuda
 from .kernel import vbyte_decode_blocked_cuda
 from .ops import normalize_block_meta, normalize_counts_bases
@@ -188,10 +192,10 @@ def decode(
     p = resolve_plan(plan, device=counts.device)
     kw = dict(format=format, block_size=block_size, differential=differential)
 
-    _obs_counter_inc("decode_calls_total", plan=p.label, format=format,
-                     epilogue=epilogue)
-    with _obs_trace("decode", format=format, plan=p.label, epilogue=epilogue,
-                    blocks=int(nb), chunk=p.chunk, sharded=False):
+    # one record a call: the span is also decode_calls_total's increment
+    with _obs_counted_trace("decode", _DECODE_COUNT, format=format,
+                            plan=p.label, epilogue=epilogue, blocks=int(nb),
+                            chunk=p.chunk, sharded=False):
         if epilogue == "stream":
             return _decode_grid(operands, plan=p, **kw)
         if p.fused and p.path == "cuda":

@@ -517,9 +517,10 @@ class SearchEngine:
                             _obs_counter_inc("serve_deadline_hits_total",
                                              where=where, engine="search")
                 if rspan:
-                    rspan.set(mode_effective=eff, degraded=qst.degraded,
-                              n_results=int(len(out[0]) if isinstance(
-                                  out, tuple) else len(out)))
+                    rspan.attrs.update(
+                        mode_effective=eff, degraded=qst.degraded,
+                        n_results=int(len(out[0]) if isinstance(out, tuple)
+                                      else len(out)))
                 if stats is not None:
                     stats.merge(qst)
             return out

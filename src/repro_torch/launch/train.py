@@ -1,0 +1,134 @@
+"""Training launcher of the port.
+
+Assembles an architecture's config (registry), its train step, a
+synthetic data source, checkpoint and restart, and straggler detection,
+on one card (the reference's launcher also builds a device mesh; one
+card has none). Only the GNN family trains so far (ROADMAP queue 1 item
+14)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
+        --steps 20 --reduced --device cpu
+
+``--reduced`` trains the reduced config on the reference's batch (a
+256-node, 2,048-edge ``random_graph``). Without it, the config is the
+full one at the architecture's first shape, and the batch is the one
+that config needs: for gin-tu, ``full_graph_sm``'s node and edge counts,
+its adjacency compressed (``data/graph.compress_adjacency``) because the
+shape asks for compressed adjacency. (The reference's launcher gives that
+config the raw 256-node batch, which lacks the compressed fields: a
+deviation of the reference, ROADMAP queue 3, not carried over.)
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.convert import gnn_train_state_from_tree, gnn_train_state_tree
+from repro_torch.ft import StragglerDetector
+from repro_torch.models import registry
+from repro_torch.train import OptimizerConfig, init_train_state, make_train_step
+
+REDUCED_NODES, REDUCED_EDGES = 256, 2048  # the reference's reduced batch
+
+
+def make_batch_fn(arch: str, cfg, shape, rng, device):
+    """The host data source: ``step -> batch`` of tensors on ``device``.
+    ``shape`` None is the reduced batch; else a ``ShapeDef`` whose node
+    and edge counts the graph takes."""
+    fam = registry.family_of(arch)
+    if fam != "gnn":
+        raise NotImplementedError(f"training the {fam!r} family is not "
+                                  "ported yet (ROADMAP queue 1 item 14)")
+    from repro_torch.data.synthetic import random_graph
+
+    n, e = ((REDUCED_NODES, REDUCED_EDGES) if shape is None else
+            (shape.dims["n_nodes"], shape.dims["n_edges"]))
+    g = random_graph(rng, n, e, cfg.d_feat, cfg.n_classes)
+    batch = {"feats": torch.as_tensor(g["feats"], device=device),
+             "labels": torch.as_tensor(g["labels"], device=device),
+             "label_mask": torch.ones(n, dtype=torch.bool, device=device)}
+    if cfg.compressed_adjacency:
+        from repro_torch.data.graph import compress_adjacency
+        from repro_torch.data.sampler import CSRGraph
+
+        csr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], n)
+        comp = compress_adjacency(csr, device=device)
+        batch.update({k: v for k, v in comp.items() if not k.startswith("_")})
+    else:
+        batch.update(edge_src=torch.as_tensor(g["edge_src"], device=device),
+                     edge_dst=torch.as_tensor(g["edge_dst"], device=device))
+    return lambda step: batch
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced config on the reference's small batch")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--peak-lr", type=float, default=3e-4)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    fam = registry.family_of(args.arch)
+    init = registry._family_init(fam)
+    shape = None
+    if args.reduced:
+        cfg = registry.reduced_config(args.arch)
+    else:
+        name = list(registry.shapes_of(args.arch))[0]
+        shape = registry.shapes_of(args.arch)[name]
+        cfg = registry.resolve_config(args.arch, name)
+    from repro_torch.models.gnn import loss_fn
+
+    rng = np.random.default_rng(0)
+    opt = OptimizerConfig(peak_lr=args.peak_lr, warmup_steps=5,
+                          total_steps=args.steps)
+    state = init_train_state(init(cfg, seed=0, device=dev),
+                             grad_compression=args.grad_compression)
+    step_fn = make_train_step(lambda p, b: loss_fn(p, b, cfg), opt,
+                              grad_compression=args.grad_compression)
+
+    mgr = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+    start = 0
+    if mgr is not None:
+        restored, at = mgr.restore_latest(gnn_train_state_tree(state))
+        if restored is not None:
+            state = gnn_train_state_from_tree(restored, cfg, device=dev)
+            start = at + 1
+            print(f"[resume] from step {at}")
+
+    det = StragglerDetector()
+    batch_fn = make_batch_fn(args.arch, cfg, shape, rng, dev)
+    losses = {}
+    t0 = time.time()
+    for step in range(start, args.steps):
+        state, metrics = step_fn(state, batch_fn(step))
+        det.heartbeat("host0", step)
+        losses[step] = float(metrics["loss"])
+        if step % 5 == 0 or step == args.steps - 1:
+            print(f"step {step:>4} loss={losses[step]:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f}")
+        if mgr is not None and step and step % args.ckpt_every == 0:
+            mgr.save(step, gnn_train_state_tree(state), async_=True)
+    stragglers = det.stragglers()
+    if mgr is not None:
+        mgr.wait()
+        mgr.save(args.steps - 1, gnn_train_state_tree(state))
+    dt = (time.time() - t0) / max(args.steps - start, 1)
+    print(f"done: {dt*1e3:.1f} ms/step, stragglers={stragglers}")
+    return {"start": start, "losses": losses, "state": state}
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,10 @@ VByte-compressed adjacency decoded on the card. A batch is a dict of
 tensors: ``feats [N, d_feat]``, ``labels``, optional ``label_mask``
 ``[N]`` (node task) or ``graph_ids [N]`` (graph task), ``edge_valid
 [E]``, and either ``edge_src``/``edge_dst [E]`` or the fields of
-``repro_torch.data.graph.compress_adjacency``. Inference only: the
-optimizer step waits for the training stack (ROADMAP queue 1 item 14).
+``repro_torch.data.graph.compress_adjacency``. ``loss_fn`` is
+differentiable in the parameters (``repro_torch.train.make_train_step``):
+where they require grad, each forward also groups its edges by source
+once, for the aggregation's backward.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels.segment_sum import (owner_sum, segments,
+                                             segments_by_source,
                                              segments_from_owners)
 from repro_torch.nn import layers as nnl
 from repro_torch.nn.gnn import (GINLayer, decode_compressed_edges, gin_layer,
@@ -55,6 +58,16 @@ class GIN(nn.Module):
         self.head_w = nnl._param(head_w)
         self.head_b = nnl._param(head_b)
 
+    def tree(self) -> dict:
+        """The parameters under the reference's tree paths:
+        ``layers/gin_i/{eps, mlp1/w, b1, mlp2/w, b2}`` and ``head/{w, b}``
+        (``repro_torch.tree.flatten`` gives them in its leaf order)."""
+        return {"layers": {f"gin_{i}": {"eps": g.eps, "mlp1": {"w": g.mlp1},
+                                        "b1": g.b1, "mlp2": {"w": g.mlp2},
+                                        "b2": g.b2}
+                           for i, g in enumerate(self.layers)},
+                "head": {"w": self.head_w, "b": self.head_b}}
+
 
 def init_params(cfg: GNNConfig, *, generator: torch.Generator | None = None,
                 seed: int = 0, device=None) -> GIN:
@@ -70,21 +83,29 @@ def init_params(cfg: GNNConfig, *, generator: torch.Generator | None = None,
                torch.zeros(cfg.n_classes, device=generator.device))
 
 
-def _edges_from_batch(batch, cfg: GNNConfig, n_nodes: int):
-    """``(src, segments, edge_valid)``: the edges grouped by owner (the
-    node that receives the message), each owner's edges in batch order."""
+def _edges_from_batch(batch, cfg: GNNConfig, n_nodes: int, *, grad: bool):
+    """``(src, segments, edge_valid, by_source)``: the edges grouped by
+    owner (the node that receives the message), each owner's edges in
+    batch order; with ``grad``, also grouped by source, each source's
+    edges in batch order (the order of the reference's scatter-add in its
+    backward), else ``None``."""
     edge_valid = batch.get("edge_valid")
     if cfg.compressed_adjacency:
         n_edges = batch["edge_valid"].shape[0]  # edge capacity
         # CSR order already: (neighbor = src of the message, list owner)
-        nbr, _ = decode_compressed_edges(
+        nbr, owner = decode_compressed_edges(
             batch["gaps"], batch["row_offsets"], n_edges,
             row_gap_bases=batch.get("row_gap_bases"), plan=cfg.decode_plan)
-        return nbr, segments(batch["row_offsets"].to(nbr.device)), edge_valid
+        by = (segments_by_source(nbr, owner, n_nodes, edge_valid)
+              if grad else None)
+        return (nbr, segments(batch["row_offsets"].to(nbr.device)),
+                edge_valid, by)
     # raw edges: one stable sort by owner per forward
-    perm, seg = segments_from_owners(batch["edge_dst"], n_nodes)
-    src = batch["edge_src"].to(torch.int32)[perm]
-    return src, seg, None if edge_valid is None else edge_valid[perm]
+    src, dst = batch["edge_src"].to(torch.int32), batch["edge_dst"]
+    perm, seg = segments_from_owners(dst, n_nodes)
+    by = segments_by_source(src, dst, n_nodes, edge_valid) if grad else None
+    return (src[perm], seg, None if edge_valid is None else edge_valid[perm],
+            by)
 
 
 def forward(params: GIN, batch, cfg: GNNConfig, *,
@@ -92,19 +113,26 @@ def forward(params: GIN, batch, cfg: GNNConfig, *,
     """Per-node logits ``[N, C]`` (node task) or per-graph ``[G, C]``,
     float32."""
     agg_dtype = torch.bfloat16 if cfg.agg_dtype == "bf16" else torch.float32
+    grad = torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in params.parameters())
     h = batch["feats"].to(dtype)
     n_nodes = h.shape[0]
-    src, seg, edge_valid = _edges_from_batch(batch, cfg, n_nodes)
+    src, seg, edge_valid, by = _edges_from_batch(batch, cfg, n_nodes,
+                                                 grad=grad)
     if edge_valid is not None:  # masked edges as source -1, once per forward
         src = torch.where(edge_valid, src, -1)
     for layer in params.layers:
-        h = gin_layer(layer, h, src, seg, dtype=dtype, agg_dtype=agg_dtype)
+        h = gin_layer(layer, h, src, seg, dtype=dtype, agg_dtype=agg_dtype,
+                      by_source=by)
     if cfg.task == "graph":
         # sum-pool readout per graph (n_graphs = the label count), in h's
         # type, rounded after every add as the reference's segment_sum
-        perm, gseg = segments_from_owners(batch["graph_ids"],
-                                          batch["labels"].shape[0])
-        h = owner_sum(h, perm.to(torch.int32), gseg, accumulate=h.dtype)
+        gids = batch["graph_ids"]
+        perm, gseg = segments_from_owners(gids, batch["labels"].shape[0])
+        nodes = torch.arange(n_nodes, dtype=torch.int32, device=h.device)
+        h = owner_sum(h, perm.to(torch.int32), gseg, accumulate=h.dtype,
+                      by_source=(segments_by_source(nodes, gids, n_nodes)
+                                 if grad else None))
     logits = h @ params.head_w.to(dtype) + params.head_b.to(dtype)
     return logits.float()
 

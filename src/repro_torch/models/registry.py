@@ -1,10 +1,11 @@
 """Architecture registry of the port: configs and shape resolution.
 
 The port of the two-tower and gin-tu parts of ``repro/models/registry.py``
-(``family_of``, ``resolve_config``, ``reduced_config``). The LM and the
-other recsys architectures wait for the model stack (ROADMAP queue 1
-item 14); asking for them raises ``NotImplementedError``. Abstract
-inputs, shardings and step functions are mesh/XLA tools with no
+(``family_of``, ``resolve_config``, ``reduced_config``, and the GNN
+family's ``_family_init`` for training). The LM and the other recsys
+architectures, and recsys training, wait for the model stack (ROADMAP
+queue 1 item 14); asking for them raises ``NotImplementedError``.
+Abstract inputs, shardings and step functions are mesh/XLA tools with no
 counterpart on one card.
 """
 from __future__ import annotations
@@ -57,6 +58,17 @@ def resolve_config(arch_id: str, shape_name: str, *, overrides=None):
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def _family_init(fam: str):
+    """The family's ``init_params(cfg, *, seed, device)`` for a train state:
+    the GNN family's only."""
+    if fam == "gnn":
+        from repro_torch.models import gnn
+
+        return gnn.init_params
+    raise NotImplementedError(f"training the {fam!r} family is not ported "
+                              "yet (ROADMAP queue 1 item 14)")
 
 
 def reduced_config(arch_id: str):

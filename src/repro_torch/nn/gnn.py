@@ -4,7 +4,9 @@ adjacency.
 The port of ``repro/nn/gnn.py``. Each node's incoming messages are
 summed by ``kernels.segment_sum.owner_sum`` over edges grouped by owner
 (CSR order), in edge order: the reference's ``segment_sum`` order, the
-same bits on every run, and no ``[E, d]`` message tensor. Adjacency
+same bits on every run, and no ``[E, d]`` message tensor; its backward
+sums each node's gradients over the edges grouped by source, built once
+per forward (``segments_by_source``). Adjacency
 arrives as raw ``(src, dst)``, grouped once per forward
 (``segments_from_owners``), or as a VByte-compressed gap stream decoded
 on the device by :func:`decode_compressed_edges`, already in CSR order.
@@ -38,9 +40,11 @@ class GINLayer(nn.Module):
         self.b2 = _param(b2)
 
     def forward(self, h, src, seg: Segments, *, edge_valid=None,
-                dtype=DEFAULT_COMPUTE_DTYPE, agg_dtype=torch.float32):
+                dtype=DEFAULT_COMPUTE_DTYPE, agg_dtype=torch.float32,
+                by_source=None):
         return gin_layer(self, h, src, seg, edge_valid=edge_valid,
-                         dtype=dtype, agg_dtype=agg_dtype)
+                         dtype=dtype, agg_dtype=agg_dtype,
+                         by_source=by_source)
 
 
 def gin_layer_init(d_in: int, d_out: int, *,
@@ -55,14 +59,17 @@ def gin_layer_init(d_in: int, d_out: int, *,
 
 def gin_layer(params: GINLayer, h: torch.Tensor, src: torch.Tensor,
               seg: Segments, *, edge_valid: torch.Tensor | None = None,
-              dtype=DEFAULT_COMPUTE_DTYPE,
-              agg_dtype=torch.float32) -> torch.Tensor:
+              dtype=DEFAULT_COMPUTE_DTYPE, agg_dtype=torch.float32,
+              by_source=None) -> torch.Tensor:
     """One GIN layer over edges grouped by owner: ``src`` int32 ``[E]`` in
-    CSR order, ``seg`` their :class:`Segments` (one per node).
+    CSR order, ``seg`` their :class:`Segments` (one per node), and
+    ``by_source`` the same edges grouped by source (``segments_by_source``)
+    for the aggregation's backward where ``h`` requires grad.
     ``agg_dtype`` is the message/aggregation precision: ``h`` is gathered
     in its own type and summed in ``agg_dtype`` (the reference gathers,
     then casts: the same values)."""
-    agg = owner_sum(h, src, seg, edge_valid, accumulate=agg_dtype)
+    agg = owner_sum(h, src, seg, edge_valid, accumulate=agg_dtype,
+                    by_source=by_source)
     scale = (1.0 + params.eps).to(agg_dtype)
     x = (scale * h.to(agg_dtype) + agg).to(dtype)
     x = torch.relu(x @ params.mlp1.to(dtype) + params.b1.to(dtype))

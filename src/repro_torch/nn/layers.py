@@ -61,7 +61,8 @@ def embedding_lookup(emb: torch.Tensor, ids: torch.Tensor, *,
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # inference only in this port so far: no gradients are tracked
+    # no gradients are tracked until a train state takes the parameters
+    # (repro_torch.train.init_train_state)
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -33,6 +33,7 @@ from .trace import (  # noqa: F401
     Span,
     Telemetry,
     Tracer,
+    counted_trace,
     counter_inc,
     current,
     gauge_set,

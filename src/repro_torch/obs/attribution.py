@@ -53,7 +53,12 @@ def attribute_kernels(events: list, spans: list, *, range_name="decode"):
     outside every range), ``mismatched`` (inside a range whose span names
     another format or epilogue; up to 10 examples under ``examples``),
     ``other_kernels`` (kernels that are not the port's: PyTorch's own),
-    ``ranges`` and ``spans`` (the two counts, which must agree).
+    ``ranges`` and ``spans`` (the two counts, which must agree), and, to
+    tell a trace that lost a kernel's record from a launch that never
+    reached the card: ``range_launches`` (runtime or driver launch calls
+    inside a ``range_name`` range), ``launches_without_kernel`` (those
+    whose correlation id has no kernel record) and ``lost_at`` (their
+    ordinals among ``range_launches``, in time order, up to 10).
     """
     ranges = sorted((e for e in events if e.get("ph") == "X"
                      and e.get("name") == range_name
@@ -67,14 +72,40 @@ def attribute_kernels(events: list, spans: list, *, range_name="decode"):
             corr = (e.get("args") or {}).get("correlation")
             if corr is not None:
                 launches[corr] = e
-    by_tid: dict = {}  # tid -> (range indices, their start times)
+    # tid -> (range indices, their start times, the latest end among the
+    # ranges started so far: no earlier range can hold a later launch)
+    by_tid: dict = {}
     for i, r in enumerate(ranges):
-        idx, starts = by_tid.setdefault(r.get("tid"), ([], []))
+        idx, starts, reach = by_tid.setdefault(r.get("tid"), ([], [], []))
         idx.append(i)
         starts.append(r["ts"])
+        end = r["ts"] + r.get("dur", 0)
+        reach.append(max(end, reach[-1]) if reach else end)
     out = {"kernels": 0, "attributed": 0, "outside": 0, "mismatched": 0,
            "other_kernels": 0, "ranges": len(ranges), "spans": len(recs),
            "by_kernel": {}, "examples": []}
+
+    def owner_of(launch):
+        """The innermost range holding the launch: the latest-starting one
+        that has not ended yet."""
+        idx, starts, reach = by_tid.get(launch.get("tid"), ([], [], []))
+        ts = launch["ts"]
+        j = bisect.bisect_right(starts, ts) - 1
+        while j >= 0 and reach[j] >= ts:
+            r = ranges[idx[j]]
+            if r["ts"] <= ts <= r["ts"] + r.get("dur", 0):
+                return idx[j]
+            j -= 1
+        return None
+
+    kernel_corrs = {(e.get("args") or {}).get("correlation") for e in events
+                    if e.get("cat") == "kernel"}
+    in_ranges = sorted((ln for ln in launches.values()
+                        if owner_of(ln) is not None), key=lambda e: e["ts"])
+    lost = [i for i, ln in enumerate(in_ranges)
+            if ln["args"]["correlation"] not in kernel_corrs]
+    out.update(range_launches=len(in_ranges),
+               launches_without_kernel=len(lost), lost_at=lost[:10])
     for e in events:
         if e.get("cat") != "kernel":
             continue
@@ -86,18 +117,7 @@ def attribute_kernels(events: list, spans: list, *, range_name="decode"):
         key = f"{ids[0]}/{ids[1]}"
         out["by_kernel"][key] = out["by_kernel"].get(key, 0) + 1
         launch = launches.get((e.get("args") or {}).get("correlation"))
-        owner = None
-        if launch is not None:
-            idx, starts = by_tid.get(launch.get("tid"), ([], []))
-            j = bisect.bisect_right(starts, launch["ts"]) - 1
-            # the innermost range holding the launch: the latest-starting
-            # one that has not ended yet
-            while j >= 0:
-                r = ranges[idx[j]]
-                if r["ts"] <= launch["ts"] <= r["ts"] + r.get("dur", 0):
-                    owner = idx[j]
-                    break
-                j -= 1
+        owner = None if launch is None else owner_of(launch)
         if owner is None:
             out["outside"] += 1
             continue

@@ -38,6 +38,7 @@ def _fmt_labels(lkey: tuple, extra: tuple = ()) -> str:
 
 def prometheus_text(registry: MetricsRegistry) -> str:
     lines: list[str] = []
+    registry._sync()
     with registry._lock:
         items = sorted(registry._metrics.items())
     seen_help = set()

@@ -188,6 +188,13 @@ class MetricsRegistry:
         # the lock after a series' first touch (dict reads are GIL-atomic)
         self._fast: dict[tuple, Counter | Gauge | Histogram] = {}
         self.events: list[dict] = []
+        # callables that add pending counts before the registry is read
+        # (a Telemetry's tracer: its counted_trace spans)
+        self._sources: list = []
+
+    def _sync(self):
+        for add in self._sources:
+            add(self)
 
     def _get(self, kind, name: str, labels: dict):
         # the fast key keeps the call site's label order (no sort): a site
@@ -211,6 +218,7 @@ class MetricsRegistry:
         return m
 
     def counter(self, name: str, **labels) -> Counter:
+        self._sync()
         return self._get(Counter, name, labels)
 
     def gauge(self, name: str, **labels) -> Gauge:
@@ -234,6 +242,8 @@ class MetricsRegistry:
         """Fold ``other`` in. Addition for counters/histograms (associative
         across any merge order), last-write for gauges, concatenation for
         events."""
+        other._sync()
+        self._sync()
         with other._lock:
             items = list(other._metrics.items())
             events = list(other.events)
@@ -247,6 +257,7 @@ class MetricsRegistry:
     # -- export --------------------------------------------------------------
     def snapshot(self) -> dict:
         """JSON-ready dump: ``{name{labels}: metric snapshot}`` + events."""
+        self._sync()
         with self._lock:
             items = list(self._metrics.items())
             events = list(self.events)

@@ -71,15 +71,15 @@ class Span:
     stack and hands the tracer its record as a tuple (see
     :meth:`Tracer.spans`), so the tracer keeps no span object alive."""
 
-    __slots__ = ("tracer", "name", "attrs", "span_id", "parent_id",
-                 "trace_id", "t0", "dur", "_stack")
+    __slots__ = ("tracer", "name", "attrs", "count", "span_id",
+                 "parent_id", "trace_id", "t0", "_stack")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict,
+                 count=None):
         self.tracer = tracer
         self.name = name
         self.attrs = attrs
-        self.span_id = 0  # until opened (an event may still name it)
-        self.trace_id = 0
+        self.count = count  # (counter, label attrs): see counted_trace
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -117,7 +117,8 @@ class Span:
 
     def __exit__(self, exc_type, exc, tb):
         tr = self.tracer
-        self.dur = tr.clock() - self.t0
+        t0 = self.t0
+        dur = tr.clock() - t0
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
         st = self._stack
@@ -130,8 +131,8 @@ class Span:
         # read; until then a tuple stands for it, and the span object is
         # freed as its block ends (a capture holds one small object per
         # span for the garbage collector to walk, not a span with a stack)
-        tr._log.append((self.name, self.t0, self.dur, self.span_id,
-                        self.parent_id, self.trace_id, self.attrs))
+        tr._log.append((self.name, t0, dur, self.span_id, self.parent_id,
+                        self.trace_id, self.attrs, self.count))
         return False
 
 
@@ -157,7 +158,7 @@ class _AnnotatedSpan(Span):
 
 
 def _span_record(r: tuple) -> dict:
-    name, ts, dur, span_id, parent_id, trace_id, attrs = r
+    name, ts, dur, span_id, parent_id, trace_id, attrs, _ = r
     return {"type": "span", "name": name, "ts": ts, "dur": dur,
             "span_id": span_id, "parent_id": parent_id,
             "trace_id": trace_id, "attrs": attrs}
@@ -178,6 +179,7 @@ class Tracer:
         self.torch_annotations = torch_annotations
         self._log: list = []  # finished spans (tuples) and events, in order
         self._records: list[dict] = []  # _log's prefix as dict records
+        self._counted = 0  # _log's prefix added to counters (counted_trace)
         self._lock = threading.RLock()
         self._tls = threading.local()
         # itertools.count: thread-safe id allocation without taking a lock
@@ -208,10 +210,23 @@ class Tracer:
 
     # -- span lifecycle ------------------------------------------------------
     def _record_event(self, span: Span, name: str, attrs: dict):
+        # a span not yet opened has no ids: 0 names it
         self._log.append(
             {"type": "event", "name": name, "ts": self.clock(),
-             "span_id": span.span_id, "trace_id": span.trace_id,
-             "attrs": attrs})
+             "span_id": getattr(span, "span_id", 0),
+             "trace_id": getattr(span, "trace_id", 0), "attrs": attrs})
+
+    def _count_into(self, registry: MetricsRegistry):
+        """Add the :func:`counted_trace` spans closed since the last call to
+        ``registry``'s counters, one increment each."""
+        with self._lock:
+            log, start = self._log, self._counted
+            end = self._counted = len(log)
+        for r in log[start:end]:
+            if type(r) is tuple and r[7] is not None:
+                (counter, labels), attrs = r[7], r[6]
+                registry._get(Counter, counter,
+                              {k: attrs[k] for k in labels}).inc(1)
 
     def current(self) -> Span | _NullSpan:
         st = getattr(self._tls, "stack", None)
@@ -246,12 +261,15 @@ class Tracer:
 
 
 class Telemetry:
-    """Registry + tracer bundle sharing one clock — the unit of install."""
+    """Registry + tracer bundle sharing one clock — the unit of install.
+    The registry takes the counts of :func:`counted_trace`'s spans from
+    the tracer whenever it is read."""
 
     def __init__(self, *, clock=None, torch_annotations: bool = False):
         self.registry = MetricsRegistry(clock=clock)
         self.tracer = Tracer(clock=clock,
                              torch_annotations=torch_annotations)
+        self.registry._sources.append(self.tracer._count_into)
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +315,9 @@ def installed() -> Telemetry | None:
     return _ACTIVE
 
 
+_new = object.__new__
+
+
 def trace(name: str, **attrs):
     """Open a stage span — or return :data:`NULL_SPAN` when telemetry is off.
 
@@ -307,7 +328,33 @@ def trace(name: str, **attrs):
     if t is None:
         return NULL_SPAN
     tr = t.tracer
-    return tr._span(tr, name, attrs)
+    s = _new(tr._span)  # Span.__init__'s work without its call
+    s.tracer = tr
+    s.name = name
+    s.attrs = attrs
+    s.count = None
+    return s
+
+
+def counted_trace(name: str, count: tuple[str, tuple[str, ...]], **attrs):
+    """:func:`trace`, for a span that is also one increment of a counter on
+    every call: ``count`` is ``(counter, label attribute names)``. The
+    span is the call's one record; its counter, labelled by those of the
+    span's attributes, is added to the registry when the registry is read
+    (snapshot, exposition, merge, lookup): the same counts as a
+    ``counter_inc`` beside the span, for one site instead of two
+    (``dispatch.decode``: ``decode_calls_total`` by plan, format and
+    epilogue)."""
+    t = _ACTIVE
+    if t is None:
+        return NULL_SPAN
+    tr = t.tracer
+    s = _new(tr._span)
+    s.tracer = tr
+    s.name = name
+    s.attrs = attrs
+    s.count = count
+    return s
 
 
 def current():
@@ -319,11 +366,16 @@ def current():
 
 
 # the helpers below reach the registry's lookup directly: one call, the
-# labels dict passed as it is (they are the instrumented hot path)
+# labels dict passed as it is (they are the instrumented hot path); a
+# counter already touched is bumped in place, without a call
 def counter_inc(name: str, n=1, **labels):
     t = _ACTIVE
     if t is not None:
-        t.registry._get(Counter, name, labels).inc(n)
+        reg = t.registry
+        m = reg._fast.get((Counter, name, *labels.items()))
+        if m is None:
+            m = reg._get(Counter, name, labels)
+        m.value += n
 
 
 def gauge_set(name: str, v, **labels):

@@ -1,0 +1,102 @@
+"""AdamW + global-norm clipping + warm-up cosine schedule, from scratch.
+
+The port of ``repro/train/optimizer.py``: float32 master weights and
+moments, the update math in float32, clipping by the global norm of all
+gradients, weight decay inside the step, every operation in the
+reference's order so each rounds where the reference's does.
+``torch.optim.AdamW`` clips nowhere and folds the decay in another order,
+so it is not this function. Parameters and gradients are dicts of tensors
+keyed by path (:func:`repro_torch.train.param_leaves`), in the
+reference's leaf order. The update is in place (the reference returns new
+arrays).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    peak_lr: float = 3e-4
+    min_lr_frac: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up to ``peak_lr``, then cosine down to ``min_lr_frac``
+    of it at ``total_steps``: a float32 0-d tensor."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    frac = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.peak_lr * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5
+                         * (1 + torch.cos(math.pi * frac)))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params: dict) -> dict:
+    """Zero float32 moments ``m``, ``v`` per leaf and ``step`` 0 (int32)."""
+    some = next(iter(params.values()), None)
+    dev = some.device if some is not None else None
+    return {"m": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for k, p in params.items()},
+            "v": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """√(Σ over leaves of Σ x²), in float32, leaf sums in dict order."""
+    sums = [torch.sum(torch.square(x.to(torch.float32)))
+            for x in tree.values()]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+@torch.no_grad()
+def adamw_update(params: dict, grads: dict, opt_state: dict,
+                 cfg: OptimizerConfig):
+    """One AdamW step, in place on ``params`` and the moments: returns
+    ``(params, opt_state, metrics)`` with ``opt_state["step"]`` advanced
+    and ``metrics`` the global norm before clipping (``grad_norm``) and the
+    step's ``lr``. Multi-tensor (``torch._foreach_*``): a few launches for
+    all leaves, each operation rounded where the reference's is."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+    keys = list(params)
+    m = [opt_state["m"][k] for k in keys]
+    v = [opt_state["v"][k] for k in keys]
+    g = torch._foreach_mul([grads[k].to(torch.float32) for k in keys], scale)
+    torch._foreach_mul_(m, b1)  # m = b1·m + (1 − b1)·g
+    torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+    sq = torch._foreach_mul(g, g)  # v = b2·v + (1 − b2)·g²
+    torch._foreach_mul_(sq, 1 - b2)
+    torch._foreach_mul_(v, b2)
+    torch._foreach_add_(v, sq)
+    denom = torch._foreach_div(v, bc2)  # √(v / bc2) + eps
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, cfg.eps)
+    step_dir = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+    pf = [params[k].to(torch.float32) for k in keys]
+    upd = torch._foreach_mul(pf, cfg.weight_decay)  # lr·(dir + wd·p)
+    torch._foreach_add_(upd, step_dir)
+    torch._foreach_mul_(upd, lr)
+    torch._foreach_copy_([params[k] for k in keys],
+                         torch._foreach_sub(pf, upd))
+    opt_state["step"] = step
+    return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -949,6 +949,118 @@ def test_gin_forward_on_the_card_is_reproducible_and_exact(dev):
     assert float(((c - r).abs() / scale).max()) <= 2.0**-4
 
 
+def _backward_case(dev, rng, n_rows, n_owners, e, d, dtype, acc):
+    """h on the card requiring grad, edges whose sources follow a power law
+    (so the transposed grouping has rows past LONG_ROW), 10% masked,
+    grouped by owner; the forward through the Function."""
+    from repro_torch.kernels.segment_sum import (owner_sum,
+                                                 segments_by_source,
+                                                 segments_from_owners)
+
+    p = np.arange(1, n_rows + 1, dtype=np.float64) ** -1.0
+    src = rng.choice(n_rows, e, p=p / p.sum()).astype(np.int32)
+    dst = rng.integers(0, n_owners, e).astype(np.int32)
+    valid = rng.random(e) < 0.9
+    h = torch.tensor(rng.standard_normal((n_rows, d)).astype(np.float32),
+                     device=dev).to(dtype).requires_grad_(True)
+    perm, seg = segments_from_owners(torch.tensor(dst, device=dev), n_owners)
+    s_t = torch.tensor(src, device=dev)
+    v_t = torch.tensor(valid, device=dev)
+    by = segments_by_source(s_t, torch.tensor(dst, device=dev), n_rows, v_t)
+    out = owner_sum(h, s_t[perm], seg, v_t[perm], accumulate=acc,
+                    by_source=by)
+    g = torch.tensor(rng.standard_normal((n_owners, d)).astype(np.float32),
+                     device=dev).to(acc)
+    return h, out, g, by
+
+
+@pytest.mark.parametrize("d", [8, 64, 100])
+@pytest.mark.parametrize("h_dtype,acc", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_owner_sum_backward_matches_plain(dev, h_dtype, acc, d):
+    """The backward kernel (owner_sum over the edges grouped by source, the
+    top sources past LONG_ROW) against the plain version on the CPU over
+    the same grouping, bit for bit, then cast to h's type."""
+    from repro_torch.kernels.segment_sum import (LONG_ROW, backward_launches,
+                                                 owner_sum_plain)
+
+    rng = np.random.default_rng(d)
+    h, out, g, (tsrc, tseg) = _backward_case(dev, rng, 3000, 500, 200_000,
+                                              d, h_dtype, acc)
+    deg = (tseg.row_offsets[1:] - tseg.row_offsets[:-1]).cpu()
+    assert int(deg.max()) >= 2 * LONG_ROW
+    before = backward_launches.count
+    out.backward(g)
+    assert backward_launches.count > before
+    want = owner_sum_plain(g.cpu(), tsrc.cpu(), tseg.row_offsets.cpu(),
+                           accumulate=acc).to(h_dtype)
+    torch.cuda.synchronize()
+    view = torch.int16 if h_dtype == torch.bfloat16 else torch.int32
+    assert h.grad.dtype == h_dtype
+    assert torch.equal(h.grad.cpu().view(view), want.view(view))
+
+
+def test_owner_sum_backward_is_the_same_on_every_run(dev):
+    grads = []
+    for _ in range(2):
+        h, out, g, _ = _backward_case(dev, np.random.default_rng(31), 3000,
+                                      500, 200_000, 64, torch.bfloat16,
+                                      torch.float32)
+        out.backward(g)
+        grads.append(h.grad.view(torch.int16).clone())
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_gin_train_step_on_the_card_matches_the_cpu(dev):
+    """Three steps of ``make_train_step`` on the reduced GIN at float32
+    compute over compressed adjacency (kernel 2's adjacency_rebase, both
+    directions of owner_sum), against the same steps on the CPU (the plain
+    versions): losses and parameters within 1e-4 relative to each leaf's
+    largest |value| — the aggregation is bit-exact, but cuBLAS sums the
+    float32 products in another order and AdamW divides by √v."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data.graph import compress_adjacency
+    from repro_torch.data.sampler import CSRGraph
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.kernels import segment_sum
+    from repro_torch.models import gnn, registry
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   make_train_step, param_leaves)
+
+    rng = np.random.default_rng(4)
+    n, e = 3000, 40000
+    g = random_graph(rng, n, e, 12, 3)
+    csr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], n)
+    cfg = dataclasses.replace(registry.reduced_config("gin-tu"),
+                              compressed_adjacency=True, n_layers=3)
+    runs = {}
+    for where in ("cpu", dev):
+        comp = compress_adjacency(csr, device=where)
+        batch = {"feats": torch.as_tensor(g["feats"], device=where),
+                 "labels": torch.as_tensor(g["labels"], device=where),
+                 **{k: v for k, v in comp.items() if not k.startswith("_")}}
+        params = copy.deepcopy(gnn.init_params(cfg, seed=0, device="cpu")
+                               ).to(where)
+        state = init_train_state(params)
+        step = make_train_step(
+            lambda p, b: gnn.loss_fn(p, b, cfg, dtype=torch.float32),
+            OptimizerConfig(peak_lr=1e-2, warmup_steps=1, total_steps=3))
+        before = segment_sum.backward_launches.count
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(3)]
+        runs[str(where)] = (losses, {k: v.detach().cpu() for k, v in
+                                     param_leaves(state["params"]).items()},
+                            segment_sum.backward_launches.count - before)
+    (l_cpu, p_cpu, b_cpu), (l_dev, p_dev, b_dev) = runs["cpu"], runs["cuda"]
+    assert b_cpu == 0 and b_dev == 3 * (cfg.n_layers - 1)
+    np.testing.assert_allclose(l_dev, l_cpu, rtol=1e-4)
+    for k in p_cpu:
+        scale = float(p_cpu[k].abs().max()) or 1.0
+        assert float((p_cpu[k] - p_dev[k]).abs().max()) <= 1e-4 * scale, k
+
+
 # ---------------------------------------------------------------------------
 # kernels 1, 3 and 4 and kernel 2's row-aligned kernel: staged rows, every
 # layout, bit for bit

@@ -49,7 +49,7 @@ def _graph(seed, n, e):
 
 
 @pytest.mark.parametrize("seed,n,e", [(0, 80, 400), (1, 300, 2000),
-                                      (2, 40, 37)])
+                                      (2, 40, 37), (4, 7, 500)])
 def test_compress_adjacency_bytes_match_reference(seed, n, e):
     g, rcsr = _graph(seed, n, e)
     tcsr = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], n)

@@ -715,3 +715,27 @@ def test_attribute_kernels_on_a_synthetic_trace():
     assert got["ranges"] == got["spans"] == 2
     assert got["by_kernel"] == {"vbyte/stream": 2, "vbyte/bm25_accum": 1}
     assert got["examples"][0]["span"]["epilogue"] == "membership"
+
+
+def test_attribute_kernels_counts_launches_without_a_kernel_record():
+    """A launch call inside a ``decode`` range whose correlation id has no
+    kernel record (a trace that lost it) is counted with its ordinal
+    among the ranges' launches; launches outside every range are not."""
+    from repro_torch.obs.attribution import attribute_kernels
+
+    spans = [{"type": "span", "name": "decode", "ts": 1.0,
+              "attrs": {"format": "vbyte", "epilogue": "stream"}}]
+    events = [{"ph": "X", "cat": "user_annotation", "name": "decode",
+               "tid": 1, "ts": 10, "dur": 30}]
+    for ts, c in ((12, 1), (20, 2), (35, 3), (90, 4)):
+        events.append({"ph": "X", "cat": "cuda_runtime",
+                       "name": "cudaLaunchKernel", "tid": 1, "ts": ts,
+                       "dur": 1, "args": {"correlation": c}})
+    for c in (1, 3):
+        events.append({"ph": "X", "cat": "kernel", "tid": 7, "ts": 999,
+                       "name": "void vbyte_decode_kernel<16>(int)",
+                       "args": {"correlation": c}})
+    got = attribute_kernels(events, spans)
+    assert (got["kernels"], got["attributed"]) == (2, 2)
+    assert (got["range_launches"], got["launches_without_kernel"],
+            got["lost_at"]) == (3, 1, [1])

@@ -8,7 +8,12 @@ groups edges given in any order by owner with one stable sort
 (``segments_from_owners``) and sums each owner's edges in that order, so
 the two agree exactly — with raw edges in random order, masked edges,
 owners without edges, one owner of 10^5 edges and rows of ``h`` read
-through a view at an odd row offset."""
+through a view at an odd row offset.
+
+The backward (the same sum over the edges grouped by source) is held bit
+for bit at float32 against autograd through the plain version and
+against ``jax.grad`` of the reference's take + segment_sum, and the bf16
+readout's against ``jax.grad`` of its bf16 segment_sum."""
 import numpy as np
 import pytest
 import torch
@@ -17,7 +22,8 @@ import jax
 import jax.numpy as jnp
 
 from repro_torch.kernels.segment_sum import (owner_sum, owner_sum_plain,
-                                             segments, segments_from_owners)
+                                             segments, segments_by_source,
+                                             segments_from_owners)
 
 DT = {"f32": (torch.float32, jnp.float32),
       "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -150,3 +156,149 @@ def test_owner_sum_refuses_what_it_does_not_take():
         owner_sum(h, src.long(), seg)
     with pytest.raises(ValueError, match="edge_valid"):
         owner_sum(h, src, seg, torch.ones(2, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# the backward: owner_sum over the edges grouped by source
+# ---------------------------------------------------------------------------
+def _grad_case(rng, n_rows, n_owners, e, d, masked):
+    h = torch.tensor(_feats(rng, n_rows, d))
+    dst = torch.tensor(rng.integers(0, n_owners, e).astype(np.int32))
+    src = torch.tensor(rng.integers(0, n_rows, e).astype(np.int32))
+    src[rng.random(e) < 0.05] = -1  # masked by a negative source too
+    valid = torch.tensor(rng.random(e) < 0.8) if masked else None
+    perm, seg = segments_from_owners(dst, n_owners)
+    return h, src[perm], seg, None if valid is None else valid[perm]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_owners", [50, 400])  # 400: owners without edges
+def test_owner_sum_gradient_equals_autograd_through_plain(masked, n_owners):
+    """The Function's gradient in ``h`` (owner_sum over the transposed
+    grouping, each source's edges in edge order) equals autograd through
+    the plain version (``index_select`` then ``index_add_``, whose
+    backward adds in edge order too), bit for bit at float32; masked
+    edges and rows no edge reads get +0.0."""
+    rng = np.random.default_rng(21 + n_owners)
+    h, src, seg, valid = _grad_case(rng, 300, n_owners, 3000, 6, masked)
+    g = torch.tensor(_feats(rng, n_owners, 6))
+    grads = []
+    for fn in (lambda x: owner_sum(x, src, seg, valid),
+               lambda x: owner_sum_plain(x, src, seg.row_offsets, valid)):
+        x = h.clone().requires_grad_(True)
+        out = fn(x)
+        (out * g).sum().backward()
+        grads.append(x.grad)
+    _assert_bits_equal(grads[0].numpy(), grads[1].numpy())
+    unread = np.setdiff1d(np.arange(300), src[src >= 0].numpy())
+    assert not grads[0][unread].numpy().view(np.uint32).any()
+
+
+def test_owner_sum_gradient_with_a_given_transposed_grouping():
+    """``by_source`` built from the edges in their batch order (before the
+    sort by owner) sums each source's gradients in that order: equal to
+    the reference's backward (``jax.grad`` through take and segment_sum,
+    whose scatter-add adds in batch order) bit for bit."""
+    rng = np.random.default_rng(23)
+    n, e, d = 60, 5000, 4
+    h = _feats(rng, n, d)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    valid = rng.random(e) < 0.9
+    g = _feats(rng, n, d)
+
+    def ref_loss(x):
+        msgs = jnp.where(jnp.asarray(valid)[:, None],
+                         jnp.take(x, jnp.asarray(src), axis=0), 0)
+        out = jax.ops.segment_sum(msgs, jnp.asarray(dst), num_segments=n)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = np.asarray(jax.grad(ref_loss)(jnp.asarray(h)))
+    perm, seg = segments_from_owners(torch.tensor(dst), n)
+    by = segments_by_source(torch.tensor(src), torch.tensor(dst), n,
+                            torch.tensor(valid))
+    x = torch.tensor(h, requires_grad=True)
+    out = owner_sum(x, torch.tensor(src)[perm], seg,
+                    torch.tensor(valid)[perm], by_source=by)
+    (out * torch.tensor(g)).sum().backward()
+    _assert_bits_equal(x.grad.numpy(), want)
+
+
+def test_bf16_readout_gradient_matches_reference():
+    """The graph readout in bf16 (one edge per node, rounded after every
+    add): the gradient of each node is its graph's, as ``jax.grad`` of the
+    reference's bf16 segment_sum gives it, bit for bit."""
+    rng = np.random.default_rng(24)
+    n, G, d = 90, 7, 5
+    h = _feats(rng, n, d)
+    gids = np.sort(rng.integers(0, G, n)).astype(np.int32)
+    gids = rng.permutation(gids).astype(np.int32)
+    g = _feats(rng, G, d)
+
+    def ref_loss(x):
+        out = jax.ops.segment_sum(x.astype(jnp.bfloat16), jnp.asarray(gids),
+                                  num_segments=G)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(g))
+
+    want = np.asarray(jax.grad(ref_loss)(jnp.asarray(h).astype(jnp.bfloat16))
+                      .astype(jnp.float32))
+    x = torch.tensor(h).to(torch.bfloat16).requires_grad_(True)
+    perm, gseg = segments_from_owners(torch.tensor(gids), G)
+    out = owner_sum(x, perm.to(torch.int32), gseg, accumulate=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    (out.float() * torch.tensor(g)).sum().backward()
+    assert x.grad.dtype == torch.bfloat16
+    _assert_bits_equal(x.grad.float().numpy(), want)
+
+
+def test_no_backward_where_h_needs_no_gradient(monkeypatch):
+    """``h`` without grad (GIN's first layer gathers the input features):
+    nothing recorded for a backward. A 3-layer GIN's backward runs the sum
+    over the transposed grouping for layers 2 and 3 only, with one
+    transposed grouping for the whole forward."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.models import gnn as T
+    from repro_torch.models import registry
+
+    mod = importlib.import_module("repro_torch.kernels.segment_sum.owner_sum")
+    rng = np.random.default_rng(25)
+    h, src, seg, valid = _grad_case(rng, 40, 40, 300, 3, True)
+    with torch.enable_grad():
+        assert owner_sum(h, src, seg, valid).grad_fn is None
+        assert owner_sum(h.requires_grad_(True), src, seg,
+                         valid).grad_fn is not None
+    calls = {"forward": 0, "backward": 0}
+    real = mod._owner_sum
+
+    def spy(h, src, seg, edge_valid, accumulate, launch_count):
+        calls["backward" if launch_count is mod.backward_launches
+              else "forward"] += 1
+        return real(h, src, seg, edge_valid, accumulate, launch_count)
+
+    groupings = []
+    real_by = mod.segments_by_source
+
+    def spy_by(*a, **kw):
+        groupings.append(1)
+        return real_by(*a, **kw)
+
+    monkeypatch.setattr(mod, "_owner_sum", spy)
+    monkeypatch.setattr(T, "segments_by_source", spy_by)
+    cfg = dataclasses.replace(registry.reduced_config("gin-tu"), n_layers=3)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    for p in params.parameters():
+        p.requires_grad_(True)
+    n, e = 50, 400
+    batch = {"feats": torch.randn(n, cfg.d_feat),
+             "labels": torch.randint(0, cfg.n_classes, (n,)),
+             "edge_src": torch.randint(0, n, (e,), dtype=torch.int32),
+             "edge_dst": torch.randint(0, n, (e,), dtype=torch.int32)}
+    loss, _ = T.loss_fn(params, batch, cfg)
+    assert calls == {"forward": 3, "backward": 0} and len(groupings) == 1
+    loss.backward()
+    assert calls == {"forward": 3, "backward": 2}
+    with torch.no_grad():
+        T.loss_fn(params, batch, cfg)
+    assert len(groupings) == 1  # none without grad
