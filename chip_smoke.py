@@ -114,6 +114,28 @@ fault. One JSON line per phase:
    256 requests drained at most 8, 4, 2 and 1 at a time, then 64 bags
    through ``embed_bags``; every top-k and bag held against the plain
    engine's, 5 requests against scores computed on the host.
+   Path ``recsys`` — SASRec, BERT4Rec, BST and two-tower at full width
+   (their configs, parameters from ``--seed``), every launch count set
+   to 0 just before the path and read just after; per architecture:
+   serve_p99 (512 rows) through ``serve_scores``, p50 / p99 of 20 calls,
+   held against the plain attention's scores (within 2^-5 of the largest
+   |score|; two-tower equal); retrieval_cand (2^20 distinct sorted ids
+   of the table's rows, vbyte, differential, block 128, stride 256)
+   through ``retrieval_scores_compressed``: kernel 2's ``dot_score``
+   (SASRec, BERT4Rec) or kernel 1 then the towers (BST, two-tower), ids
+   bit for bit against ``plan="torch"``, scores within one bf16 ulp or
+   the f32 sums' rounding bound (the towers: equal), the top 100 equal
+   but for near-ties, launches per request; train_batch (65,536 rows,
+   kept whole) through ``make_train_step`` under deterministic
+   algorithms: one step's gradients within 2^-4 (relative L2 a leaf) of
+   the plain attention's (two-tower: its chunked loss against the whole
+   one at 8,192 rows), 4 AdamW steps (peak_lr 5e-3, BST 1e-4; losses
+   finite and falling, ms by forward / backward / AdamW, peak bytes), a
+   replay from a fresh init of the seed and (not two-tower, whose state
+   is ~34 GB) a restart from a checkpoint after step 1, bit for bit; the
+   SDPA backend PyTorch picked for serving and for training. Phase
+   ``parity_recsys_dot_score`` times ``dot_score`` at that retrieval
+   shape (bf16 d = 50 and 64).
 6. path ``gin`` — gin-tu at full width over an ogbn-products-sized graph
    made from ``--seed``, adjacency compressed: both decodes of
    ``decode_compressed_edges``, ``forward`` and ``loss_fn`` (GIN's
@@ -687,6 +709,7 @@ def phase_parity(np, torch, timer):
                          max_bf16_ulps=ulps)
     phase_gather(np, torch, timer, tables, queries, records, max_err)
     phase_dot_score_path(np, torch, timer, tables, queries, records, max_err)
+    phase_recsys_dot_score(np, torch, timer, records, max_err)
     phase_probe_path(np, torch, timer, records, max_err)
     return records, max_err
 
@@ -922,6 +945,48 @@ def phase_dot_score_path(np, torch, timer, tables, queries, records,
         rec["index_select_ms"] = gather_ms[tl]
         records["dot_score_path"][key] = rec
         emit("parity_dot_score_path", **rec)
+
+
+RECSYS_DOT_WIDTHS = {"sasrec": 50, "bert4rec": 64}  # bf16 item tables
+
+
+def phase_recsys_dot_score(np, torch, timer, records, max_err):
+    """``dot_score`` at the recsys path's retrieval_cand shape for SASRec
+    (bf16 d = 50: 100-byte rows, 4-byte copies, a padded mma k-step) and
+    BERT4Rec (bf16 d = 64): the whole item table ``[2^20 + 512, d]``,
+    2^20 distinct sorted candidate ids of its rows (vbyte, differential,
+    block 128, stride 256), one bf16 query row; held against the plain
+    version and timed beside the bound, the plain version and the unfused
+    chain (decode kernel, then index + einsum)."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.core import CompressedIntArray
+    from repro_torch.models import registry
+
+    dims = RECSYS_SHAPES["retrieval_cand"].dims
+    records["recsys_dot_score"] = {}
+    for arch, d in RECSYS_DOT_WIDTHS.items():
+        V = registry.resolve_config(arch, "retrieval_cand").vocab_rows
+        rng = np.random.default_rng(d)
+        ids = np.sort(rng.choice(np.arange(1, V, dtype=np.int64),
+                                 dims["n_candidates"], replace=False))
+        arr = CompressedIntArray.encode(
+            ids.astype(np.uint64), differential=True,
+            stride_multiple=dims["payload_stride"], device="cuda")
+        ops = arr.device_operands()
+        st = gather_stats(np, torch, "vbyte", ops, arr.payload_bytes, BLOCK,
+                          True)
+        g = torch.Generator(device="cuda").manual_seed(d)
+        table = (torch.randn(V, d, generator=g, device="cuda")
+                 * 0.02).to(torch.bfloat16)
+        query = torch.randn(1, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+        rec = time_gather(torch, timer, f"dot_score/bf16/d{d}/q1",
+                          "dot_score", {"table": table, "query": query},
+                          "bf16", ops, st, max_err)
+        rec.update(arch=arch, d=d, table_rows=V)
+        records["recsys_dot_score"][arch] = rec
+        emit("parity_recsys_dot_score", **rec)
+        del table, ops, arr
 
 
 def _gap_bytes(np, fmt: str, gaps, counts) -> int:
@@ -2966,15 +3031,18 @@ class _StepClock:
         return False
 
     def step_ms(self) -> dict:
-        """The last step's parts in ms (``mark("start")`` before it)."""
+        """The last step's parts in ms (``mark("start")`` before it); a
+        step that decodes nothing (the recsys models) has no ``decode``."""
         self.torch.cuda.synchronize()
         m = self.marks
-        out = {"decode": m["decode_start"].elapsed_time(m["decode_end"]),
-               "forward": (m["start"].elapsed_time(m["decode_start"])
-                           + m["decode_end"].elapsed_time(m["loss_end"])),
+        out = {"forward": m["start"].elapsed_time(m["loss_end"]),
                "backward": m["loss_end"].elapsed_time(m["opt_start"]),
                "optimizer": m["opt_start"].elapsed_time(m["end"]),
                "step": m["start"].elapsed_time(m["end"])}
+        if "decode_start" in m:
+            out["decode"] = m["decode_start"].elapsed_time(m["decode_end"])
+            out["forward"] = (m["start"].elapsed_time(m["decode_start"])
+                              + m["decode_end"].elapsed_time(m["loss_end"]))
         m.clear()
         return out
 
@@ -2996,10 +3064,10 @@ def _train_steps(torch, step_fn, state, batch, steps, clock=None,
 
 
 def _state_equal(torch, a: dict, b: dict) -> bool:
-    from repro_torch.convert import gnn_train_state_tree
+    from repro_torch.convert import train_state_tree
     from repro_torch.tree import flatten
 
-    fa, fb = (flatten(gnn_train_state_tree(x)) for x in (a, b))
+    fa, fb = (flatten(train_state_tree(x)) for x in (a, b))
     return [k for k, _ in fa] == [k for k, _ in fb] and all(
         x.dtype == y.dtype and torch.equal(x, y)
         for (_, x), (_, y) in zip(fa, fb))
@@ -3055,7 +3123,7 @@ def run_gin_train(np, torch, args, cfg, batch, comp, nbr, own) -> dict:
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.convert import (gnn_train_state_from_tree,
-                                     gnn_train_state_tree)
+                                     train_state_tree)
     from repro_torch.models import gnn
     from repro_torch.train import (OptimizerConfig, init_train_state,
                                    make_train_step, param_leaves)
@@ -3094,7 +3162,7 @@ def run_gin_train(np, torch, args, cfg, batch, comp, nbr, own) -> dict:
 
     def save(i, st):
         if i == GIN_CKPT_STEP:
-            mgr.save(i, gnn_train_state_tree(st))
+            mgr.save(i, train_state_tree(st))
 
     counters = _launch_counters()
     state = copy.deepcopy(state0)
@@ -3135,7 +3203,7 @@ def run_gin_train(np, torch, args, cfg, batch, comp, nbr, own) -> dict:
     del replay
     fresh = init_train_state(gnn.init_params(cfg, seed=args.seed + 2,
                                              device="cuda"))
-    tree, at = mgr.restore_latest(gnn_train_state_tree(fresh))
+    tree, at = mgr.restore_latest(train_state_tree(fresh))
     del fresh
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     resumed = gnn_train_state_from_tree(tree, cfg, device="cuda")
@@ -3403,6 +3471,445 @@ def time_gin_rebase(torch, timer, ops, extras, st) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path: recsys (SASRec, BERT4Rec, BST and two-tower at full width)
+# ---------------------------------------------------------------------------
+RECSYS_ARCHS = ("sasrec", "bert4rec", "bst", "two-tower-retrieval")
+RECSYS_SERVE_CALLS = 20  # serve_p99 batches timed per architecture
+RECSYS_RETRIEVAL_CALLS = 5  # retrieval_cand requests timed per architecture
+RECSYS_TOP_K = 100
+RECSYS_TRAIN_STEPS = 4
+RECSYS_CKPT_STEP = 1  # a checkpoint after step 1: the restart runs 2 and 3
+# AdamW's peak rate (warm-up 1), by kind: the reference's recsys test
+# takes 5e-3, and so does the smoke, but for BST. At BST's full widths
+# (its 672-1024-512-256 MLP) Adam's first step at 5e-3 makes the loss jump
+# before it falls, in the reference as in the port
+# (tests/test_torch_recsys_train.py::test_bst_full_width_rate, on the CPU
+# at 8,192 rows), and on the H100 at 65,536 rows the loss after 4 steps
+# stood above the first (5e-3: 0.701 -> 15.754 -> 2.031 -> 0.736; 1e-3:
+# 0.701 -> 1.332 -> 0.815 -> 0.707), so BST trains at 1e-4
+RECSYS_PEAK_LR = {"sasrec": 5e-3, "bert4rec": 5e-3, "bst": 1e-4,
+                  "two_tower": 5e-3}
+RECSYS_GRAD_RTOL = 2.0**-4  # relative L2 a leaf: the GIN train bound
+RECSYS_SERVE_RTOL = 2.0**-5  # SDPA vs plain attention, of max |score|
+RECSYS_PLAIN_ROWS = 4096  # batch rows the plain attention takes at once
+TT_GRAD_ROWS = 8192  # two-tower: rows of its chunked-vs-whole gradients
+
+
+def _fingerprint(torch, state) -> str:
+    """A digest of every bit of a train state, taken on the card: per leaf
+    (the reference's paths and order), its dtype, shape, and the int64 sums
+    of its words and of its words times a position weight (wrapping)."""
+    from repro_torch.convert import train_state_tree
+    from repro_torch.tree import flatten
+
+    h = hashlib.sha256()
+    for k, x in flatten(train_state_tree(state)):
+        w = x.detach().reshape(-1)
+        w = w.view(torch.int32 if w.element_size() == 4 else torch.int16)
+        s1 = s2 = 0
+        for a in range(0, w.numel(), 1 << 26):
+            c = w[a:a + (1 << 26)].to(torch.int64)
+            pos = torch.arange(a, a + c.numel(), device=c.device) % 1000003 + 1
+            s1 += int(c.sum())
+            s2 += int((c * pos).sum())
+        h.update(f"{k}:{x.dtype}:{tuple(x.shape)}:{s1}:{s2};".encode())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def _plain_attention(torch):
+    """The models' attention through its plain chunked version on the card,
+    RECSYS_PLAIN_ROWS batch rows at a time, each part recomputed in the
+    backward pass (``torch.utils.checkpoint``): its float32 scores of
+    BERT4Rec's 65,536 rows would take 21 GB a block at once."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import recsys
+    from repro_torch.nn import attention
+
+    real = attention.flash_attention
+
+    def plain(q, k, v, **kw):
+        n = RECSYS_PLAIN_ROWS
+        if not torch.is_grad_enabled():
+            return real(q, k, v, **kw)
+        return torch.cat([checkpoint(lambda a, b, c: real(a, b, c, **kw),
+                                     q[s:s + n], k[s:s + n], v[s:s + n],
+                                     use_reentrant=False)
+                          for s in range(0, q.shape[0], n)])
+
+    recsys.attn.flash_attention = plain
+    try:
+        with attention.plan("plain"):
+            yield
+    finally:
+        recsys.attn.flash_attention = real
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """Deterministic algorithms (the embedding gradients' ``index_put_``
+    sorts its rows instead of adding by atomics; the SDPA backward takes
+    its deterministic path), without filling fresh memory."""
+    import torch.utils.deterministic as td
+
+    fill = td.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    td.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        td.fill_uninitialized_memory = fill
+
+
+def _grads(torch, params, batch, loss_fn) -> tuple[float, dict]:
+    from repro_torch.train import param_leaves
+
+    leaves = param_leaves(params)
+    loss, _ = loss_fn(params, batch)
+    return float(loss.detach()), dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()))))
+
+
+def _rel_l2(a: dict, b: dict) -> dict:
+    return {k: float((a[k].float() - b[k].float()).norm()
+                     / b[k].float().norm().clamp(min=1e-30)) for k in a}
+
+
+def _backends(torch, cfg) -> dict:
+    """The SDPA backend PyTorch picks for the model's attention: at
+    serve_p99 (inference) and for a train step (with grad, under
+    deterministic algorithms)."""
+    from repro_torch.nn import attention
+
+    if cfg.kind == "two_tower":
+        return {"serve": None, "train": None}
+    L = cfg.seq_len + (1 if cfg.kind == "bst" else 0)
+    H, dh = cfg.n_heads, cfg.embed_dim // cfg.n_heads
+    out = {}
+    for part, grad in (("serve", False), ("train", True)):
+        q, k, v = (torch.randn(512, L, H, dh, device="cuda",
+                               dtype=torch.bfloat16).requires_grad_(grad)
+                   for _ in range(3))
+        with _deterministic(torch) if grad else contextlib.nullcontext():
+            out[part] = attention.sdpa_backend(q, k, v,
+                                               causal=cfg.kind == "sasrec")
+    return out
+
+
+def recsys_serve(np, torch, cfg, params, rng) -> dict:
+    """serve_p99 (512 rows) through ``serve_scores``: RECSYS_SERVE_CALLS
+    timed calls, then the plain attention's scores on the same batch."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.models import recsys, registry
+
+    batch = registry.recsys_batch_for(cfg, RECSYS_SHAPES["serve_p99"], rng,
+                                      device="cuda")
+    ms = []
+    with torch.inference_mode():
+        out = recsys.serve_scores(params, batch, cfg)
+        torch.cuda.synchronize()
+        for _ in range(RECSYS_SERVE_CALLS):
+            t0 = time.perf_counter()
+            out = recsys.serve_scores(params, batch, cfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with _plain_attention(torch):
+            plain = recsys.serve_scores(params, batch, cfg)
+    finite = bool(torch.isfinite(out).all())
+    rel = float((out - plain).abs().max() / plain.abs().max())
+    ok = finite and (torch.equal(out, plain) if cfg.kind == "two_tower"
+                     else rel <= RECSYS_SERVE_RTOL)
+    rec = {"batch": int(batch["hist"].shape[0]),
+           "scores_shape": list(out.shape), "calls": len(ms),
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "max_err_of_max_score": rel, "rtol": RECSYS_SERVE_RTOL,
+           "finite": finite}
+    if not ok:
+        die(f"recsys {cfg.name} serve: scores against the plain attention's "
+            f"{rec}")
+    return rec
+
+
+def recsys_retrieval(np, torch, cfg, params, rng, counters) -> dict:
+    """retrieval_cand: 2^20 distinct sorted ids of the table's rows (vbyte,
+    differential, block 128, stride 256) scored for one history through
+    ``retrieval_scores_compressed``, against ``plan="torch"``."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.vbyte_decode import dispatch
+    from repro_torch.models import recsys, registry
+
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    batch = registry.recsys_batch_for(cfg, shape, rng, device="cuda")
+    arr = batch["cands"]
+    if arr.n != shape.dims["n_candidates"] or arr.stride != \
+            shape.dims["payload_stride"]:
+        die(f"recsys {cfg.name} retrieval data: {arr.n} ids, stride "
+            f"{arr.stride}")
+    dot = cfg.kind in ("sasrec", "bert4rec")
+
+    def run(plan="auto"):
+        return recsys.retrieval_scores_compressed(
+            params, batch, cfg, top_k=RECSYS_TOP_K, plan=plan)
+
+    real, seen = dispatch.decode, []
+
+    def decode(*a, **kw):  # keeps what the request decoded: no launch more
+        out = real(*a, **kw)
+        seen.append(out)
+        return out
+
+    with torch.inference_mode():
+        run()
+        before = _read(torch, counters)
+        dispatch.decode = decode
+        try:
+            scores, (top_s, top_i) = run()
+        finally:
+            dispatch.decode = real
+        after = _read(torch, counters)
+        ms = []
+        for _ in range(RECSYS_RETRIEVAL_CALLS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        share = _profile(torch, f"recsys_retrieval/{cfg.name}", run, 1,
+                         unit="requests")
+        p_scores, (p_top_s, p_top_i) = run("torch")
+        h = recsys._seq_repr(params, batch["hist"], cfg,
+                             causal=cfg.kind == "sasrec",
+                             dtype=torch.bfloat16)[:, -1] if dot else None
+        table = params.item_emb.to(torch.bfloat16) if dot else None
+        ids = seen[0][0] if dot else seen[0]
+        p_ids = (dispatch.decode(arr, epilogue="dot_score", plan="torch",
+                                 epilogue_operands={"table": table,
+                                                    "query": h})[0]
+                 if dot else dispatch.decode(arr, plan="torch"))
+    per_request = {k: after[k] - before[k] for k in counters}
+    per_request["fused_decode_by"] = {
+        k: v - before["fused_decode_by"].get(k, 0)
+        for k, v in after["fused_decode_by"].items()
+        if v - before["fused_decode_by"].get(k, 0)}
+    want = ({"vbyte/dot_score": 1} if dot else {})
+    if per_request["fused_decode_by"] != want or per_request[
+            "vbyte_decode_blocked"] != (0 if dot else 1):
+        die(f"recsys {cfg.name} retrieval: launches per request "
+            f"{per_request}")
+    # ids bit for bit; scores within one bf16 ulp or the f32 sums'
+    # rounding bound (dot_score), equal bit for bit (the towers: the same
+    # ops on the same decoded ids)
+    if len(seen) != 1 or not torch.equal(ids, p_ids) or \
+            scores.shape != p_scores.shape:
+        die(f"recsys {cfg.name} retrieval: ids differ from the torch plan's "
+            f"({len(seen)} decodes; shapes {scores.shape} {p_scores.shape})")
+    if dot:
+        s_abs = dispatch.decode(
+            arr, epilogue="dot_score", plan="torch",
+            epilogue_operands={"table": table.abs(),
+                               "query": h.abs()})[1].reshape(-1)
+        ok, err, ulps, _ = _float_close(torch, scores, p_scores, bf16=True,
+                                        terms=cfg.embed_dim, s_abs=s_abs)
+        scores_equal = bool(torch.equal(scores, p_scores))
+    else:
+        scores_equal = ok = bool(torch.equal(scores, p_scores))
+        err, ulps = float((scores - p_scores).abs().max()), 0
+    if not ok:
+        die(f"recsys {cfg.name} retrieval: scores beyond the stated "
+            f"tolerance of the torch plan (max abs err {err}, {ulps} ulps)")
+    swapped = _topk_agree(torch, top_s[None], top_i[None], p_top_s[None],
+                          p_top_i[None], f"recsys {cfg.name} top-100")
+    top_equal = bool(torch.equal(top_i, p_top_i)
+                     and torch.equal(top_s, p_top_s))
+    if not set(top_i.tolist()) <= set(ids.reshape(-1).tolist()):
+        die(f"recsys {cfg.name} retrieval: a top id is not a candidate")
+    return {"n_candidates": arr.n, "n_blocks": arr.n_blocks,
+            "stride": arr.stride, "bits_per_int": round(arr.bits_per_int, 4),
+            "ms_per_request": float(np.median(ms)), "ms": ms,
+            "launches_per_request": per_request, "max_abs_err": err,
+            "max_bf16_ulps": ulps, "scores_equal": scores_equal,
+            "top100_equal": top_equal, "top100_near_tie_swaps": swapped,
+            "finite": bool(torch.isfinite(scores).all()),
+            "busy_share": share}
+
+
+def recsys_train(np, torch, cfg, args) -> dict:
+    """train_batch (65,536 rows, the batch kept whole: no microbatches):
+    one step's gradients against the plain attention's (two-tower: its
+    chunked loss against the whole one at TT_GRAD_ROWS rows); then
+    RECSYS_TRAIN_STEPS steps of ``make_train_step`` on one batch (AdamW,
+    warm-up 1), ms per step by forward / backward / AdamW and peak bytes; a
+    replay from a fresh init of the same seed, and (not two-tower: its
+    state is ~34 GB) a restart from the checkpoint after RECSYS_CKPT_STEP
+    into a fresh state of another seed: losses and state bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.convert import (recsys_train_state_from_tree,
+                                     train_state_tree)
+    from repro_torch.models import recsys, registry
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   make_train_step)
+
+    shape = RECSYS_SHAPES["train_batch"]
+    B = shape.dims["batch"]
+    t0 = time.perf_counter()
+    batch = registry.recsys_batch_for(cfg, shape, np.random.default_rng(
+        args.seed + 3), device="cuda")
+    t_batch = time.perf_counter() - t0
+    opts = recsys.train_options(cfg, B)  # what loss_fn picks at B rows
+    loss_fn = lambda p, b: recsys.loss_fn(p, b, cfg)  # noqa: E731
+    opt = OptimizerConfig(peak_lr=RECSYS_PEAK_LR[cfg.kind],
+                          warmup_steps=1, total_steps=RECSYS_TRAIN_STEPS)
+
+    def fresh(seed):
+        return init_train_state(recsys.init_params(cfg, seed=seed,
+                                                   device="cuda"))
+
+    with _deterministic(torch):
+        state = fresh(args.seed)
+        # one step's gradients against the plain version's
+        if cfg.kind == "two_tower":
+            sub = {k: v[:TT_GRAD_ROWS] for k, v in batch.items()}
+            chunk = opts["loss_chunk"]  # the train step's: 2 chunks here
+
+            def tt_loss(c):
+                return lambda p, b: recsys._two_tower_loss(
+                    p, b, cfg, torch.bfloat16, c)
+
+            loss_k, g_k = _grads(torch, state["params"], sub, tt_loss(chunk))
+            loss_p, g_p = _grads(torch, state["params"], sub, tt_loss(None))
+            against = (f"the whole in-batch loss at {TT_GRAD_ROWS} rows "
+                       f"(chunk {chunk})")
+        else:
+            loss_k, g_k = _grads(torch, state["params"], batch, loss_fn)
+            with _plain_attention(torch):
+                loss_p, g_p = _grads(torch, state["params"], batch, loss_fn)
+            against = "the plain chunked attention"
+        err = _rel_l2(g_k, g_p)
+        worst = max(err, key=err.get)
+        grads = {"loss": loss_k, "loss_plain": loss_p, "against": against,
+                 "leaves": len(err), "max_rel_l2_err": err[worst],
+                 "worst_leaf": worst, "rel_l2_rtol": RECSYS_GRAD_RTOL}
+        del g_k, g_p
+        if not err[worst] <= RECSYS_GRAD_RTOL:
+            die(f"recsys {cfg.name} train: gradients against {against}: "
+                f"{worst} rel L2 {err[worst]} > {RECSYS_GRAD_RTOL}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ckpt = cfg.kind != "two_tower"
+        ckpt_dir = tempfile.mkdtemp(prefix="recsys_ckpt_")
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+
+        def save(i, st):
+            if ckpt and i == RECSYS_CKPT_STEP:
+                mgr.save(i, train_state_tree(st))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _StepClock(torch) as clock:
+            state, losses, times = _train_steps(
+                torch, make_train_step(clock.loss(loss_fn), opt), state,
+                batch, RECSYS_TRAIN_STEPS, clock, save)
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(np.isfinite(losses).all())
+        if not (finite and losses[-1] < losses[0]):
+            die(f"recsys {cfg.name} train: losses finite={finite}, "
+                f"{losses}")
+        fp = _fingerprint(torch, state)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        step_fn = make_train_step(loss_fn, opt)
+        replay, r_losses, _ = _train_steps(torch, step_fn, fresh(args.seed),
+                                           batch, RECSYS_TRAIN_STEPS)
+        replay_equal = r_losses == losses and _fingerprint(torch, replay) == fp
+        t_replay = time.perf_counter() - t0
+        # one more step of the replayed run, traced: where a step's time goes
+        share = _profile(torch, f"recsys_train/{cfg.name}",
+                         lambda: step_fn(replay, batch), 1, unit="steps")
+        del replay
+        gc.collect()
+        torch.cuda.empty_cache()
+        restart = None
+        if ckpt:
+            tree, at = mgr.restore_latest(train_state_tree(
+                fresh(args.seed + 1)))
+            resumed = recsys_train_state_from_tree(tree, cfg, device="cuda")
+            del tree
+            resumed, c_losses, _ = _train_steps(
+                torch, make_train_step(loss_fn, opt), resumed, batch,
+                RECSYS_TRAIN_STEPS - at - 1)
+            restart = {"from_step": at, "losses": c_losses,
+                       "equal": (at == RECSYS_CKPT_STEP
+                                 and c_losses == losses[at + 1:]
+                                 and _fingerprint(torch, resumed) == fp)}
+            del resumed
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not replay_equal or (restart is not None and not restart["equal"]):
+        die(f"recsys {cfg.name} train: replay equal {replay_equal} "
+            f"(losses {r_losses}; uninterrupted {losses}), restart "
+            f"{restart}")
+    ms = {k: [round(t[k], 3) for t in times] for k in times[0]}
+    return {"batch": B, "options": opts, "batch_seconds": round(t_batch, 3),
+            "grads": grads, "steps": RECSYS_TRAIN_STEPS,
+            "peak_lr": opt.peak_lr, "losses": losses, "ms_per_step": ms,
+            "median_ms": {k: float(np.median(v)) for k, v in ms.items()},
+            "peak_device_bytes": peak, "replay_equal": replay_equal,
+            "restart": restart, "replay_seconds": round(t_replay, 3),
+            "busy_share": share}
+
+
+def run_recsys(np, torch, args) -> dict:
+    """Path ``recsys``: SASRec, BERT4Rec, BST and two-tower at full width
+    (their configs, parameters from ``--seed``): serve_p99 through
+    ``serve_scores``, retrieval_cand through
+    ``retrieval_scores_compressed`` (kernel 2's ``dot_score``, or kernel 1
+    then the towers), train_batch through ``make_train_step``. Every
+    launch count is set to 0 just before the path and read just after."""
+    from repro_torch.models import recsys, registry
+
+    t_path = time.perf_counter()
+    counters = _launch_counters()
+    _reset(torch, counters)
+    out = {}
+    for arch in RECSYS_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = registry.resolve_config(arch, "train_batch")
+        rng = np.random.default_rng(args.seed)
+        params = recsys.init_params(cfg, seed=args.seed, device="cuda")
+        backends = _backends(torch, cfg)
+        serve = recsys_serve(np, torch, cfg, params, rng)
+        emit("recsys_serve", arch=arch, sdpa_backend=backends["serve"],
+             **serve)
+        retrieval = recsys_retrieval(np, torch, cfg, params, rng, counters)
+        emit("recsys_retrieval", arch=arch, **retrieval)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = recsys_train(np, torch, cfg, args)
+        emit("recsys_train", arch=arch, sdpa_backend=backends["train"],
+             **train)
+        out[arch] = {"sdpa_backend": backends, "serve": serve,
+                     "retrieval": retrieval, "train": train,
+                     "seconds": round(time.perf_counter() - t_arch, 3)}
+        emit("recsys_arch_done", arch=arch, seconds=out[arch]["seconds"])
+    launches = _read(torch, counters)
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="recsys", seconds=round(seconds, 3),
+         launches=launches)
+    return {"launches": launches, "seconds": seconds, "archs": out}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernels line
 # ---------------------------------------------------------------------------
 def kernels_line(records, max_err, paths):
@@ -3471,6 +3978,10 @@ def kernels_line(records, max_err, paths):
              # dot_score at the two_tower path's corpus and buckets
              dot_score_path={k: variant(r)
                              for k, r in records["dot_score_path"].items()},
+             # dot_score at the recsys path's retrieval_cand shape: SASRec
+             # (bf16 d 50) and BERT4Rec (bf16 d 64), one query row
+             recsys_dot_score={k: variant(r) for k, r in
+                               records["recsys_dot_score"].items()},
              # the probe epilogues at the search path's block counts
              probe_path={k: variant(r)
                          for k, r in records["probe_path"].items()},
@@ -3570,6 +4081,7 @@ def main(argv=None) -> int:
     emit("parity_done", seconds=round(time.perf_counter() - t_start, 3))
     paths = phase_main_paths(np, torch, args)
     paths["two_tower"] = run_two_tower(np, torch, args)
+    paths["recsys"] = run_recsys(np, torch, args)
     paths["gin"] = run_gin(np, torch, args)
     paths["gin_train"] = paths["gin"].pop("train")
     emit("done", seconds=round(time.perf_counter() - t_start, 3),

@@ -1,5 +1,5 @@
 """Carry state across from the JAX package: compressed arrays, the
-compressed index, the two-tower and GIN parameters, and GIN's train state.
+compressed index, the recsys and GIN parameters, and their train states.
 
 These functions build the port's objects from plain numpy leaves, so an
 index built by the reference (or saved from it) serves on the card with
@@ -83,20 +83,43 @@ def _mlp(tree: dict, dev):
                 for i in range(len(tree))])
 
 
-def recsys_params_from_numpy(params: dict, cfg, device=None):
-    """The port's :class:`~repro_torch.models.recsys.TwoTower` from the
-    reference's two-tower parameter tree as numpy arrays: ``user_emb/emb``,
-    ``item_id_emb/emb``, ``user_mlp/layer_i/{w,b}``, ``item_mlp/...``."""
-    from repro_torch.models.recsys import TwoTower
+def _layernorm(tree: dict, dev):
+    from repro_torch.nn.layers import LayerNorm
 
-    if cfg.kind != "two_tower":
-        raise NotImplementedError(f"recsys kind {cfg.kind!r} is not ported "
-                                  "yet (ROADMAP queue 1 item 14)")
+    return LayerNorm(_tensor(tree["scale"], dev), _tensor(tree["bias"], dev))
+
+
+def recsys_params_from_numpy(params: dict, cfg, device=None):
+    """The port's recsys parameters from the reference's tree as numpy
+    arrays. Two-tower (a :class:`~repro_torch.models.recsys.TwoTower`):
+    ``user_emb/emb``, ``item_id_emb/emb``, ``user_mlp/layer_i/{w,b}``,
+    ``item_mlp/...``. SASRec, BERT4Rec, BST (a
+    :class:`~repro_torch.models.recsys.SeqRec`): ``item_emb/emb``,
+    ``pos_emb/emb``, ``blocks/block_i/{ln1/{scale,bias},
+    attn/{wq,wk,wv,wo}/w, ln2/..., ffn/{w1,w2}/{w,b}}``, ``final_ln/...``
+    and, for BST, ``mlp/layer_i/{w,b}``."""
+    from repro_torch.models.recsys import Block, SeqRec, TwoTower
+
     dev = resolve_device(device)
-    return TwoTower(_tensor(params["user_emb"]["emb"], dev),
-                    _tensor(params["item_id_emb"]["emb"], dev),
-                    _mlp(params["user_mlp"], dev),
-                    _mlp(params["item_mlp"], dev))
+    if cfg.kind == "two_tower":
+        return TwoTower(_tensor(params["user_emb"]["emb"], dev),
+                        _tensor(params["item_id_emb"]["emb"], dev),
+                        _mlp(params["user_mlp"], dev),
+                        _mlp(params["item_mlp"], dev))
+    blocks = []
+    for i in range(cfg.n_blocks):
+        b = params["blocks"][f"block_{i}"]
+        a, f = b["attn"], b["ffn"]
+        blocks.append(Block(
+            _layernorm(b["ln1"], dev),
+            *(_tensor(a[k]["w"], dev) for k in ("wq", "wk", "wv", "wo")),
+            _layernorm(b["ln2"], dev),
+            _tensor(f["w1"]["w"], dev), _tensor(f["w1"]["b"], dev),
+            _tensor(f["w2"]["w"], dev), _tensor(f["w2"]["b"], dev)))
+    return SeqRec(_tensor(params["item_emb"]["emb"], dev),
+                  _tensor(params["pos_emb"]["emb"], dev), blocks,
+                  _layernorm(params["final_ln"], dev),
+                  _mlp(params["mlp"], dev) if "mlp" in params else None)
 
 
 def gnn_params_from_numpy(params: dict, cfg, device=None):
@@ -119,14 +142,14 @@ def gnn_params_from_numpy(params: dict, cfg, device=None):
                _tensor(params["head"]["b"], dev))
 
 
-def gnn_train_state_tree(state: dict) -> dict:
-    """A GIN train state (``repro_torch.train.init_train_state``) as the
-    reference's train-state tree: ``params`` (``GIN.tree()``), ``opt/m`` and
-    ``opt/v`` under the same paths, ``opt/step`` and, where the run
-    compresses gradients, ``ef``. Its leaves are the state's own tensors;
-    ``repro_torch.checkpoint.CheckpointManager`` writes them in the
-    reference's leaf order and under its paths, so either package restores
-    the other's checkpoint directory."""
+def train_state_tree(state: dict) -> dict:
+    """A train state (``repro_torch.train.init_train_state``) as the
+    reference's train-state tree: ``params`` (the model's ``tree()``),
+    ``opt/m`` and ``opt/v`` under the same paths, ``opt/step`` and, where
+    the run compresses gradients, ``ef``. Its leaves are the state's own
+    tensors; ``repro_torch.checkpoint.CheckpointManager`` writes them in
+    the reference's leaf order and under its paths, so either package
+    restores the other's checkpoint directory."""
     from repro_torch.tree import nest
 
     opt = state["opt"]
@@ -138,15 +161,17 @@ def gnn_train_state_tree(state: dict) -> dict:
     return tree
 
 
-def gnn_train_state_from_tree(tree: dict, cfg, device=None) -> dict:
-    """The port's GIN train state from the reference's train-state tree
-    (numpy arrays or tensors, as a checkpoint restores them), on
-    ``device`` (default: the card); its parameters require grad."""
+def train_state_from_tree(tree: dict, params_from_numpy, cfg,
+                          device=None) -> dict:
+    """The port's train state from the reference's train-state tree (numpy
+    arrays or tensors, as a checkpoint restores them), on ``device``
+    (default: the card); the parameters, built by
+    ``params_from_numpy(tree["params"], cfg, device)``, require grad."""
     from repro_torch.train import param_leaves
     from repro_torch.tree import flatten
 
     dev = resolve_device(device)
-    params = gnn_params_from_numpy(tree["params"], cfg, device=dev)
+    params = params_from_numpy(tree["params"], cfg, device=dev)
     for p in param_leaves(params).values():
         p.requires_grad_(True)
 
@@ -161,3 +186,14 @@ def gnn_train_state_from_tree(tree: dict, cfg, device=None) -> dict:
     if tree.get("ef") is not None:
         state["ef"] = leaves(tree["ef"])
     return state
+
+
+def gnn_train_state_from_tree(tree: dict, cfg, device=None) -> dict:
+    """The port's GIN train state from the reference's train-state tree."""
+    return train_state_from_tree(tree, gnn_params_from_numpy, cfg, device)
+
+
+def recsys_train_state_from_tree(tree: dict, cfg, device=None) -> dict:
+    """The port's recsys train state (any kind) from the reference's
+    train-state tree."""
+    return train_state_from_tree(tree, recsys_params_from_numpy, cfg, device)

@@ -3,8 +3,9 @@
 ``posting_list_group`` mirrors the paper's ClueWeb09 experiment: sorted
 document ids drawn from a 50M-document universe, grouped by list length
 2^K..2^{K+1}-1 — shorter lists have larger gaps and compress worse.
-``random_graph`` makes a graph with skewed in-degrees for the GNN, and
-``molecule_batch`` a batch of small graphs for its graph task.
+``random_graph`` makes a graph with skewed in-degrees for the GNN,
+``molecule_batch`` a batch of small graphs for its graph task, and
+``recsys_batch`` a recsys training batch.
 """
 from __future__ import annotations
 
@@ -84,3 +85,34 @@ def molecule_batch(rng: np.random.Generator, batch: int, nodes_per: int,
         "labels": rng.integers(0, n_classes, size=batch).astype(np.int32),
         "n_graphs": batch,
     }
+
+
+def recsys_batch(rng: np.random.Generator, kind: str, batch: int, seq_len: int,
+                 n_items: int, *, n_mask: int = 0, n_negatives: int = 1024,
+                 n_users: int = 0):
+    """Workload-shaped recsys training batch (ids are 1-based; 0 =
+    padding): numpy arrays, the reference's draws in its order."""
+    hist = rng.integers(1, n_items, size=(batch, seq_len + 1)).astype(np.int32)
+    if kind == "sasrec":
+        return {"hist": hist,
+                "neg": rng.integers(1, n_items,
+                                    size=(batch, seq_len)).astype(np.int32)}
+    if kind == "bert4rec":
+        h = hist[:, :seq_len].copy()
+        mask_pos = np.stack([rng.choice(seq_len, n_mask, replace=False)
+                             for _ in range(batch)]).astype(np.int32)
+        targets = np.take_along_axis(h, mask_pos, axis=1)
+        np.put_along_axis(h, mask_pos, n_items + 1, axis=1)  # [MASK] row
+        return {"hist": h, "mask_pos": mask_pos, "targets": targets,
+                "negatives": rng.integers(1, n_items,
+                                          size=n_negatives).astype(np.int32)}
+    if kind == "bst":
+        return {"hist": hist[:, :seq_len],
+                "target": rng.integers(1, n_items, size=batch).astype(np.int32),
+                "label": (rng.random(batch) < 0.5).astype(np.int32)}
+    if kind == "two_tower":
+        return {"user_id": rng.integers(1, max(n_users, 2),
+                                        size=batch).astype(np.int32),
+                "hist": hist[:, :seq_len],
+                "item_id": rng.integers(1, n_items, size=batch).astype(np.int32)}
+    raise ValueError(kind)

@@ -13,6 +13,8 @@ embedding bags over compressed id lists) and :class:`SearchEngine`
                             # trace-chrome.json
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch two-tower-retrieval --device cpu --requests 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec \
+        --device cpu --batch 4  # or bert4rec, bst: serve_scores
 
 The port of the single-device paths of ``repro/launch/serve.py``. The
 search index's compressed streams live on the card for the engine's
@@ -35,8 +37,11 @@ workload and writes the exports.
 reference's reduced config: a compressed candidate corpus resident on
 the card, requests microbatched to buckets 1/2/4/8, scored by kernel 2's
 ``dot_score`` epilogue against an item table computed once, and the
-``bag_sum`` embedding-bag endpoint. The mesh-sharded engines are still to
-port (ROADMAP queue 1 item 13); the port writes no benchmark file.
+``bag_sum`` embedding-bag endpoint. ``--arch sasrec | bert4rec | bst``
+runs :func:`serve_recsys` at the reduced config: ``serve_scores`` over a
+batch of ``--batch`` histories and their candidates, timed over 10
+calls. The mesh-sharded engines are still to port (ROADMAP queue 1 item
+13); the port writes no benchmark file.
 """
 from __future__ import annotations
 
@@ -1123,10 +1128,48 @@ def serve_engine(cfg, *, requests: int, candidates: int, top_k: int = 10,
     return stats
 
 
+def serve_recsys(cfg, batch: int, *, seed: int = 0, device=None) -> dict:
+    """``serve_scores`` of a sequence recsys config (or two-tower's,
+    without the engine) over one synthetic batch of ``batch`` rows (the
+    ``serve_p99`` leaves, drawn as the reference's ``serve_recsys``
+    draws them), timed over 10 calls after one warm-up call."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.models import recsys, registry
+
+    dev = resolve_device(device)
+    params = recsys.init_params(cfg, seed=seed, device=dev)
+    shape = RECSYS_SHAPES["serve_p99"]
+    shape = type(shape)(shape.name, shape.step, {"batch": batch})
+    b = registry.recsys_batch_for(cfg, shape, np.random.default_rng(seed),
+                                  device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with torch.inference_mode():
+        scores = recsys.serve_scores(params, b, cfg)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            scores = recsys.serve_scores(params, b, cfg)
+        sync()
+    dt = (time.perf_counter() - t0) / 10
+    print(f"scored batch {batch}: {dt*1e3:.2f} ms/request "
+          f"(scores shape {tuple(scores.shape)}) on {dev}")
+    return {"batch": batch, "ms_per_request": round(dt * 1e3, 3),
+            "scores_shape": list(scores.shape), "device": str(dev),
+            "finite": bool(torch.isfinite(scores).all())}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    choices=["search", "two-tower-retrieval"])
+                    choices=["search", "two-tower-retrieval", "sasrec",
+                             "bert4rec", "bst"])
+    ap.add_argument("--batch", type=int, default=4,
+                    help="sasrec / bert4rec / bst: rows a serve_scores call "
+                         "scores")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--candidates", type=int, default=1 << 16,
                     help="two-tower: candidate corpus size")
@@ -1159,10 +1202,13 @@ def main(argv=None):
         # the reference's CLI serves the reduced config of the architecture
         from repro_torch.models import registry
 
-        stats = serve_engine(registry.reduced_config(args.arch),
-                             requests=args.requests,
-                             candidates=args.candidates, top_k=args.top_k,
-                             device=args.device)
+        cfg = registry.reduced_config(args.arch)
+        if cfg.kind == "two_tower":
+            stats = serve_engine(cfg, requests=args.requests,
+                                 candidates=args.candidates,
+                                 top_k=args.top_k, device=args.device)
+        else:
+            stats = serve_recsys(cfg, args.batch, device=args.device)
     print(json.dumps(stats))
 
 

@@ -3,20 +3,27 @@
 Assembles an architecture's config (registry), its train step, a
 synthetic data source, checkpoint and restart, and straggler detection,
 on one card (the reference's launcher also builds a device mesh; one
-card has none). Only the GNN family trains so far (ROADMAP queue 1 item
-14)::
+card has none). The GNN and recsys families train; the LM waits for the
+model stack (ROADMAP queue 1 item 14.4)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
         --steps 20 --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \\
+        --steps 20 --reduced --device cpu   # or bert4rec, bst,
+                                            # two-tower-retrieval
 
-``--reduced`` trains the reduced config on the reference's batch (a
-256-node, 2,048-edge ``random_graph``). Without it, the config is the
-full one at the architecture's first shape, and the batch is the one
-that config needs: for gin-tu, ``full_graph_sm``'s node and edge counts,
-its adjacency compressed (``data/graph.compress_adjacency``) because the
-shape asks for compressed adjacency. (The reference's launcher gives that
-config the raw 256-node batch, which lacks the compressed fields: a
-deviation of the reference, ROADMAP queue 3, not carried over.)
+``--reduced`` trains the reduced config on the reference's batch (GNN: a
+256-node, 2,048-edge ``random_graph``; recsys: a fresh ``recsys_batch``
+of 16 rows every step). Without it, the config is the full one at the
+architecture's first shape, and the batch is the one that shape names:
+for gin-tu, ``full_graph_sm``'s node and edge counts, its adjacency
+compressed (``data/graph.compress_adjacency``) because the shape asks
+for compressed adjacency; for recsys, ``train_batch``'s 65,536 rows
+(a fresh batch every step), kept whole (``recsys.train_options``: block
+recomputation for BERT4Rec, the two-tower loss in row chunks). (The
+reference's launcher gives every config its reduced batch, which for
+gin-tu lacks the compressed fields: a deviation of the reference,
+ROADMAP queue 3, not carried over.)
 """
 from __future__ import annotations
 
@@ -28,22 +35,33 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.convert import gnn_train_state_from_tree, gnn_train_state_tree
+from repro_torch.convert import (gnn_train_state_from_tree,
+                                 recsys_train_state_from_tree,
+                                 train_state_tree)
 from repro_torch.ft import StragglerDetector
 from repro_torch.models import registry
 from repro_torch.train import OptimizerConfig, init_train_state, make_train_step
 
 REDUCED_NODES, REDUCED_EDGES = 256, 2048  # the reference's reduced batch
+REDUCED_RECSYS_BATCH = 16
 
 
 def make_batch_fn(arch: str, cfg, shape, rng, device):
     """The host data source: ``step -> batch`` of tensors on ``device``.
-    ``shape`` None is the reduced batch; else a ``ShapeDef`` whose node
-    and edge counts the graph takes."""
+    ``shape`` None is the reduced batch; else a ``ShapeDef``: the graph's
+    node and edge counts, or the recsys train batch."""
     fam = registry.family_of(arch)
+    if fam == "recsys":
+        import dataclasses
+
+        shape = shape or dataclasses.replace(
+            registry.shapes_of(arch)["train_batch"],
+            dims={"batch": REDUCED_RECSYS_BATCH})
+        return lambda step: registry.recsys_batch_for(cfg, shape, rng,
+                                                      device=device)
     if fam != "gnn":
         raise NotImplementedError(f"training the {fam!r} family is not "
-                                  "ported yet (ROADMAP queue 1 item 14)")
+                                  "ported yet (ROADMAP queue 1 item 14.4)")
     from repro_torch.data.synthetic import random_graph
 
     n, e = ((REDUCED_NODES, REDUCED_EDGES) if shape is None else
@@ -89,22 +107,31 @@ def main(argv=None) -> dict:
         name = list(registry.shapes_of(args.arch))[0]
         shape = registry.shapes_of(args.arch)[name]
         cfg = registry.resolve_config(args.arch, name)
-    from repro_torch.models.gnn import loss_fn
+    if fam == "recsys":
+        from repro_torch.models import recsys
+
+        loss_fn = lambda p, b: recsys.loss_fn(p, b, cfg)  # noqa: E731
+        from_tree = recsys_train_state_from_tree
+    else:
+        from repro_torch.models import gnn
+
+        loss_fn = lambda p, b: gnn.loss_fn(p, b, cfg)  # noqa: E731
+        from_tree = gnn_train_state_from_tree
 
     rng = np.random.default_rng(0)
     opt = OptimizerConfig(peak_lr=args.peak_lr, warmup_steps=5,
                           total_steps=args.steps)
     state = init_train_state(init(cfg, seed=0, device=dev),
                              grad_compression=args.grad_compression)
-    step_fn = make_train_step(lambda p, b: loss_fn(p, b, cfg), opt,
+    step_fn = make_train_step(loss_fn, opt,
                               grad_compression=args.grad_compression)
 
     mgr = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
     start = 0
     if mgr is not None:
-        restored, at = mgr.restore_latest(gnn_train_state_tree(state))
+        restored, at = mgr.restore_latest(train_state_tree(state))
         if restored is not None:
-            state = gnn_train_state_from_tree(restored, cfg, device=dev)
+            state = from_tree(restored, cfg, device=dev)
             start = at + 1
             print(f"[resume] from step {at}")
 
@@ -120,11 +147,11 @@ def main(argv=None) -> dict:
             print(f"step {step:>4} loss={losses[step]:.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f}")
         if mgr is not None and step and step % args.ckpt_every == 0:
-            mgr.save(step, gnn_train_state_tree(state), async_=True)
+            mgr.save(step, train_state_tree(state), async_=True)
     stragglers = det.stragglers()
     if mgr is not None:
         mgr.wait()
-        mgr.save(args.steps - 1, gnn_train_state_tree(state))
+        mgr.save(args.steps - 1, train_state_tree(state))
     dt = (time.time() - t0) / max(args.steps - start, 1)
     print(f"done: {dt*1e3:.1f} ms/step, stragglers={stragglers}")
     return {"start": start, "losses": losses, "state": state}

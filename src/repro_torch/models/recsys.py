@@ -1,14 +1,23 @@
-"""Two-tower retrieval: the towers, and scoring against a compressed
-candidate list.
+"""RecSys family: SASRec, BERT4Rec, BST and two-tower retrieval.
 
-The port of the two-tower parts of ``repro/models/recsys.py``:
-``RecSysConfig`` (whole), ``init_params`` for ``kind="two_tower"``,
-``user_tower``, ``user_tower_compressed``, ``item_tower`` and
-``retrieval_scores_compressed``. The parameters live in a
-:class:`TwoTower` module; the tower functions keep the reference's
-signatures. The sasrec, bert4rec and bst kinds need the attention stack
-and raise ``NotImplementedError`` until it is ported (ROADMAP queue 1
-item 14).
+The port of ``repro/models/recsys.py``: ``RecSysConfig``, the shared
+pre-LN sequence encoder (``_block_init``, ``_encode_seq``, ``_seq_repr``,
+``_item_scores``), ``init_params`` for every kind, the losses
+(``loss_fn``), ``bst_forward``, the two-tower towers, ``serve_scores``
+and ``retrieval_scores_compressed``. Parameters live in modules
+(:class:`SeqRec`, :class:`TwoTower`) whose ``tree()`` gives them under
+the reference's paths; the functions keep the reference's signatures.
+The reference's ``constrain(...)`` sharding annotations have no meaning
+on one card and are dropped. Pad id 0 attends like any other id, as in
+the reference (no key-padding mask).
+
+Two ways of computing the same function keep a batch of 65,536 whole on
+one card, and ``loss_fn`` picks them from the batch's size
+(:func:`train_options`): block recomputation (the sequence kinds: each
+encoder block recomputed in the backward pass, ``torch.utils.checkpoint``)
+and the two-tower in-batch softmax in row chunks (each chunk's ``[c, B]``
+logits recomputed in the backward pass, so the ``[B, B]`` float32 logits
+never exist at once).
 """
 from __future__ import annotations
 
@@ -17,14 +26,14 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn.embedding_bag import bag_from_padded
-
-_LATER = ("recsys kind {!r} needs the attention stack, which is not ported "
-          "yet (ROADMAP queue 1 item 14)")
-
+from repro_torch.nn.layers import accum_matmul
 
 @dataclass(frozen=True)
 class RecSysConfig:
@@ -104,22 +113,252 @@ class TwoTower(nn.Module):
         self.user_mlp = user_mlp
         self.item_mlp = item_mlp
 
+    def tree(self) -> dict:
+        return {"user_emb": {"emb": self.user_emb},
+                "item_id_emb": {"emb": self.item_id_emb},
+                "user_mlp": self.user_mlp.tree(),
+                "item_mlp": self.item_mlp.tree()}
+
+
+class Block(nn.Module):
+    """One pre-LN transformer block: ``ln1``, attention projections
+    ``wq, wk, wv, wo [d, d]``, ``ln2`` and the position-wise FFN ``w1, w2
+    [d, d]`` with biases ``b1, b2 [d]``; float32."""
+
+    def __init__(self, ln1: nnl.LayerNorm, wq, wk, wv, wo,
+                 ln2: nnl.LayerNorm, w1, b1, w2, b2):
+        super().__init__()
+        self.ln1, self.ln2 = ln1, ln2
+        for name, t in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo),
+                        ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+            setattr(self, name, nnl._param(t))
+
+    def tree(self) -> dict:
+        return {"ln1": self.ln1.tree(),
+                "attn": {k: {"w": getattr(self, k)}
+                         for k in ("wq", "wk", "wv", "wo")},
+                "ln2": self.ln2.tree(),
+                "ffn": {"w1": {"w": self.w1, "b": self.b1},
+                        "w2": {"w": self.w2, "b": self.b2}}}
+
+
+class SeqRec(nn.Module):
+    """SASRec / BERT4Rec / BST parameters: ``item_emb [vocab_rows, d]``,
+    ``pos_emb [seq_len + 1, d]``, the encoder blocks, ``final_ln`` and,
+    for BST, the CTR ``mlp`` over the flat ``[(seq_len + 1)·d]`` hidden
+    states."""
+
+    def __init__(self, item_emb, pos_emb, blocks: list[Block],
+                 final_ln: nnl.LayerNorm, mlp: nnl.MLP | None = None):
+        super().__init__()
+        self.item_emb = nnl._param(item_emb)
+        self.pos_emb = nnl._param(pos_emb)
+        self.blocks = nn.ModuleList(blocks)
+        self.final_ln = final_ln
+        self.mlp = mlp
+
+    def tree(self) -> dict:
+        t = {"item_emb": {"emb": self.item_emb},
+             "pos_emb": {"emb": self.pos_emb},
+             "blocks": {f"block_{i}": b.tree()
+                        for i, b in enumerate(self.blocks)},
+             "final_ln": self.final_ln.tree()}
+        if self.mlp is not None:
+            t["mlp"] = self.mlp.tree()
+        return t
+
+
+# ----------------------------------------------------------------------------
+# shared sequence encoder (pre-LN transformer blocks over item embeddings)
+# ----------------------------------------------------------------------------
+def _block_init(d: int, *, generator: torch.Generator) -> Block:
+    g, dev = generator, generator.device
+
+    def dense():
+        return nnl.dense_init(d, d, generator=g)
+
+    wq, wk, wv, wo, w1, w2 = (dense() for _ in range(6))
+    return Block(nnl.layernorm_init(d, device=dev), wq, wk, wv, wo,
+                 nnl.layernorm_init(d, device=dev),
+                 w1, torch.zeros(d, device=dev), w2,
+                 torch.zeros(d, device=dev))
+
+
+def _block(blk: Block, x, cfg: RecSysConfig, *, causal: bool, dtype):
+    B, L, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    qc = kc = max(16, 1 << (L - 1).bit_length())  # whole seq in one chunk
+    h = nnl.layernorm(blk.ln1, x, dtype=dtype)
+    q = nnl.dense(blk.wq, h, dtype=dtype).reshape(B, L, H, dh)
+    k = nnl.dense(blk.wk, h, dtype=dtype).reshape(B, L, H, dh)
+    v = nnl.dense(blk.wv, h, dtype=dtype).reshape(B, L, H, dh)
+    o = attn.flash_attention(q, k, v, causal=causal, q_chunk=min(qc, L),
+                             kv_chunk=min(kc, L), dtype=dtype)
+    x = x + nnl.dense(blk.wo, o.reshape(B, L, d), dtype=dtype)
+    h = nnl.layernorm(blk.ln2, x, dtype=dtype)
+    h = torch.relu(h @ blk.w1.to(dtype) + blk.b1.to(dtype))
+    h = h @ blk.w2.to(dtype) + blk.b2.to(dtype)
+    return x + h
+
+
+def _encode_seq(blocks, x, cfg: RecSysConfig, *, causal: bool, dtype,
+                remat: bool = False):
+    for blk in blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(lambda y, b=blk: _block(b, y, cfg, causal=causal,
+                                                   dtype=dtype),
+                           x, use_reentrant=False)
+        else:
+            x = _block(blk, x, cfg, causal=causal, dtype=dtype)
+    return x
+
 
 def init_params(cfg: RecSysConfig, *, generator: torch.Generator | None = None,
-                seed: int = 0, device=None) -> TwoTower:
-    """Random two-tower parameters on ``device`` (default: the card), drawn
-    from ``generator`` (default: one on ``device`` seeded with ``seed``)."""
-    if cfg.kind != "two_tower":
-        raise NotImplementedError(_LATER.format(cfg.kind))
+                seed: int = 0, device=None):
+    """Random parameters on ``device`` (default: the card), drawn from
+    ``generator`` (default: one on ``device`` seeded with ``seed``):
+    a :class:`TwoTower` for ``kind="two_tower"``, else a :class:`SeqRec`."""
     if generator is None:
         generator = torch.Generator(device=resolve_device(device))
         generator.manual_seed(seed)
     g = generator
-    return TwoTower(
-        nnl.embedding_init(cfg.user_rows, cfg.id_dim, generator=g),
-        nnl.embedding_init(cfg.vocab_rows, cfg.id_dim, generator=g),
-        nnl.mlp_init((cfg.id_dim * 2,) + cfg.mlp_dims, generator=g),
-        nnl.mlp_init((cfg.id_dim,) + cfg.mlp_dims, generator=g))
+    if cfg.kind == "two_tower":  # no sequence encoder: bag + towers only
+        return TwoTower(
+            nnl.embedding_init(cfg.user_rows, cfg.id_dim, generator=g),
+            nnl.embedding_init(cfg.vocab_rows, cfg.id_dim, generator=g),
+            nnl.mlp_init((cfg.id_dim * 2,) + cfg.mlp_dims, generator=g),
+            nnl.mlp_init((cfg.id_dim,) + cfg.mlp_dims, generator=g))
+    if cfg.kind not in ("sasrec", "bert4rec", "bst"):
+        raise ValueError(cfg.kind)
+    d = cfg.embed_dim
+    item = nnl.embedding_init(cfg.vocab_rows, d, generator=g)
+    pos = nnl.embedding_init(cfg.seq_len + 1, d, generator=g)
+    blocks = [_block_init(d, generator=g) for _ in range(cfg.n_blocks)]
+    mlp = (nnl.mlp_init(((cfg.seq_len + 1) * d,) + cfg.mlp_dims + (1,),
+                        generator=g) if cfg.kind == "bst" else None)
+    return SeqRec(item, pos, blocks, nnl.layernorm_init(d, device=g.device),
+                  mlp)
+
+
+def _seq_repr(params: SeqRec, hist, cfg: RecSysConfig, *, causal: bool,
+              dtype, remat: bool = False):
+    """hist [B, L] -> hidden [B, L, d] with positional embeddings."""
+    L = hist.shape[1]
+    x = nnl.embedding_lookup(params.item_emb, hist, dtype=dtype)
+    pos = torch.arange(L, dtype=torch.int32, device=hist.device)[None]
+    x = x + nnl.embedding_lookup(params.pos_emb, pos, dtype=dtype)
+    x = _encode_seq(params.blocks, x, cfg, causal=causal, dtype=dtype,
+                    remat=remat)
+    return nnl.layernorm(params.final_ln, x, dtype=dtype)
+
+
+def _item_scores(params: SeqRec, h, item_ids, dtype):
+    """h [..., d] · emb[item_ids] [..., C, d] -> [..., C] (dot-product head),
+    float32 products and sums."""
+    vecs = nnl.embedding_lookup(params.item_emb, item_ids, dtype=dtype)
+    return accum_matmul("...d,...cd->...c", h, vecs)
+
+
+def _leaky_relu(x):
+    # jax.nn.leaky_relu: the slope, a weakly typed 0.01, in x's dtype
+    return torch.where(x >= 0, x,
+                       x * torch.tensor(0.01, dtype=x.dtype, device=x.device))
+
+
+# ----------------------------------------------------------------------------
+# losses (train_step targets)
+# ----------------------------------------------------------------------------
+def loss_fn(params, batch, cfg: RecSysConfig, *,
+            dtype=nnl.DEFAULT_COMPUTE_DTYPE):
+    """``(loss, aux)`` of a train batch (``data.synthetic.recsys_batch``'s
+    leaves as tensors), computed as :func:`train_options` picks for its
+    size (the same function either way)."""
+    rows = next(iter(batch.values())).shape[0]
+    opts = train_options(cfg, rows)
+    if cfg.kind == "sasrec":
+        return _sasrec_loss(params, batch, cfg, dtype, opts["remat"])
+    if cfg.kind == "bert4rec":
+        return _bert4rec_loss(params, batch, cfg, dtype, opts["remat"])
+    if cfg.kind == "bst":
+        return _bst_loss(params, batch, cfg, dtype, opts["remat"])
+    if cfg.kind == "two_tower":
+        return _two_tower_loss(params, batch, cfg, dtype, opts["loss_chunk"])
+    raise ValueError(cfg.kind)
+
+
+def train_options(cfg: RecSysConfig, batch: int) -> dict:
+    """How :func:`loss_fn` computes a batch of ``batch`` rows on one card:
+    ``remat`` (recompute each encoder block in the backward pass) where
+    the encoder's saved activations (some 16 bf16 ``[B, L, d]`` tensors a
+    block) would pass 16 GB (BERT4Rec at 65,536 rows: ~107 GB), and the
+    two-tower loss in chunks of ``loss_chunk`` rows where its float32
+    ``[B, B]`` logits would pass 1 GiB (17.2 GB at 65,536 rows)."""
+    if cfg.kind == "two_tower":
+        chunk = max(1, (1 << 30) // (4 * batch))
+        return {"loss_chunk": chunk if chunk < batch else None}
+    acts = 16 * 2 * batch * (cfg.seq_len + 1) * cfg.embed_dim * cfg.n_blocks
+    return {"remat": acts > 16e9}
+
+
+def _sasrec_loss(params, batch, cfg, dtype, remat=False):
+    """Next-item binary CE with one sampled negative per step (SASRec §3.5)."""
+    hist = batch["hist"]  # [B, L+1]
+    neg = batch["neg"]  # [B, L]
+    inputs, pos = hist[:, :-1], hist[:, 1:]
+    h = _seq_repr(params, inputs, cfg, causal=True, dtype=dtype, remat=remat)
+    pos_s = _item_scores(params, h, pos[..., None], dtype)[..., 0]
+    neg_s = _item_scores(params, h, neg[..., None], dtype)[..., 0]
+    valid = pos != 0
+    n = torch.clamp(valid.sum(), min=1)
+    lp = F.logsigmoid(pos_s)
+    ln = F.logsigmoid(-neg_s)
+    loss = -torch.where(valid, lp + ln, 0.0).sum() / n
+    return loss, {"pairwise_acc": (valid & (pos_s > neg_s)).sum() / n}
+
+
+def _bert4rec_loss(params, batch, cfg, dtype, remat=False):
+    """Masked-item sampled softmax with shared negatives (+ target in slot
+    0)."""
+    hist = batch["hist"]  # [B, L] with [MASK]=n_items+1 at masked slots
+    mask_pos = batch["mask_pos"]  # [B, M]
+    targets = batch["targets"]  # [B, M]
+    negatives = batch["negatives"]  # [Nneg]
+    h = _seq_repr(params, hist, cfg, causal=False, dtype=dtype, remat=remat)
+    idx = mask_pos.to(torch.int64)[..., None].expand(-1, -1, h.shape[-1])
+    hm = torch.gather(h, 1, idx)  # [B, M, d]
+    pos_s = _item_scores(params, hm, targets[..., None], dtype)[..., 0]
+    neg_v = nnl.embedding_lookup(params.item_emb, negatives, dtype=dtype)
+    neg_s = accum_matmul("bmd,nd->bmn", hm, neg_v)
+    logits = torch.cat([pos_s[..., None], neg_s], dim=-1)  # [B, M, 1+N]
+    del neg_s  # 8 GB at the train_batch shape; the backward needs neither
+    valid = targets != 0
+    n = torch.clamp(valid.sum(), min=1)
+    nll = torch.logsumexp(logits, dim=-1) - logits[..., 0]
+    loss = torch.where(valid, nll, 0.0).sum() / n
+    hit = logits[..., 0] >= logits.amax(dim=-1)
+    return loss, {"hit_at_1": (valid & hit).sum() / n}
+
+
+def _bst_loss(params, batch, cfg, dtype, remat=False):
+    """CTR binary cross-entropy (BST: transformer over history + target
+    item)."""
+    logit = bst_forward(params, batch["hist"], batch["target"], cfg,
+                        dtype=dtype, remat=remat)
+    label = batch["label"].to(torch.float32)
+    loss = -torch.mean(label * F.logsigmoid(logit)
+                       + (1 - label) * F.logsigmoid(-logit))
+    acc = torch.mean(((logit > 0) == (label > 0.5)).to(torch.float32))
+    return loss, {"accuracy": acc}
+
+
+def bst_forward(params: SeqRec, hist, target, cfg: RecSysConfig, *,
+                dtype=nnl.DEFAULT_COMPUTE_DTYPE, remat: bool = False):
+    seq = torch.cat([hist, target[:, None].to(hist.dtype)], dim=1)  # [B, L+1]
+    h = _seq_repr(params, seq, cfg, causal=False, dtype=dtype, remat=remat)
+    flat = h.reshape(h.shape[0], -1)
+    return nnl.mlp(params.mlp, flat, act=_leaky_relu,
+                   dtype=dtype)[:, 0].to(torch.float32)
 
 
 def _normalize(v, dtype):
@@ -177,6 +416,64 @@ def item_table(params: TwoTower, cfg: RecSysConfig, *,
     return out
 
 
+TEMPERATURE = 0.05  # the two-tower in-batch softmax's
+
+
+def _in_batch_rows(u, i, start: int):
+    """Rows ``start:start + len(u)`` of the in-batch softmax: each row's
+    ``-log p`` of its own item, and whether its argmax (the first maximum)
+    is its own item. ``i`` may come widened to float32 (an exact copy):
+    the product is in ``u``'s dtype either way."""
+    logits = (u @ i.to(u.dtype).T).to(torch.float32) / TEMPERATURE  # [c, B]
+    rows = torch.arange(u.shape[0], device=u.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    return (-logp[rows, start + rows],
+            torch.argmax(logits, dim=-1) == start + rows)
+
+
+def _two_tower_loss(params, batch, cfg, dtype, loss_chunk=None):
+    """In-batch sampled softmax (Yi et al., RecSys'19), temperature-scaled;
+    ``loss_chunk`` rows at a time when given (the same function)."""
+    u = user_tower(params, batch["user_id"], batch["hist"], cfg, dtype=dtype)
+    i = item_tower(params, batch["item_id"], cfg, dtype=dtype)
+    B = u.shape[0]
+    c = B if loss_chunk is None else max(1, min(loss_chunk, B))
+    if c == B:
+        nll, hit = _in_batch_rows(u, i, 0)
+    else:
+        # the item rows go in widened, so the chunks' gradients for them
+        # add in float32 and round to the compute dtype once
+        iw = i.to(torch.float32)
+        parts = [checkpoint(_in_batch_rows, u[s:s + c], iw, s,
+                            use_reentrant=False) if torch.is_grad_enabled()
+                 else _in_batch_rows(u[s:s + c], iw, s)
+                 for s in range(0, B, c)]
+        nll = torch.cat([p[0] for p in parts])
+        hit = torch.cat([p[1] for p in parts])
+    return nll.mean(), {"in_batch_top1": hit.to(torch.float32).mean()}
+
+
+# ----------------------------------------------------------------------------
+# serve steps
+# ----------------------------------------------------------------------------
+def serve_scores(params, batch, cfg: RecSysConfig, *,
+                 dtype=nnl.DEFAULT_COMPUTE_DTYPE):
+    """Online/bulk scoring against a candidate set (serve_p99 /
+    serve_bulk): BST ``[B]`` CTR logits; else ``[B, C]`` scores of each
+    row's candidates (two-tower: one candidate list ``[C]`` for all)."""
+    if cfg.kind == "bst":
+        return bst_forward(params, batch["hist"], batch["target"], cfg,
+                           dtype=dtype)
+    if cfg.kind == "two_tower":
+        u = user_tower(params, batch["user_id"], batch["hist"], cfg,
+                       dtype=dtype)
+        i = item_tower(params, batch["cands"], cfg, dtype=dtype)  # [C]
+        return (u @ i.T).to(torch.float32)
+    causal = cfg.kind == "sasrec"
+    h = _seq_repr(params, batch["hist"], cfg, causal=causal, dtype=dtype)
+    return _item_scores(params, h[:, -1], batch["cands"], dtype)  # [B, C]
+
+
 def topk_lower_index(scores: torch.Tensor, k: int):
     """``(values, indices)`` of the ``k`` largest along the last axis, equal
     scores ordered by lower index first (``jax.lax.top_k``'s order;
@@ -185,29 +482,56 @@ def topk_lower_index(scores: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def retrieval_scores_compressed(params: TwoTower, batch, cfg: RecSysConfig, *,
+BST_ROWS = 1 << 16  # candidates a BST ranker pass scores at once
+
+
+def retrieval_scores_compressed(params, batch, cfg: RecSysConfig, *,
                                 top_k: int = 100, plan="auto",
                                 dtype=nnl.DEFAULT_COMPUTE_DTYPE):
-    """retrieval_cand: score one user against a compressed candidate list.
+    """retrieval_cand: score one query against a compressed candidate list.
 
     ``batch["cands"]`` is the sorted candidate ids as a
-    ``CompressedIntArray`` (delta-coded, any format); ``batch["user_id"]``
-    ``[1]`` and ``batch["hist"]`` ``[1, seq_len]``. The two-tower head
-    decodes, then scores: the candidates run through the item tower.
-    Returns ``(scores [C], (top scores, top ids))``, where ``C`` counts
-    every slot of the decoded grid (pad slots are id 0, as in the
-    reference). ``plan="auto"`` decodes with the kernels on the card (the
-    reference's off-TPU switch to its gather-lowered decoder is a TPU
-    lowering choice; the decoded ids are the same). The reference's
-    deprecated unpacked ``cand_*`` batch keys are not ported.
+    ``CompressedIntArray`` (delta-coded, any format); ``batch["hist"]``
+    ``[1, seq_len]`` and, for two-tower, ``batch["user_id"]`` ``[1]``. The
+    dot-product heads (SASRec, BERT4Rec) score in one pass of kernel 2's
+    ``dot_score`` epilogue on the card: the candidates' rows of the
+    item table (in ``dtype``) dot the last hidden state, and only ids and
+    scores come out. The tower and ranker heads (two-tower, BST) decode
+    (kernel 1), then score: two-tower through the item tower, BST through
+    the whole ranker per candidate, ``BST_ROWS`` candidates at a time
+    (rows are independent; all 2^20 at once would hold a ``[2^20, 8, 21,
+    21]`` float32 attention). Returns ``(scores [C], (top scores, top
+    ids))``, where ``C`` counts every slot of the decoded grid (pad slots
+    are id 0, as in the reference). ``plan="auto"`` decodes with the
+    kernels on the card (the reference's off-TPU switch to its
+    gather-lowered decoder is a TPU lowering choice; the decoded ids are
+    the same). The reference's deprecated unpacked ``cand_*`` batch keys
+    are not ported.
     """
     from repro_torch.kernels.vbyte_decode import dispatch
 
-    if cfg.kind != "two_tower":
-        raise NotImplementedError(_LATER.format(cfg.kind))
-    cands = dispatch.decode(batch["cands"], plan=plan).reshape(-1)
-    u = user_tower(params, batch["user_id"], batch["hist"], cfg, dtype=dtype)
-    i = item_tower(params, cands, cfg, dtype=dtype)  # [C, v]
-    scores = (i @ u[0]).float()
+    arr = batch["cands"]
+    if cfg.kind in ("sasrec", "bert4rec"):
+        h = _seq_repr(params, batch["hist"], cfg,
+                      causal=cfg.kind == "sasrec", dtype=dtype)[:, -1]  # [1, d]
+        table = params.item_emb.to(dtype)
+        ids, scores = dispatch.decode(
+            arr, epilogue="dot_score",
+            epilogue_operands={"table": table, "query": h}, plan=plan)
+        cands, scores = ids.reshape(-1), scores.reshape(-1)
+    else:
+        cands = dispatch.decode(arr, plan=plan).reshape(-1)
+        if cfg.kind == "two_tower":
+            u = user_tower(params, batch["user_id"], batch["hist"], cfg,
+                           dtype=dtype)
+            i = item_tower(params, cands, cfg, dtype=dtype)  # [C, v]
+            scores = (i @ u[0]).to(torch.float32)
+        elif cfg.kind == "bst":  # every candidate through the ranker
+            parts = cands.split(BST_ROWS)
+            scores = torch.cat([
+                bst_forward(params, batch["hist"].expand(len(c), -1), c,
+                            cfg, dtype=dtype) for c in parts])
+        else:
+            raise ValueError(cfg.kind)
     top_s, top_i = topk_lower_index(scores, top_k)
     return scores, (top_s, cands[top_i])

@@ -1,12 +1,13 @@
 """Architecture registry of the port: configs and shape resolution.
 
-The port of the two-tower and gin-tu parts of ``repro/models/registry.py``
-(``family_of``, ``resolve_config``, ``reduced_config``, and the GNN
-family's ``_family_init`` for training). The LM and the other recsys
-architectures, and recsys training, wait for the model stack (ROADMAP
-queue 1 item 14); asking for them raises ``NotImplementedError``.
-Abstract inputs, shardings and step functions are mesh/XLA tools with no
-counterpart on one card.
+The port of the recsys and gin-tu parts of ``repro/models/registry.py``
+(``family_of``, ``resolve_config``, ``reduced_config``, the families'
+``_family_init`` for training) and, in place of its abstract inputs, the
+recsys family's concrete batches (:func:`recsys_batch_for`: the leaves
+and dtypes of the reference's ``_recsys_batch``). The LM architectures
+wait for the model stack (ROADMAP queue 1 item 14.4); asking for them
+raises ``NotImplementedError``. Shardings and step functions are
+mesh/XLA tools with no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -17,18 +18,21 @@ from repro_torch.configs.shapes import GNN_SHAPES, RECSYS_SHAPES, ShapeDef
 
 ARCH_IDS = {
     "gin-tu": "repro_torch.configs.gin_tu",
+    "sasrec": "repro_torch.configs.sasrec",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "bst": "repro_torch.configs.bst",
 }
-# the reference's other architectures, not ported yet
+# the reference's LM architectures, not ported yet
 LATER_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b", "h2o-danube-1.8b", "yi-6b",
-               "glm4-9b", "sasrec", "bert4rec", "bst")
+               "glm4-9b")
 
 
 def _module(arch_id: str):
     if arch_id in LATER_ARCHS:
         raise NotImplementedError(
             f"architecture {arch_id!r} is not ported yet (ROADMAP queue 1 "
-            "item 14)")
+            "item 14.4)")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; expected one "
                          f"of {tuple(ARCH_IDS)}")
@@ -61,14 +65,74 @@ def resolve_config(arch_id: str, shape_name: str, *, overrides=None):
 
 
 def _family_init(fam: str):
-    """The family's ``init_params(cfg, *, seed, device)`` for a train state:
-    the GNN family's only."""
+    """The family's ``init_params(cfg, *, seed, device)`` for a train
+    state."""
     if fam == "gnn":
         from repro_torch.models import gnn
 
         return gnn.init_params
+    if fam == "recsys":
+        from repro_torch.models import recsys
+
+        return recsys.init_params
     raise NotImplementedError(f"training the {fam!r} family is not ported "
-                              "yet (ROADMAP queue 1 item 14)")
+                              "yet (ROADMAP queue 1 item 14.4)")
+
+
+def recsys_batch_for(cfg, shape: ShapeDef, rng, *, device) -> dict:
+    """A concrete batch of ``shape`` for the recsys config ``cfg``, drawn
+    from the numpy generator ``rng``: the leaves and dtypes of the
+    reference's ``_recsys_batch`` (int32 tensors on ``device``).
+
+    * train — ``data.synthetic.recsys_batch`` at the shape's batch;
+    * serve — ``hist [B, L]`` and ``target [B]`` (BST), ``user_id [B]``,
+      ``hist`` and one candidate list ``cands [C]`` (two-tower), else
+      ``hist`` and ``cands [B, C]``: the reference's ``serve_recsys``
+      draws, in its order;
+    * retrieval — ``hist [1, L]`` (and ``user_id [1]`` for two-tower) and
+      ``cands``, a ``CompressedIntArray`` of the shape's ``n_candidates``
+      distinct sorted ids drawn from the table's rows ``[1,
+      vocab_rows)``: vbyte, differential, block 128, its payload stride a
+      multiple of the shape's ``payload_stride``.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import recsys_batch
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+    B, L, k = shape.dims["batch"], cfg.seq_len, cfg.kind
+    if shape.step == "train":
+        b = recsys_batch(rng, k, B, L, cfg.n_items, n_mask=cfg.n_mask,
+                         n_negatives=cfg.n_negatives, n_users=cfg.n_users)
+        return {name: t(v) for name, v in b.items()}
+    if shape.step == "serve":
+        C = cfg.serve_candidates
+        if k == "bst":
+            return {"hist": t(rng.integers(1, cfg.n_items, (B, L))),
+                    "target": t(rng.integers(1, cfg.n_items, B))}
+        if k == "two_tower":
+            return {"user_id": t(rng.integers(1, 100, B)),
+                    "hist": t(rng.integers(1, cfg.n_items, (B, L))),
+                    "cands": t(rng.integers(1, cfg.n_items, C))}
+        return {"hist": t(rng.integers(1, cfg.n_items, (B, L))),
+                "cands": t(rng.integers(1, cfg.n_items, (B, C)))}
+    if shape.step == "retrieval":
+        from repro_torch.core import CompressedIntArray
+
+        n = shape.dims["n_candidates"]
+        batch = {"hist": t(rng.integers(1, cfg.n_items, (1, L)))}
+        if k == "two_tower":
+            batch["user_id"] = t(rng.integers(1, max(cfg.n_users, 2), 1))
+        ids = np.sort(rng.choice(np.arange(1, cfg.vocab_rows, dtype=np.int64),
+                                 n, replace=False))
+        batch["cands"] = CompressedIntArray.encode(
+            ids.astype(np.uint64), differential=True,
+            stride_multiple=shape.dims["payload_stride"], device=device)
+        return batch
+    raise ValueError((k, shape.step))
 
 
 def reduced_config(arch_id: str):

@@ -61,14 +61,34 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
+GROUP_ELEMS = 1 << 27  # leaves a multi-tensor group takes, in elements
+
+
+def _groups(keys: list, params: dict) -> list[list]:
+    """``keys`` in runs of at most ``GROUP_ELEMS`` elements (a larger leaf
+    alone), so the update's float32 temporaries never outgrow a few
+    copies of its largest group."""
+    out, cur, n = [], [], 0
+    for k in keys:
+        size = params[k].numel()
+        if cur and n + size > GROUP_ELEMS:
+            out.append(cur)
+            cur, n = [], 0
+        cur.append(k)
+        n += size
+    return out + ([cur] if cur else [])
+
+
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict,
                  cfg: OptimizerConfig):
     """One AdamW step, in place on ``params`` and the moments: returns
     ``(params, opt_state, metrics)`` with ``opt_state["step"]`` advanced
     and ``metrics`` the global norm before clipping (``grad_norm``) and the
-    step's ``lr``. Multi-tensor (``torch._foreach_*``): a few launches for
-    all leaves, each operation rounded where the reference's is."""
+    step's ``lr``. Multi-tensor (``torch._foreach_*``) over groups of
+    leaves (:func:`_groups`): a few launches a group, each operation
+    rounded where the reference's is (elementwise, so the grouping
+    changes no bit), each temporary freed as soon as it is used."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -78,25 +98,31 @@ def adamw_update(params: dict, grads: dict, opt_state: dict,
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(b1, stepf)
     bc2 = 1 - torch.pow(b2, stepf)
-    keys = list(params)
-    m = [opt_state["m"][k] for k in keys]
-    v = [opt_state["v"][k] for k in keys]
-    g = torch._foreach_mul([grads[k].to(torch.float32) for k in keys], scale)
-    torch._foreach_mul_(m, b1)  # m = b1·m + (1 − b1)·g
-    torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
-    sq = torch._foreach_mul(g, g)  # v = b2·v + (1 − b2)·g²
-    torch._foreach_mul_(sq, 1 - b2)
-    torch._foreach_mul_(v, b2)
-    torch._foreach_add_(v, sq)
-    denom = torch._foreach_div(v, bc2)  # √(v / bc2) + eps
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, cfg.eps)
-    step_dir = torch._foreach_div(torch._foreach_div(m, bc1), denom)
-    pf = [params[k].to(torch.float32) for k in keys]
-    upd = torch._foreach_mul(pf, cfg.weight_decay)  # lr·(dir + wd·p)
-    torch._foreach_add_(upd, step_dir)
-    torch._foreach_mul_(upd, lr)
-    torch._foreach_copy_([params[k] for k in keys],
-                         torch._foreach_sub(pf, upd))
+    for keys in _groups(list(params), params):
+        m = [opt_state["m"][k] for k in keys]
+        v = [opt_state["v"][k] for k in keys]
+        g = torch._foreach_mul([grads[k].to(torch.float32) for k in keys],
+                               scale)
+        torch._foreach_mul_(m, b1)  # m = b1·m + (1 − b1)·g
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        sq = torch._foreach_mul(g, g)  # v = b2·v + (1 − b2)·g²
+        del g
+        torch._foreach_mul_(sq, 1 - b2)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, sq)
+        del sq
+        denom = torch._foreach_div(v, bc2)  # √(v / bc2) + eps
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.eps)
+        step_dir = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+        del denom
+        pf = [params[k].to(torch.float32) for k in keys]
+        upd = torch._foreach_mul(pf, cfg.weight_decay)  # lr·(dir + wd·p)
+        torch._foreach_add_(upd, step_dir)
+        del step_dir
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_copy_([params[k] for k in keys],
+                             torch._foreach_sub(pf, upd))
+        del upd, pf
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -22,7 +22,7 @@ from repro.models import registry as Rreg
 from repro.train import init_train_state as r_init_state
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import (gnn_train_state_from_tree,
-                                 gnn_train_state_tree)
+                                 train_state_tree)
 from repro_torch.models import registry as Treg
 from repro_torch.robustness import CheckpointError
 from repro_torch.tree import flatten
@@ -137,7 +137,7 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path,
                                                    grad_compression):
     cfg, tcfg, rs, ts = _gin_states(grad_compression)
     RManager(str(tmp_path)).save(5, rs)
-    fresh = gnn_train_state_tree(
+    fresh = train_state_tree(
         gnn_train_state_from_tree(
             jax.tree_util.tree_map(lambda x: np.zeros_like(np.asarray(x)),
                                    rs), tcfg, device="cpu"))
@@ -146,7 +146,7 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path,
     _assert_same(jax.tree_util.tree_map(
         lambda x: torch.as_tensor(np.asarray(x)), rs), got)
     state = gnn_train_state_from_tree(got, tcfg, device="cpu")
-    _assert_same(gnn_train_state_tree(ts), gnn_train_state_tree(state))
+    _assert_same(train_state_tree(ts), train_state_tree(state))
     assert int(state["opt"]["step"]) == 17
 
 
@@ -154,7 +154,7 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path,
 def test_port_checkpoint_restores_in_the_reference(tmp_path,
                                                    grad_compression):
     cfg, tcfg, rs, ts = _gin_states(grad_compression)
-    CheckpointManager(str(tmp_path)).save(9, gnn_train_state_tree(ts))
+    CheckpointManager(str(tmp_path)).save(9, train_state_tree(ts))
     example = jax.tree_util.tree_map(jnp.zeros_like, rs)
     got, step = RManager(str(tmp_path)).restore_latest(example)
     assert step == 9

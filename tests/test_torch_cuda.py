@@ -1629,3 +1629,62 @@ def test_decode_span_encloses_each_kernel_launch(dev, tmp_path):
         assert got["outside"] == got["mismatched"] == 0, (fmt, got)
         assert got["ranges"] == got["spans"] == len(
             tele.tracer.durations("decode")), (fmt, got)
+
+
+# -- the recsys family's shapes on the card -----------------------------------
+# retrieval_cand of SASRec (bf16 d = 50: 100-byte rows, 4-byte copies and a
+# padded mma k-step) and BERT4Rec (bf16 d = 64): the whole item table, 2^20
+# distinct sorted candidate ids (vbyte, differential, block 128), one query
+RECSYS_DOT = {"sasrec": 50, "bert4rec": 64}
+
+
+@pytest.mark.parametrize("model", list(RECSYS_DOT))
+@pytest.mark.parametrize("table_dt", [torch.bfloat16, torch.float32])
+def test_kernel2_dot_score_recsys_widths(dev, model, table_dt):
+    d = RECSYS_DOT[model]
+    V = -(-((1 << 20) + 2) // 512) * 512
+    rng = np.random.default_rng(d)
+    ids = np.sort(rng.choice(np.arange(1, V, dtype=np.int64), 1 << 20,
+                             replace=False)).astype(np.uint64)
+    arr = CompressedIntArray.encode(ids, differential=True,
+                                    stride_multiple=256, device=dev)
+    g = torch.Generator(device=dev).manual_seed(d)
+    table = (torch.randn(V, d, generator=g, device=dev) * 0.02).to(table_dt)
+    for nq in (1, 8):
+        q = torch.randn(nq, d, generator=g, device=dev).to(torch.bfloat16)
+        _dot_matches_plain(arr.device_operands(), table, q, "vbyte", 128,
+                           True, (model, table_dt, nq))
+
+
+# (heads, head dim, sequence, causal) of SASRec, BERT4Rec and BST
+RECSYS_ATTENTION = {"sasrec": (1, 50, 50, True),
+                    "bert4rec": (2, 32, 200, False),
+                    "bst": (8, 4, 21, False)}
+
+
+@pytest.mark.parametrize("model", list(RECSYS_ATTENTION))
+def test_sdpa_attention_matches_plain_for_each_model(dev, model):
+    """``flash_attention`` on the card (``scaled_dot_product_attention``)
+    against its plain chunked version at bf16 for each model's head
+    layout: outputs within 2 bf16 ulps of their largest magnitude, the
+    gradients of q, k, v within relative L2 2^-5 (both round to bf16 at
+    other places in the backward)."""
+    from repro_torch.nn import attention
+
+    H, D, L, causal = RECSYS_ATTENTION[model]
+    g = torch.Generator(device=dev).manual_seed(L)
+    q, k, v = (torch.randn(512, L, H, D, generator=g, device=dev)
+               .requires_grad_(True) for _ in range(3))
+    w = torch.randn(512, L, H, D, generator=g, device=dev)
+    outs = []
+    for plan in ("auto", "plain"):
+        with attention.plan(plan):
+            o = attention.flash_attention(q, k, v, causal=causal, q_chunk=L,
+                                          kv_chunk=L)
+            grads = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+        outs.append((o.detach().float(), grads))
+    (o_s, g_s), (o_p, g_p) = outs
+    ulp = 2.0 ** (int(np.floor(np.log2(float(o_p.abs().max())))) - 7)
+    assert float((o_s - o_p).abs().max()) <= 2 * ulp, model
+    for a, b in zip(g_s, g_p):
+        assert float((a - b).norm() / b.norm()) <= 2.0**-5, model

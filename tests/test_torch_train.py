@@ -300,11 +300,14 @@ def test_molecule_batch_matches_reference():
 
 # -- registry and launcher ----------------------------------------------------
 def test_registry_family_init():
+    from repro_torch.models import recsys
+
     assert Treg._family_init("gnn") is T.init_params
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Treg._family_init("recsys")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        launcher.main(["--arch", "two-tower-retrieval", "--steps", "1",
+    assert Treg._family_init("recsys") is recsys.init_params
+    with pytest.raises(NotImplementedError, match="item 14.4"):
+        Treg._family_init("lm")
+    with pytest.raises(NotImplementedError, match="item 14.4"):
+        launcher.main(["--arch", "mixtral-8x7b", "--steps", "1",
                        "--reduced", "--device", "cpu"])
 
 
