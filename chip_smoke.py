@@ -136,6 +136,33 @@ fault. One JSON line per phase:
    SDPA backend PyTorch picked for serving and for training. Phase
    ``parity_recsys_dot_score`` times ``dot_score`` at that retrieval
    shape (bf16 d = 50 and 64).
+   Path ``lm`` — the LM family at full width (configs unchanged,
+   parameters from ``--seed``), every launch count set to 0 just before
+   the path and read just after: ``lm_pipeline`` (a Zipf token stream at
+   vocab 32,000 through ``CompressedTokenPipeline(plan="auto")`` at 8 ×
+   4,097 tokens a step: every batch bit for bit against ``plan="torch"``
+   and the raw stream, one kernel 1 launch a step); ``lm_serve`` for
+   h2o-danube-1.8b (4 prompts of 8,192 tokens, twice its window:
+   ``prefill``, ``prefill_chunked(chunk=4096)``, 32 greedy
+   ``decode_step``s) and olmoe-1b-7b (4 × 2,048, 32 steps) under
+   ``torch.inference_mode``, each freed before the next: seconds, ms a
+   token, tokens a second, peak bytes, the SDPA backend, ``moe_drop_frac``
+   at prefill and decode; chunked against whole prefill (logits and
+   cache), decode logits at S..S+3 against a forward over the longer
+   sequence, and the plain attention against the default, within 2^-5
+   of the largest |logit| (olmoe's checks at float32, its decode check
+   with capacity E / K on the prompts' first 256 tokens: at bf16 its
+   router sends some tokens to other experts on last-bit differences;
+   the bf16 readings are reported); ``lm_train``: h2o-danube-1.8b at
+   train_4k's 4,096 tokens, 8 rows (cut from 256), microbatch 4, under
+   deterministic algorithms, batches from the pipeline: one microbatch's
+   gradients within 2^-4 of the plain attention's, 4 AdamW steps (peak_lr
+   3e-4, warm-up 1; losses finite, the last below the first; ms by
+   forward / backward / AdamW, peak bytes), a replay from a fresh
+   ``init_params`` of the seed and a restart from a checkpoint after step
+   2 at 2 of the 24 layers (full widths), bit for bit. Then
+   ``parity_lm_pipeline``: kernel 1 on the pipeline's shard, held and
+   timed.
 6. path ``gin`` — gin-tu at full width over an ogbn-products-sized graph
    made from ``--seed``, adjacency compressed: both decodes of
    ``decode_compressed_edges``, ``forward`` and ``loss_fn`` (GIN's
@@ -3910,6 +3937,591 @@ def run_recsys(np, torch, args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path lm: the token pipeline, LM serving and LM training at full width
+# ---------------------------------------------------------------------------
+LM_VOCAB = 32_000  # the pipeline's token ids (h2o-danube's vocabulary)
+LM_PIPE_ROWS, LM_PIPE_SEQ = 8, 4096  # tokens a step: 8 × 4,097
+LM_PIPE_STEPS = 4
+# prompts of each served config: h2o-danube at twice its window (the ring
+# wraps; prefill_chunked takes its swa_local path), olmoe at 2,048
+LM_SERVE = {"h2o-danube-1.8b": {"batch": 4, "prompt": 8192, "chunk": 4096},
+            "olmoe-1b-7b": {"batch": 4, "prompt": 2048, "chunk": None}}
+LM_DECODE_STEPS = 32  # greedy decode steps timed
+LM_COPY_STEPS = 8  # decode steps timed with the cache copied each step
+LM_CHECK_STEPS = 4  # decode positions S..S+3 held against a forward
+LM_FORWARD_EXTRA = 16  # ... over S+16 tokens (a multiple of 16 wide)
+LM_MOE_CHECK_PROMPT = 256  # an MoE config's check prompt (no drops)
+LM_SERVE_RTOL = 2.0**-5  # of the largest |logit| (the recsys serve bound)
+LM_TRAIN_ARCH = "h2o-danube-1.8b"
+LM_TRAIN_STEPS = 4
+LM_CKPT_STEP = 1  # a checkpoint after the 2nd step: the restart runs 3, 4
+LM_RESTART_LAYERS = 2  # the restart's depth (full widths)
+LM_PEAK_LR = 3e-4  # the train launcher's default
+LM_GRAD_RTOL = 2.0**-4  # relative L2 a leaf: the GIN and recsys train bound
+
+
+def _on_card(what: str, *tensors) -> None:
+    """No fallback that hides the card: every tensor of the path is on it."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            die(f"lm {what}: a tensor of the path is on {t.device}")
+
+
+def _max_rel(torch, a, b) -> float:
+    """max |a − b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+@contextlib.contextmanager
+def _drop_recorder():
+    """Every ``moe_apply``'s ``moe_drop_frac`` while the block runs, in
+    call order (one a layer a call)."""
+    from repro_torch.models import lm
+
+    real, seen = lm.moe_lib.moe_apply, []
+
+    def recorded(*a, **kw):
+        out, aux = real(*a, **kw)
+        seen.append(aux["moe_drop_frac"])
+        return out, aux
+
+    lm.moe_lib.moe_apply = recorded
+    try:
+        yield seen
+    finally:
+        lm.moe_lib.moe_apply = real
+
+
+def _mean_drop(seen) -> float | None:
+    return float(sum(float(x) for x in seen) / len(seen)) if seen else None
+
+
+def lm_pipeline(np, torch, args):
+    """A ``token_stream`` at vocab 32,000 through
+    ``CompressedTokenPipeline(plan="auto")`` at 8 × 4,097 tokens a step:
+    every step's batch bit for bit against ``plan="torch"`` and the raw
+    stream, one kernel 1 launch a step. Returns (record, pipeline)."""
+    from repro_torch.data.pipeline import CompressedTokenPipeline
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels.vbyte_decode import kernel
+
+    B, S = LM_PIPE_ROWS, LM_PIPE_SEQ
+    n = B * (S + 1)
+    toks = token_stream(np.random.default_rng(args.seed + 5),
+                        n * LM_PIPE_STEPS, LM_VOCAB)
+    pipe = CompressedTokenPipeline(toks, B, S, device="cuda")
+    plain = CompressedTokenPipeline(toks, B, S, plan="torch", device="cuda")
+    raw = torch.as_tensor(toks.astype(np.int32), device="cuda")
+    ms, launches = [], []
+    for step in range(LM_PIPE_STEPS):
+        before = kernel.launches.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipe.get_batch(step)["tokens"]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(kernel.launches.count - before)
+        _on_card("pipeline", got)
+        want = plain.get_batch(step)["tokens"]
+        if not (torch.equal(got, want) and torch.equal(
+                got.reshape(-1), raw[step * n:(step + 1) * n])):
+            die(f"lm pipeline step {step}: batch differs from plan='torch' "
+                "or the raw stream")
+    if launches != [1] * LM_PIPE_STEPS:
+        die(f"lm pipeline: kernel 1 launches per step {launches}, not 1")
+    return {"batch": [B, S + 1], "steps": LM_PIPE_STEPS, "vocab": LM_VOCAB,
+            "compression_ratio": pipe.compression_ratio(),
+            "bits_per_int": pipe.shard(0).bits_per_int,
+            "get_batch_ms": ms, "kernel1_launches_per_step": launches,
+            "batches_equal": True}, pipe
+
+
+def parity_lm_pipeline(np, torch, pipe) -> dict:
+    """Kernel 1 alone on the pipeline's first shard (257 blocks, not
+    differential), held bit for bit against its plain version and timed
+    (L2 cold) beside it and its bound; the kernels line's
+    ``lm_pipeline``. Outside the path's counted window."""
+    from repro_torch.kernels.vbyte_decode import epilogues, kernel
+
+    arr = pipe.shard(0)
+    ops = arr.device_operands()
+    kw = dict(block_size=arr.block_size, differential=False)
+    leaves = (ops["payload"], ops["counts"], ops["bases"])
+    plain = epilogues.PLAIN_DECODERS["vbyte"]
+    out = kernel.vbyte_decode_blocked_cuda(*leaves, **kw)
+    ref = plain(*leaves, **kw)
+    err = _max_err(out, ref)
+    if err or not torch.equal(out, ref):
+        die(f"lm pipeline: kernel 1 differs from its plain version ({err})")
+    st = decode_stats("vbyte", ops, arr.payload_bytes, arr.n)
+    timer = ColdTimer(torch)
+    k_ms = timer.ms(lambda: kernel.vbyte_decode_blocked_cuda(*leaves, **kw),
+                    reps=20)
+    p_ms = timer.ms(lambda: plain(*leaves, **kw), reps=5)
+    del timer
+    return {**st, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "gints_per_s": st["n_ints"] / k_ms / 1e6,
+            "plain_gints_per_s": st["n_ints"] / p_ms / 1e6}
+
+
+def _serve_logits(torch, lm, params, cfg, tokens, positions, dtype):
+    """A forward over ``tokens`` and the head at ``positions`` in
+    ``dtype``: float32 logits ``[B, len(positions), V]``."""
+    from repro_torch.nn import layers as nnl
+
+    hidden, _, _ = lm.forward(params, tokens, cfg, dtype=dtype)
+    return nnl.dense(params.lm_head, hidden[:, positions],
+                     dtype=dtype).float()
+
+
+def lm_serve(np, torch, arch: str, args) -> dict:
+    """One LM config unchanged, parameters from ``--seed``, under
+    ``torch.inference_mode()``: ``prefill`` of the prompts,
+    ``prefill_chunked`` (where a chunk is set), decode logits at S..S+3
+    against a forward over the longer sequence, LM_DECODE_STEPS greedy
+    ``decode_step``s (and LM_COPY_STEPS with the cache copied before each,
+    the functional update's cost), and the plain attention's prefill and
+    decode against the default's."""
+    import copy
+
+    from repro_torch.models import lm, registry
+    from repro_torch.nn import attention
+
+    spec = LM_SERVE[arch]
+    B, S, chunk = spec["batch"], spec["prompt"], spec["chunk"]
+    cfg = registry.resolve_config(arch, "prefill_32k")
+    rng = np.random.default_rng(args.seed + 7)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (B, S + LM_FORWARD_EXTRA)).astype(np.int32),
+        device="cuda")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    _on_card(f"{arch} params", *params.parameters())
+    rec = {"arch": arch, "batch": B, "prompt": S,
+           "params": cfg.param_count(), "init_seconds": round(t_init, 3)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def fresh(cache):
+        return {"k": cache["k"].clone(), "v": cache["v"].clone(),
+                "index": cache["index"]}
+
+    def hold(what, err):
+        rec.setdefault("held", {})[what] = err
+        if not err <= LM_SERVE_RTOL:
+            die(f"lm {arch} serve: {what} {err} > {LM_SERVE_RTOL} of the "
+                "largest value")
+
+    # room for every decoded token (a full cache clamps the write to its
+    # last slot); a window's ring holds `window` slots whatever the room
+    cap = S + max(LM_DECODE_STEPS, LM_COPY_STEPS, LM_CHECK_STEPS)
+    with torch.inference_mode():
+        head = prompt[:, :S]
+        # warm-up: one call at the prompt's shape (cuBLAS and SDPA plans:
+        # cuDNN builds a graph per shape on its first call)
+        (_, _), t_first = timed(lambda: lm.prefill(params, head, cfg,
+                                                   cache_capacity=cap))
+        rec["prefill_first_call_seconds"] = t_first
+        torch.cuda.reset_peak_memory_stats()
+        with _drop_recorder() as drops:
+            (logits, cache), t_pre = timed(lambda: lm.prefill(
+                params, head, cfg, cache_capacity=cap))
+        _on_card(f"{arch} prefill", logits, cache["k"], cache["v"])
+        rec.update(prefill_seconds=t_pre,
+                   prefill_tokens_per_s=B * S / t_pre,
+                   prefill_peak_bytes=torch.cuda.max_memory_allocated(),
+                   cache_shape=list(cache["k"].shape),
+                   moe_drop_frac_prefill=_mean_drop(drops))
+        if chunk:  # (a window: its cache is the ring either way)
+            run_chunked = lambda: lm.prefill_chunked(  # noqa: E731
+                params, head, cfg, chunk=chunk)
+            rec["prefill_chunked_first_call_seconds"] = timed(run_chunked)[1]
+            (logits_c, cache_c), t_c = timed(run_chunked)
+            rec["prefill_chunked_seconds"] = t_c
+            hold("prefill_chunked logits", _max_rel(torch, logits_c, logits))
+            for part in ("k", "v"):
+                hold(f"prefill_chunked cache {part}",
+                     _max_rel(torch, cache_c[part], cache[part]))
+            if cache_c["index"] != cache["index"]:
+                die(f"lm {arch}: chunked index {cache_c['index']}")
+            del logits_c, cache_c
+        # greedy decode, timed: the cache updated in place
+        c = fresh(cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        lm.decode_step(params, fresh(cache), tok, cfg)  # warm-up
+        torch.cuda.synchronize()
+        out = []
+        with _drop_recorder() as drops:
+            t0 = time.perf_counter()
+            for _ in range(LM_DECODE_STEPS):
+                out.append(tok)
+                lg, c = lm.decode_step(params, c, tok, cfg)
+                tok = torch.argmax(lg, -1).to(torch.int32)
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+        _on_card(f"{arch} decode", lg, c["k"], tok)
+        if c["index"] != S + LM_DECODE_STEPS or not bool(
+                torch.isfinite(lg).all()):
+            die(f"lm {arch} decode: index {c['index']}, finite "
+                f"{bool(torch.isfinite(lg).all())}")
+        rec.update(decode_steps=LM_DECODE_STEPS,
+                   decode_ms_per_token=t_dec / LM_DECODE_STEPS * 1e3,
+                   decode_tokens_per_s=B * LM_DECODE_STEPS / t_dec,
+                   moe_drop_frac_decode=_mean_drop(drops),
+                   sample=torch.stack(out, 1)[0, :8].tolist())
+        c2 = fresh(c)
+        rec["decode_busy_share"] = _profile(
+            torch, f"lm_decode/{arch}",
+            lambda: lm.decode_step(params, c2, tok, cfg), 1, unit="tokens")
+        del c2
+        # the same steps with the whole cache copied before each (what the
+        # reference's functional update costs: a copy per layer per token)
+        c = fresh(cache)
+        tok = out[0]
+        t0 = time.perf_counter()
+        for _ in range(LM_COPY_STEPS):
+            c = fresh(c)
+            lg, c = lm.decode_step(params, c, tok, cfg)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        rec["decode_ms_per_token_copying_cache"] = (
+            (time.perf_counter() - t0) / LM_COPY_STEPS * 1e3)
+        rec["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+        # the held checks: the plain attention's prefill and decode steps
+        # against the default's, and the default's decode logits at
+        # Sc..Sc+3 against a forward over Sc+16 tokens. A dense config runs
+        # them as served: bf16, the whole prompts. An MoE config's router
+        # turns the smallest differences into other experts for a few
+        # tokens, and with capacity drops into other dropped rows (at
+        # decode's 4 tokens C = 1); it runs them with capacity factor E / K
+        # (every token fits: no call drops), at float32, on the prompts'
+        # first LM_MOE_CHECK_PROMPT tokens, and the unchanged config's bf16
+        # reading over the whole prompts is reported beside them
+        if cfg.moe:
+            ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            Sc, dt = LM_MOE_CHECK_PROMPT, torch.float32
+            lg_d, c_d = lm.prefill(params, head[:, :Sc], ccfg,
+                                   cache_capacity=cap, dtype=dt)
+            rec["checks_at"] = {"capacity_factor": ccfg.moe.capacity_factor,
+                                "prompt": Sc, "dtype": "float32"}
+        else:
+            ccfg, Sc, dt = cfg, S, torch.bfloat16
+            lg_d, c_d = logits, fresh(cache)
+            rec["checks_at"] = {"prompt": S, "dtype": "bf16"}
+        with attention.plan("plain"):
+            (lg_p, c_p), t_plain = timed(lambda: lm.prefill(
+                params, head[:, :Sc], ccfg, cache_capacity=cap, dtype=dt))
+        hold("plain-plan prefill logits", _max_rel(torch, lg_d, lg_p))
+        dec = []
+        for i in range(LM_CHECK_STEPS):
+            tok = prompt[:, Sc + i]
+            lg, c_d = lm.decode_step(params, c_d, tok, ccfg, dtype=dt)
+            with attention.plan("plain"):
+                lg_p, c_p = lm.decode_step(params, c_p, tok, ccfg, dtype=dt)
+            hold(f"plain-plan decode {i} logits", _max_rel(torch, lg, lg_p))
+            dec.append(lg)
+        want = _serve_logits(torch, lm, params, ccfg,
+                             prompt[:, :Sc + LM_FORWARD_EXTRA],
+                             list(range(Sc, Sc + LM_CHECK_STEPS)), dt)
+        hold("decode vs forward logits", _max_rel(torch, torch.stack(dec, 1),
+                                                  want))
+        del lg_d, c_d, lg_p, c_p, dec, want
+        if cfg.moe:
+            with attention.plan("plain"):
+                (lg_p, _), t_plain = timed(lambda: lm.prefill(
+                    params, head, cfg, cache_capacity=cap))
+            rec["unheld_bf16_plain_vs_default_prefill"] = _max_rel(
+                torch, logits, lg_p)
+            del lg_p
+        rec["plain_prefill_seconds"] = t_plain
+        # the SDPA backend of the prefill's attention
+        q = torch.empty(B, S, cfg.n_heads, cfg.dh, device="cuda",
+                        dtype=torch.bfloat16)
+        kv = torch.empty(B, S, cfg.n_kv_heads, cfg.dh, device="cuda",
+                         dtype=torch.bfloat16)
+        bites = attention._window_bites(q, kv, causal=True, window=cfg.window)
+        mask = (attention.attention_mask(S, S, causal=True, window=cfg.window,
+                                         device="cuda") if bites else None)
+        rec["sdpa_backend_prefill"] = attention.sdpa_backend(
+            q, kv, kv, causal=True, mask=mask)
+        rec["prefill_attention_masked"] = bites
+    del params, cache, logits, q, kv, mask, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+class _LMStepClock:
+    """CUDA events around each microbatch's loss (forward) and around
+    AdamW, for the clock's lifetime: a step's forward is the sum of its
+    losses' spans, its backward the rest before AdamW (gradients of each
+    microbatch and their sum), AdamW its own span."""
+
+    def __init__(self, torch):
+        from repro_torch.train import train_state
+
+        self.torch, self.ts = torch, train_state
+        self.real = train_state.adamw_update
+        self.ev = []
+
+    def mark(self, name):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.ev.append((name, e))
+
+    def loss(self, fn):
+        def timed(*a, **kw):
+            self.mark("fwd_start")
+            out = fn(*a, **kw)
+            self.mark("fwd_end")
+            return out
+        return timed
+
+    def __enter__(self):
+        def timed_adamw(*a, **kw):
+            self.mark("opt_start")
+            out = self.real(*a, **kw)
+            self.mark("end")
+            return out
+
+        self.ts.adamw_update = timed_adamw
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.adamw_update = self.real
+        return False
+
+    def step_ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        ev, out = self.ev, {"forward": 0.0, "backward": 0.0}
+        for (a, ea), (b, eb) in zip(ev, ev[1:]):
+            if a == "fwd_start":
+                out["forward"] += ea.elapsed_time(eb)
+            elif a == "fwd_end":
+                out["backward"] += ea.elapsed_time(eb)
+            elif a == "opt_start":
+                out["optimizer"] = ea.elapsed_time(eb)
+        out["step"] = ev[0][1].elapsed_time(ev[-1][1])
+        self.ev = []
+        return out
+
+
+def lm_train(np, torch, args) -> dict:
+    """h2o-danube-1.8b at full width at train_4k's 4,096 tokens a row, 8
+    rows (cut from 256), microbatch 4 as its config, under deterministic
+    algorithms, batches from the pipeline (kernel 1, one launch a step):
+    one microbatch's gradients against the plain attention's; LM_TRAIN_STEPS
+    AdamW steps (ms by forward / backward / AdamW, peak bytes); a replay
+    from a fresh ``init_params`` of the seed; a restart from a checkpoint
+    after LM_CKPT_STEP at LM_RESTART_LAYERS layers (full widths). Losses
+    and state bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import lm_train_state_from_tree, train_state_tree
+    from repro_torch.data.pipeline import CompressedTokenPipeline
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels.vbyte_decode import kernel
+    from repro_torch.launch.train import LM_TRAIN_ROWS
+    from repro_torch.models import lm, registry
+    from repro_torch.nn import attention
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   make_train_step, param_leaves)
+
+    cfg = registry.resolve_config(LM_TRAIN_ARCH, "train_4k")
+    S = registry.shapes_of(LM_TRAIN_ARCH)["train_4k"].dims["seq_len"]
+    B = LM_TRAIN_ROWS
+    toks = token_stream(np.random.default_rng(args.seed + 6),
+                        B * (S + 1) * LM_TRAIN_STEPS, cfg.vocab)
+    pipe = CompressedTokenPipeline(toks, B, S, device="cuda")
+    opt = OptimizerConfig(peak_lr=LM_PEAK_LR, warmup_steps=1,
+                          total_steps=LM_TRAIN_STEPS)
+    rec = {"arch": LM_TRAIN_ARCH, "batch": [B, S + 1],
+           "microbatch": cfg.microbatch, "params": cfg.param_count(),
+           "steps": LM_TRAIN_STEPS, "peak_lr": LM_PEAK_LR}
+
+    def batch(step):
+        before = kernel.launches.count
+        b = pipe.get_batch(step)
+        torch.cuda.synchronize()
+        if kernel.launches.count != before + 1:
+            die(f"lm train: step {step}'s batch took "
+                f"{kernel.launches.count - before} kernel 1 launches")
+        _on_card("train batch", b["tokens"])
+        return b
+
+    def run(c, state, steps, clock=None, on_step=None, start=0):
+        step_fn = make_train_step(
+            clock.loss(lambda p, b: lm.loss_fn(p, b, c)) if clock else
+            (lambda p, b: lm.loss_fn(p, b, c)), opt, microbatch=c.microbatch)
+        losses, times, pipe_ms = [], [], []
+        for i in range(start, start + steps):
+            t0 = time.perf_counter()
+            b = batch(i)
+            pipe_ms.append((time.perf_counter() - t0) * 1e3)
+            if clock is not None:
+                clock.mark("start")
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+            if clock is not None:
+                times.append(clock.step_ms())
+            if on_step is not None:
+                on_step(i, state)
+        return state, losses, times, pipe_ms
+
+    with _deterministic(torch):
+        params = lm.init_params(cfg, seed=args.seed, device="cuda")
+        _on_card("train params", *params.parameters())
+        # one microbatch's gradients against the plain attention's
+        leaves = param_leaves(params)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        mb = {"tokens": batch(0)["tokens"][:B // cfg.microbatch]}
+        loss_fn = lambda p, b: lm.loss_fn(p, b, cfg)  # noqa: E731
+        loss_k, g_k = _grads(torch, params, mb, loss_fn)
+        with attention.plan("plain"):
+            loss_p, g_p = _grads(torch, params, mb, loss_fn)
+        err = _rel_l2(g_k, g_p)
+        worst = max(err, key=err.get)
+        rec["grads"] = {"rows": int(mb["tokens"].shape[0]), "loss": loss_k,
+                        "loss_plain": loss_p, "leaves": len(err),
+                        "max_rel_l2_err": err[worst], "worst_leaf": worst,
+                        "rel_l2_rtol": LM_GRAD_RTOL}
+        del g_k, g_p, mb
+        if not err[worst] <= LM_GRAD_RTOL:
+            die(f"lm train: gradients against the plain attention: {worst} "
+                f"rel L2 {err[worst]} > {LM_GRAD_RTOL}")
+        q = torch.empty(B // cfg.microbatch, S, cfg.n_heads, cfg.dh,
+                        device="cuda", dtype=torch.bfloat16,
+                        requires_grad=True)
+        kv = torch.empty(B // cfg.microbatch, S, cfg.n_kv_heads, cfg.dh,
+                         device="cuda", dtype=torch.bfloat16,
+                         requires_grad=True)
+        if attention._window_bites(q, kv, causal=True, window=cfg.window):
+            die("lm train: the window bites at train_4k")
+        rec["sdpa_backend"] = attention.sdpa_backend(q, kv, kv, causal=True)
+        del q, kv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        state = init_train_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _LMStepClock(torch) as clock:
+            state, losses, times, pipe_ms = run(cfg, state, LM_TRAIN_STEPS,
+                                                clock)
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(np.isfinite(losses).all())
+        if not (finite and losses[-1] < losses[0]):
+            die(f"lm train: losses finite={finite}, {losses}")
+        fp = _fingerprint(torch, state)
+        del state, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        replay = init_train_state(lm.init_params(cfg, seed=args.seed,
+                                                 device="cuda"))
+        replay, r_losses, _, _ = run(cfg, replay, LM_TRAIN_STEPS)
+        replay_equal = r_losses == losses and _fingerprint(torch, replay) == fp
+        t_replay = time.perf_counter() - t0
+        # one more step of the replayed run, traced: where a step's time goes
+        b = batch(0)
+        step_fn = make_train_step(lambda p, x: lm.loss_fn(p, x, cfg), opt,
+                                  microbatch=cfg.microbatch)
+        rec["busy_share"] = _profile(torch, f"lm_train/{LM_TRAIN_ARCH}",
+                                     lambda: step_fn(replay, b), 1,
+                                     unit="steps")
+        del replay, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the restart, at LM_RESTART_LAYERS layers
+        cfg2 = dataclasses.replace(cfg, n_layers=LM_RESTART_LAYERS)
+        ckpt_dir = tempfile.mkdtemp(prefix="lm_ckpt_")
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+
+        def save(i, st):
+            if i == LM_CKPT_STEP:
+                mgr.save(i, train_state_tree(st))
+
+        t0 = time.perf_counter()
+        full, u_losses, _, _ = run(cfg2, init_train_state(lm.init_params(
+            cfg2, seed=args.seed, device="cuda")), LM_TRAIN_STEPS,
+            on_step=save)
+        fp2 = _fingerprint(torch, full)
+        del full
+        tree, at = mgr.restore_latest(train_state_tree(init_train_state(
+            lm.init_params(cfg2, seed=args.seed + 1, device="cuda"))))
+        resumed = lm_train_state_from_tree(tree, cfg2, device="cuda")
+        del tree
+        resumed, c_losses, _, _ = run(cfg2, resumed,
+                                      LM_TRAIN_STEPS - at - 1, start=at + 1)
+        restart = {"layers": LM_RESTART_LAYERS, "from_step": at,
+                   "losses": c_losses, "uninterrupted": u_losses,
+                   "equal": (at == LM_CKPT_STEP and c_losses == u_losses[at + 1:]
+                             and _fingerprint(torch, resumed) == fp2),
+                   "seconds": round(time.perf_counter() - t0, 3)}
+        del resumed
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not replay_equal or not restart["equal"]:
+        die(f"lm train: replay equal {replay_equal} (losses {r_losses}; "
+            f"uninterrupted {losses}), restart {restart}")
+    ms = {k: [round(t[k], 3) for t in times] for k in times[0]}
+    rec.update(losses=losses, ms_per_step=ms,
+               median_ms={k: float(np.median(v)) for k, v in ms.items()},
+               tokens_per_s=B * S / (float(np.median(ms["step"])) / 1e3),
+               pipeline_ms=[round(x, 3) for x in pipe_ms],
+               peak_device_bytes=peak, replay_equal=replay_equal,
+               replay_seconds=round(t_replay, 3), restart=restart)
+    return rec
+
+
+def run_lm(np, torch, args) -> dict:
+    """Path ``lm``: the compressed token pipeline (kernel 1), serving of
+    h2o-danube-1.8b and olmoe-1b-7b and training of h2o-danube-1.8b at full
+    width. Every launch count is set to 0 just before the path and read
+    just after."""
+    t_path = time.perf_counter()
+    counters = _launch_counters()
+    _reset(torch, counters)
+    pipe, pipeline = lm_pipeline(np, torch, args)
+    emit("lm_pipeline", **pipe)
+    serve = {}
+    for arch in LM_SERVE:
+        serve[arch] = lm_serve(np, torch, arch, args)
+        emit("lm_serve", **serve[arch])
+    train = lm_train(np, torch, args)
+    emit("lm_train", **train)
+    launches = _read(torch, counters)
+    seconds = time.perf_counter() - t_path
+    # one kernel 1 launch a batch: the pipeline's steps, the gradient
+    # check's batch, the run, its replay, the traced step, the restart's run
+    # and its resumed steps; no other kernel
+    want = dict.fromkeys(counters, 0)
+    want["vbyte_decode_blocked"] = (LM_PIPE_STEPS + 2 + 3 * LM_TRAIN_STEPS
+                                    + LM_TRAIN_STEPS - LM_CKPT_STEP - 1)
+    if {k: launches[k] for k in counters} != want:
+        die(f"lm: launches {launches}, expected {want}")
+    emit("path_done", path="lm", seconds=round(seconds, 3),
+         launches=launches)
+    kernel1 = parity_lm_pipeline(np, torch, pipeline)
+    emit("parity_lm_pipeline", **kernel1)
+    return {"launches": launches, "seconds": seconds, "pipeline": pipe,
+            "serve": serve, "train": train, "kernel1": kernel1}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernels line
 # ---------------------------------------------------------------------------
 def kernels_line(records, max_err, paths):
@@ -3963,7 +4575,9 @@ def kernels_line(records, max_err, paths):
     line = {"kernels": [
         dict(decode_entry("vbyte_decode_blocked", "vbyte_decode.cu",
                           "kernel.py:167"),
-             gin_gaps=variant(gin["gin_gaps"])),
+             gin_gaps=variant(gin["gin_gaps"]),
+             # the LM token pipeline's shard: 8 × 4,097 tokens, 257 blocks
+             lm_pipeline=variant(paths["lm"]["kernel1"])),
         dict(entry("fused_decode", "fused_decode.cu", "epilogues.py:383",
                    timed[head]),
              max_abs_err=max(max_err["fused_decode"],
@@ -4082,6 +4696,7 @@ def main(argv=None) -> int:
     paths = phase_main_paths(np, torch, args)
     paths["two_tower"] = run_two_tower(np, torch, args)
     paths["recsys"] = run_recsys(np, torch, args)
+    paths["lm"] = run_lm(np, torch, args)
     paths["gin"] = run_gin(np, torch, args)
     paths["gin_train"] = paths["gin"].pop("train")
     emit("done", seconds=round(time.perf_counter() - t_start, 3),

@@ -1,2 +1,2 @@
-"""Model configurations and input shapes the port runs (the port of the
-two-tower and gin-tu parts of ``repro/configs``)."""
+"""Model configurations and input shapes the port runs (the port of
+``repro/configs``: the LM, GNN and recsys families)."""

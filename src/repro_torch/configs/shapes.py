@@ -1,5 +1,5 @@
-"""Input shapes of the GNN and recsys families (data only; the port of the
-``GNN_SHAPES`` and ``RECSYS_SHAPES`` parts of ``repro/configs/shapes.py``).
+"""Input shapes of the LM, GNN and recsys families (data only; the port of
+``repro/configs/shapes.py``).
 
 Sizes that feed node/edge-sharded tensors are padded up to multiples of
 512 for the reference's multi-pod mesh; ``raw_nodes``/``raw_edges`` are
@@ -21,6 +21,14 @@ class ShapeDef:
 def _pad512(n: int) -> int:
     return -(-n // 512) * 512
 
+
+# -- LM transformers ---------------------------------------------------------
+LM_SHAPES = {
+    "train_4k": ShapeDef("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    "prefill_32k": ShapeDef("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    "decode_32k": ShapeDef("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    "long_500k": ShapeDef("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+}
 
 # d_feat / n_classes are dataset properties of each shape's public source:
 # cora (full_graph_sm), reddit (minibatch_lg), ogbn-products, synthetic molecules.

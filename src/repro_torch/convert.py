@@ -1,5 +1,6 @@
 """Carry state across from the JAX package: compressed arrays, the
-compressed index, the recsys and GIN parameters, and their train states.
+compressed index, the LM, recsys and GIN parameters, and their train
+states.
 
 These functions build the port's objects from plain numpy leaves, so an
 index built by the reference (or saved from it) serves on the card with
@@ -142,6 +143,36 @@ def gnn_params_from_numpy(params: dict, cfg, device=None):
                _tensor(params["head"]["b"], dev))
 
 
+def lm_params_from_numpy(params: dict, cfg, device=None):
+    """The port's :class:`~repro_torch.models.lm.LM` from the reference's
+    LM tree as numpy arrays, its layers stacked on a leading ``L`` axis
+    as there: ``embed/emb``, ``layers/{attn_norm/scale,
+    attn/{wq,wk,wv,wo}/w, ffn_norm/scale}`` with ``layers/ffn/{gate,up,
+    down}/w`` (dense) or ``layers/moe/{router,gate,up,down}/w`` (MoE),
+    ``final_norm/scale`` and ``lm_head/w``."""
+    from repro_torch.models.lm import LM, Layers
+    from repro_torch.nn.layers import RMSNorm, SwiGLU
+    from repro_torch.nn.moe import MoE
+
+    dev = resolve_device(device)
+    lp = params["layers"]
+
+    def w(tree, *keys):
+        return tuple(_tensor(tree[k]["w"], dev) for k in keys)
+
+    ffn = moe = None
+    if cfg.moe:
+        moe = MoE(*w(lp["moe"], "router", "gate", "up", "down"))
+    else:
+        ffn = SwiGLU(*w(lp["ffn"], "gate", "up", "down"))
+    layers = Layers(RMSNorm(_tensor(lp["attn_norm"]["scale"], dev)),
+                    *w(lp["attn"], "wq", "wk", "wv", "wo"),
+                    RMSNorm(_tensor(lp["ffn_norm"]["scale"], dev)), ffn, moe)
+    return LM(_tensor(params["embed"]["emb"], dev), layers,
+              RMSNorm(_tensor(params["final_norm"]["scale"], dev)),
+              _tensor(params["lm_head"]["w"], dev))
+
+
 def train_state_tree(state: dict) -> dict:
     """A train state (``repro_torch.train.init_train_state``) as the
     reference's train-state tree: ``params`` (the model's ``tree()``),
@@ -197,3 +228,8 @@ def recsys_train_state_from_tree(tree: dict, cfg, device=None) -> dict:
     """The port's recsys train state (any kind) from the reference's
     train-state tree."""
     return train_state_from_tree(tree, recsys_params_from_numpy, cfg, device)
+
+
+def lm_train_state_from_tree(tree: dict, cfg, device=None) -> dict:
+    """The port's LM train state from the reference's train-state tree."""
+    return train_state_from_tree(tree, lm_params_from_numpy, cfg, device)

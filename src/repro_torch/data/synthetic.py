@@ -4,8 +4,9 @@
 document ids drawn from a 50M-document universe, grouped by list length
 2^K..2^{K+1}-1 — shorter lists have larger gaps and compress worse.
 ``random_graph`` makes a graph with skewed in-degrees for the GNN,
-``molecule_batch`` a batch of small graphs for its graph task, and
-``recsys_batch`` a recsys training batch.
+``molecule_batch`` a batch of small graphs for its graph task,
+``recsys_batch`` a recsys training batch and ``token_stream`` the LM
+pipeline's Zipf token ids.
 """
 from __future__ import annotations
 
@@ -49,6 +50,13 @@ def posting_tfs(rng: np.random.Generator, length: int, *,
     indistinguishable after quantization)."""
     z = rng.zipf(zipf_a, size=length)
     return np.minimum(z, max_tf).astype(np.int64)
+
+
+def token_stream(rng: np.random.Generator, n_tokens: int, vocab: int,
+                 zipf_a: float = 1.2) -> np.ndarray:
+    """Zipf-distributed token ids (the LM data pipeline's input), uint64."""
+    z = rng.zipf(zipf_a, size=n_tokens)
+    return np.minimum(z - 1, vocab - 1).astype(np.uint64)
 
 
 def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int,

@@ -15,6 +15,8 @@ embedding bags over compressed id lists) and :class:`SearchEngine`
         --arch two-tower-retrieval --device cpu --requests 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec \
         --device cpu --batch 4  # or bert4rec, bst: serve_scores
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --device cpu --tokens 4  # or any LM arch: prefill + greedy decode
 
 The port of the single-device paths of ``repro/launch/serve.py``. The
 search index's compressed streams live on the card for the engine's
@@ -40,8 +42,12 @@ the card, requests microbatched to buckets 1/2/4/8, scored by kernel 2's
 ``bag_sum`` embedding-bag endpoint. ``--arch sasrec | bert4rec | bst``
 runs :func:`serve_recsys` at the reduced config: ``serve_scores`` over a
 batch of ``--batch`` histories and their candidates, timed over 10
-calls. The mesh-sharded engines are still to port (ROADMAP queue 1 item
-13); the port writes no benchmark file.
+calls. An LM architecture (``olmoe-1b-7b``, ``mixtral-8x7b``,
+``h2o-danube-1.8b``, ``yi-6b``, ``glm4-9b``) runs :func:`serve_lm` at
+the reduced config, as the reference's CLI does: a 16-token prompt per
+row, ``prefill``, then ``--tokens`` greedy ``decode_step``s, in ms a
+token and tokens a second. The mesh-sharded engines are still to port
+(ROADMAP queue 1 item 13); the port writes no benchmark file.
 """
 from __future__ import annotations
 
@@ -1162,14 +1168,60 @@ def serve_recsys(cfg, batch: int, *, seed: int = 0, device=None) -> dict:
             "finite": bool(torch.isfinite(scores).all())}
 
 
+def serve_lm(cfg, tokens_to_gen: int, batch: int, *, seed: int = 0,
+             device=None) -> dict:
+    """Greedy generation for an LM config: parameters from ``seed``, a
+    ``[batch, 16]`` prompt drawn from ``default_rng(seed)``, ``prefill``
+    with room for the generated tokens, then ``tokens_to_gen``
+    ``decode_step``s under ``torch.inference_mode``; the decode loop is
+    timed (ms a token, tokens a second over the batch)."""
+    from repro_torch.models import lm
+
+    dev = resolve_device(device)
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (batch, 16)).astype(np.int32), device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with torch.inference_mode():
+        logits, cache = lm.prefill(params, prompt, cfg,
+                                   cache_capacity=16 + tokens_to_gen)
+        out = []
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(tokens_to_gen):
+            out.append(tok)
+            logits, cache = lm.decode_step(params, cache, tok, cfg)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        sync()
+    dt = (time.perf_counter() - t0) / max(tokens_to_gen, 1)
+    sample = torch.stack(out, 1)[0, :12].tolist() if out else []
+    print(f"generated {tokens_to_gen} tokens x batch {batch}: "
+          f"{dt*1e3:.1f} ms/token ({batch/dt:.0f} tok/s aggregate) on {dev}")
+    print("sample:", sample)
+    return {"batch": batch, "tokens": tokens_to_gen,
+            "ms_per_token": round(dt * 1e3, 3),
+            "tokens_per_s": round(batch / dt, 3), "device": str(dev),
+            "finite": bool(torch.isfinite(logits).all()), "sample": sample}
+
+
 def main(argv=None):
+    from repro_torch.models import registry
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    choices=["search", "two-tower-retrieval", "sasrec",
-                             "bert4rec", "bst"])
+                    choices=["search", *(a for a in registry.ARCH_IDS
+                                         if a != "gin-tu")])
     ap.add_argument("--batch", type=int, default=4,
                     help="sasrec / bert4rec / bst: rows a serve_scores call "
-                         "scores")
+                         "scores; an LM: prompts generated at once")
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="an LM: tokens generated after the prompt")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--candidates", type=int, default=1 << 16,
                     help="two-tower: candidate corpus size")
@@ -1200,10 +1252,10 @@ def main(argv=None):
                              metrics_out=args.metrics_out)
     else:
         # the reference's CLI serves the reduced config of the architecture
-        from repro_torch.models import registry
-
         cfg = registry.reduced_config(args.arch)
-        if cfg.kind == "two_tower":
+        if registry.family_of(args.arch) == "lm":
+            stats = serve_lm(cfg, args.tokens, args.batch, device=args.device)
+        elif cfg.kind == "two_tower":
             stats = serve_engine(cfg, requests=args.requests,
                                  candidates=args.candidates,
                                  top_k=args.top_k, device=args.device)

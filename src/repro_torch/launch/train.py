@@ -3,19 +3,25 @@
 Assembles an architecture's config (registry), its train step, a
 synthetic data source, checkpoint and restart, and straggler detection,
 on one card (the reference's launcher also builds a device mesh; one
-card has none). The GNN and recsys families train; the LM waits for the
-model stack (ROADMAP queue 1 item 14.4)::
+card has none). The LM, GNN and recsys families train::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
         --steps 20 --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \\
         --steps 20 --reduced --device cpu   # or bert4rec, bst,
                                             # two-tower-retrieval
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch h2o-danube-1.8b --steps 3 --reduced --device cpu  # any LM
 
 ``--reduced`` trains the reduced config on the reference's batch (GNN: a
 256-node, 2,048-edge ``random_graph``; recsys: a fresh ``recsys_batch``
-of 16 rows every step). Without it, the config is the full one at the
+of 16 rows every step; LM: 4 × 64-token batches of a ``token_stream``
+through ``CompressedTokenPipeline``, decoded on the device, one
+microbatch). Without it, the config is the full one at the
 architecture's first shape, and the batch is the one that shape names:
+for an LM, ``train_4k``'s 4,096 tokens a row at ``LM_TRAIN_ROWS`` rows
+(cut from the shape's 256, which one card does not hold), in the
+config's microbatches, from the same pipeline;
 for gin-tu, ``full_graph_sm``'s node and edge counts, its adjacency
 compressed (``data/graph.compress_adjacency``) because the shape asks
 for compressed adjacency; for recsys, ``train_batch``'s 65,536 rows
@@ -44,13 +50,26 @@ from repro_torch.train import OptimizerConfig, init_train_state, make_train_step
 
 REDUCED_NODES, REDUCED_EDGES = 256, 2048  # the reference's reduced batch
 REDUCED_RECSYS_BATCH = 16
+REDUCED_LM_BATCH, REDUCED_LM_SEQ = 4, 64  # the reference's reduced batch
+LM_TRAIN_ROWS = 8  # train_4k rows a step on one card (the shape has 256)
 
 
 def make_batch_fn(arch: str, cfg, shape, rng, device):
     """The host data source: ``step -> batch`` of tensors on ``device``.
     ``shape`` None is the reduced batch; else a ``ShapeDef``: the graph's
-    node and edge counts, or the recsys train batch."""
+    node and edge counts, the recsys train batch, or the LM's sequence
+    length (at ``LM_TRAIN_ROWS`` rows)."""
     fam = registry.family_of(arch)
+    if fam == "lm":
+        from repro_torch.data.pipeline import CompressedTokenPipeline
+        from repro_torch.data.synthetic import token_stream
+
+        B, S = ((REDUCED_LM_BATCH, REDUCED_LM_SEQ) if shape is None else
+                (LM_TRAIN_ROWS, shape.dims["seq_len"]))
+        pipe = CompressedTokenPipeline(
+            token_stream(rng, B * (S + 1) * 32, cfg.vocab), B, S,
+            device=device)
+        return pipe.get_batch
     if fam == "recsys":
         import dataclasses
 
@@ -59,9 +78,6 @@ def make_batch_fn(arch: str, cfg, shape, rng, device):
             dims={"batch": REDUCED_RECSYS_BATCH})
         return lambda step: registry.recsys_batch_for(cfg, shape, rng,
                                                       device=device)
-    if fam != "gnn":
-        raise NotImplementedError(f"training the {fam!r} family is not "
-                                  "ported yet (ROADMAP queue 1 item 14.4)")
     from repro_torch.data.synthetic import random_graph
 
     n, e = ((REDUCED_NODES, REDUCED_EDGES) if shape is None else
@@ -88,7 +104,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--reduced", action="store_true",
-                    help="the reduced config on the reference's small batch")
+                    help="the reduced config on the reference's small batch; "
+                         "without it the full config at its first shape (an "
+                         f"LM: train_4k at {LM_TRAIN_ROWS} rows, cut from 256)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--grad-compression", action="store_true")
@@ -101,13 +119,22 @@ def main(argv=None) -> dict:
     fam = registry.family_of(args.arch)
     init = registry._family_init(fam)
     shape = None
+    microbatch = 1
     if args.reduced:
         cfg = registry.reduced_config(args.arch)
     else:
         name = list(registry.shapes_of(args.arch))[0]
         shape = registry.shapes_of(args.arch)[name]
         cfg = registry.resolve_config(args.arch, name)
-    if fam == "recsys":
+        if fam == "lm":
+            microbatch = cfg.microbatch
+    if fam == "lm":
+        from repro_torch.convert import lm_train_state_from_tree
+        from repro_torch.models import lm
+
+        loss_fn = lambda p, b: lm.loss_fn(p, b, cfg)  # noqa: E731
+        from_tree = lm_train_state_from_tree
+    elif fam == "recsys":
         from repro_torch.models import recsys
 
         loss_fn = lambda p, b: recsys.loss_fn(p, b, cfg)  # noqa: E731
@@ -124,7 +151,8 @@ def main(argv=None) -> dict:
     state = init_train_state(init(cfg, seed=0, device=dev),
                              grad_compression=args.grad_compression)
     step_fn = make_train_step(loss_fn, opt,
-                              grad_compression=args.grad_compression)
+                              grad_compression=args.grad_compression,
+                              microbatch=microbatch)
 
     mgr = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
     start = 0

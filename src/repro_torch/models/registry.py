@@ -1,38 +1,36 @@
 """Architecture registry of the port: configs and shape resolution.
 
-The port of the recsys and gin-tu parts of ``repro/models/registry.py``
-(``family_of``, ``resolve_config``, ``reduced_config``, the families'
-``_family_init`` for training) and, in place of its abstract inputs, the
-recsys family's concrete batches (:func:`recsys_batch_for`: the leaves
-and dtypes of the reference's ``_recsys_batch``). The LM architectures
-wait for the model stack (ROADMAP queue 1 item 14.4); asking for them
-raises ``NotImplementedError``. Shardings and step functions are
-mesh/XLA tools with no counterpart on one card.
+The port of ``repro/models/registry.py`` for the LM, GNN and recsys
+families (``family_of``, ``shapes_of``, ``resolve_config``,
+``reduced_config``, the families' ``_family_init`` for training) and, in
+place of its abstract inputs, concrete batches with the leaves and
+dtypes of the reference's ``_lm_batch`` (:func:`lm_batch_for`) and
+``_recsys_batch`` (:func:`recsys_batch_for`). Shardings and step
+functions are mesh/XLA tools with no counterpart on one card.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.shapes import GNN_SHAPES, RECSYS_SHAPES, ShapeDef
+from repro_torch.configs.shapes import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+                                        ShapeDef)
 
 ARCH_IDS = {
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
     "gin-tu": "repro_torch.configs.gin_tu",
     "sasrec": "repro_torch.configs.sasrec",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
     "bert4rec": "repro_torch.configs.bert4rec",
     "bst": "repro_torch.configs.bst",
 }
-# the reference's LM architectures, not ported yet
-LATER_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b", "h2o-danube-1.8b", "yi-6b",
-               "glm4-9b")
 
 
 def _module(arch_id: str):
-    if arch_id in LATER_ARCHS:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet (ROADMAP queue 1 "
-            "item 14.4)")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; expected one "
                          f"of {tuple(ARCH_IDS)}")
@@ -44,12 +42,17 @@ def family_of(arch_id: str) -> str:
 
 
 def shapes_of(arch_id: str) -> dict[str, ShapeDef]:
-    return {"gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}[family_of(arch_id)]
+    return {"lm": LM_SHAPES, "gnn": GNN_SHAPES,
+            "recsys": RECSYS_SHAPES}[family_of(arch_id)]
 
 
-def resolve_config(arch_id: str, shape_name: str, *, overrides=None):
+def resolve_config(arch_id: str, shape_name: str, *, dp_degree: int = 1,
+                   overrides=None):
     """The architecture's config for one shape: a GNN takes ``d_feat``,
-    ``n_classes``, ``task`` and the adjacency mode from the shape."""
+    ``n_classes``, ``task`` and the adjacency mode from the shape; an MoE
+    LM dispatches in ``max(dp_degree, 1)`` groups. ``overrides`` replace
+    fields; a key ``"moe.<field>"`` replaces a field of the MoE
+    settings."""
     mod = _module(arch_id)
     cfg = mod.CONFIG
     shape = shapes_of(arch_id)[shape_name]
@@ -59,24 +62,52 @@ def resolve_config(arch_id: str, shape_name: str, *, overrides=None):
             n_classes=shape.dims["n_classes"],
             task=shape.dims.get("task", "node"),
             compressed_adjacency=shape.dims.get("compressed_adjacency", False))
+    if mod.FAMILY == "lm" and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch_groups=max(dp_degree, 1)))
     if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
+        moe_over = {k[4:]: v for k, v in overrides.items()
+                    if k.startswith("moe.")}
+        flat_over = {k: v for k, v in overrides.items() if "." not in k}
+        if moe_over and getattr(cfg, "moe", None) is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, **moe_over))
+        if flat_over:
+            cfg = dataclasses.replace(cfg, **flat_over)
     return cfg
 
 
 def _family_init(fam: str):
     """The family's ``init_params(cfg, *, seed, device)`` for a train
     state."""
+    if fam == "lm":
+        from repro_torch.models import lm
+
+        return lm.init_params
     if fam == "gnn":
         from repro_torch.models import gnn
 
         return gnn.init_params
-    if fam == "recsys":
-        from repro_torch.models import recsys
+    from repro_torch.models import recsys
 
-        return recsys.init_params
-    raise NotImplementedError(f"training the {fam!r} family is not ported "
-                              "yet (ROADMAP queue 1 item 14.4)")
+    return recsys.init_params
+
+
+def lm_batch_for(cfg, shape: ShapeDef, rng, *, device) -> dict:
+    """A concrete batch of the LM ``shape`` for ``cfg``, token ids drawn
+    uniformly from ``[0, vocab)`` by the numpy generator ``rng``: the
+    leaves and dtypes of the reference's ``_lm_batch`` (int32 tensors on
+    ``device``): ``tokens [B, S+1]`` (train), ``[B, S]`` (prefill) or
+    ``[B]`` (decode), at the shape's ``global_batch`` and ``seq_len``."""
+    import numpy as np
+    import torch
+
+    B, S = shape.dims["global_batch"], shape.dims["seq_len"]
+    dims = {"train": (B, S + 1), "prefill": (B, S), "decode": (B,)}
+    if shape.step not in dims:
+        raise ValueError(shape.step)
+    toks = rng.integers(0, cfg.vocab, size=dims[shape.step])
+    return {"tokens": torch.as_tensor(toks.astype(np.int32), device=device)}
 
 
 def recsys_batch_for(cfg, shape: ShapeDef, rng, *, device) -> dict:
@@ -136,9 +167,21 @@ def recsys_batch_for(cfg, shape: ShapeDef, rng, *, device) -> dict:
 
 
 def reduced_config(arch_id: str):
-    """Tiny same-family config: a few layers, small dims and tables."""
+    """Tiny same-family config: a few layers and experts, small dims and
+    tables."""
     mod = _module(arch_id)
     cfg, fam = mod.CONFIG, mod.FAMILY
+    if fam == "lm":
+        moe = cfg.moe and dataclasses.replace(
+            cfg.moe, n_experts=min(cfg.moe.n_experts, 4),
+            top_k=min(cfg.moe.top_k, 2), d_ff=64, capacity_factor=2.0,
+        )
+        return dataclasses.replace(
+            cfg, n_layers=2, d_model=64,
+            n_heads=4, n_kv_heads=max(1, min(cfg.n_kv_heads, 2)), head_dim=16,
+            d_ff=128, vocab=512, moe=moe, window=cfg.window and 16,
+            q_chunk=16, kv_chunk=16, loss_chunk=8,
+        )
     if fam == "gnn":
         return dataclasses.replace(cfg, n_layers=2, d_hidden=16,
                                    d_feat=12, n_classes=3)

@@ -12,19 +12,37 @@ and the running sums in float32 (:func:`repro_torch.nn.layers.accum_matmul`),
 the sum divided by ``max(l, 1e-30)``. It has no ``pallas_call`` in the
 reference, and no kernel of its own here.
 
-On the card, where a call is plain causal or bidirectional attention over
-the whole sequence (no window, no offsets, no ``kv_valid``; causal only
-with ``Sq == Skv``), it calls ``torch.nn.functional.scaled_dot_product_attention``
-on the pre-scaled ``q`` with ``scale=1``: the same function (float32
-scores and softmax, ``p`` rounded to the compute dtype before ``p·v``,
-float32 sums), summed in another order. :func:`sdpa_backend` names the
-backend PyTorch picks for a call. ``PLAN = "plain"`` (or the
-:func:`plan` context manager) keeps the plain version on the card too.
-Everything else runs the plain version on either device.
+On the card (``PLAN = "auto"``) every call goes through
+``torch.nn.functional.scaled_dot_product_attention`` on the pre-scaled
+``q`` with ``scale=1``: the same function (float32 scores and softmax,
+``p`` rounded to the compute dtype before ``p·v``, float32 sums), summed
+in another order.
+
+* Where the call is plain causal or bidirectional attention over the
+  whole sequence (no offsets, no ``kv_valid``; causal only with ``Sq ==
+  Skv``), SDPA takes it with ``is_causal`` and no mask. A ``window`` does
+  not stop that when it cannot bite: causal, ``Sq == Skv``, no offsets
+  and ``window >= Skv`` make the band ``q − k < window`` true everywhere
+  inside the causal mask (an LM's training at ``S <= window``).
+* Everything else (a window that bites, chunked prefill's offsets and
+  ``kv_valid``) goes with the boolean ``[Sq, Skv]`` mask the plain
+  version applies (:func:`attention_mask`). No query row of the LM's
+  calls is masked whole (each sees its own position), where the plain
+  version would average ``v`` and SDPA gives no such value.
+
+:func:`sdpa_backend` names the backend PyTorch picks for a call.
+``PLAN = "plain"`` (or the :func:`plan` context manager) keeps the plain
+version on the card too; on the CPU it runs always.
+
+:func:`cache_update` writes a decode step's key or value into a copy of
+the cache, as the reference's functional update does;
+:func:`cache_update_` writes it in place, for a caller that owns the
+cache (``models/lm.py::decode_step``).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -52,12 +70,18 @@ def plan(name: str):
 # ----------------------------------------------------------------------------
 # RoPE
 # ----------------------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
 def rope_frequencies(head_dim: int, theta: float, *,
                      device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    """``1 / theta^(2i / head_dim)``, float32, made once per (head_dim,
+    theta, device): a constant made on the device costs a host-to-device
+    copy, which waits for the stream (a decode step made two a layer).
+    A normal tensor, also when first asked for under inference mode."""
+    with torch.inference_mode(False):
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+        return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                            device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -92,15 +116,37 @@ def _band_mask(q_pos, k_pos, *, causal: bool, window: int | None):
 
 def _scaled_q(q, D: int, dtype):
     # the reference multiplies by a weakly typed python float: the scale
-    # is rounded to the compute dtype first
-    return q.to(dtype) * torch.tensor(D ** -0.5, dtype=dtype, device=q.device)
+    # is rounded to the compute dtype first (then exact in the float32 the
+    # product is taken in); a Python number, not a tensor made on the
+    # device, which would be a host-to-device copy that waits for the stream
+    scale = torch.tensor(D ** -0.5, dtype=dtype).item()
+    return q.to(dtype) * scale
+
+
+def _window_bites(q, k, *, causal, window) -> bool:
+    return window is not None and not (causal and q.shape[1] == k.shape[1]
+                                       and window >= k.shape[1])
 
 
 def _sdpa_applies(q, k, *, causal, window, q_offset, kv_offset, kv_valid):
-    return (PLAN == "auto" and q.device.type == "cuda" and window is None
-            and kv_valid is None and isinstance(q_offset, int)
-            and isinstance(kv_offset, int) and q_offset == 0
-            and kv_offset == 0 and (not causal or q.shape[1] == k.shape[1]))
+    """SDPA without a mask: see the module docstring."""
+    return (PLAN == "auto" and q.device.type == "cuda"
+            and not _window_bites(q, k, causal=causal, window=window)
+            and kv_valid is None and q_offset == 0 and kv_offset == 0
+            and (not causal or q.shape[1] == k.shape[1]))
+
+
+def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int | None,
+                   q_offset: int = 0, kv_offset: int = 0, kv_valid=None,
+                   device=None) -> torch.Tensor:
+    """The boolean ``[Sq, Skv]`` mask of a call: which key each query
+    reads (the plain version's band mask and ``kv_valid``)."""
+    q_pos = q_offset + torch.arange(Sq, device=device)
+    k_pos = kv_offset + torch.arange(Skv, device=device)
+    m = _band_mask(q_pos, k_pos, causal=causal, window=window)
+    if kv_valid is not None:
+        m &= kv_valid.to(torch.bool)[None]
+    return m
 
 
 def _sdpa_inputs(q, k, v, dtype):
@@ -115,31 +161,35 @@ def _sdpa_inputs(q, k, v, dtype):
     return qh, kh, vh
 
 
-def _sdpa(q, k, v, *, causal: bool, dtype) -> torch.Tensor:
+def _sdpa(q, k, v, *, causal: bool, dtype, mask=None) -> torch.Tensor:
     """The card's route: ``scaled_dot_product_attention`` on the
-    pre-scaled ``q`` (``scale=1``), ``[B, Sq, H, D]`` in ``dtype``. Rows
-    are independent: a launch takes at most ``SDPA_MAX_BATCH`` of them
-    (the backends put the batch on a grid axis of at most 65,535)."""
+    pre-scaled ``q`` (``scale=1``), ``[B, Sq, H, D]`` in ``dtype``, with
+    ``is_causal`` or the boolean ``mask``. Rows are independent: a launch
+    takes at most ``SDPA_MAX_BATCH`` of them (the backends put the batch
+    on a grid axis of at most 65,535)."""
     B, Sq, H, D = q.shape
     qh, kh, vh = _sdpa_inputs(q, k, v, dtype)
     parts = [torch.nn.functional.scaled_dot_product_attention(
         qh[s:s + SDPA_MAX_BATCH], kh[s:s + SDPA_MAX_BATCH],
-        vh[s:s + SDPA_MAX_BATCH], is_causal=causal, scale=1.0)
+        vh[s:s + SDPA_MAX_BATCH], attn_mask=mask,
+        is_causal=causal and mask is None, scale=1.0)
         for s in range(0, B, SDPA_MAX_BATCH)]
     o = parts[0] if len(parts) == 1 else torch.cat(parts)
     return o.transpose(1, 2).reshape(B, Sq, H, D)
 
 
-def sdpa_backend(q, k, v, *, causal: bool,
-                 dtype=DEFAULT_COMPUTE_DTYPE) -> str:
+def sdpa_backend(q, k, v, *, causal: bool, dtype=DEFAULT_COMPUTE_DTYPE,
+                 mask=None) -> str:
     """The name of the backend ``scaled_dot_product_attention`` picks for
     ``flash_attention(q, k, v, causal=causal, dtype=dtype)`` on these
-    tensors (``FLASH_ATTENTION``, ``EFFICIENT_ATTENTION``,
-    ``CUDNN_ATTENTION``, ``MATH``, ...)."""
+    tensors, or with the boolean ``mask`` where the call has one
+    (``FLASH_ATTENTION``, ``EFFICIENT_ATTENTION``, ``CUDNN_ATTENTION``,
+    ``MATH``, ...)."""
     from torch.nn.attention import SDPBackend
 
     qh, kh, vh = _sdpa_inputs(q, k, v, dtype)
-    code = torch._fused_sdp_choice(qh, kh, vh, None, 0.0, causal, scale=1.0)
+    code = torch._fused_sdp_choice(qh, kh, vh, mask, 0.0,
+                                   causal and mask is None, scale=1.0)
     for name, b in SDPBackend.__members__.items():
         if int(b) == int(code):
             return name
@@ -169,6 +219,11 @@ def flash_attention(
     if _sdpa_applies(q, k, causal=causal, window=window, q_offset=q_offset,
                      kv_offset=kv_offset, kv_valid=kv_valid):
         return _sdpa(q, k, v, causal=causal, dtype=dtype)
+    if PLAN == "auto" and q.device.type == "cuda":
+        mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                              q_offset=q_offset, kv_offset=kv_offset,
+                              kv_valid=kv_valid, device=q.device)
+        return _sdpa(q, k, v, causal=causal, dtype=dtype, mask=mask)
 
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Skv)
@@ -255,7 +310,13 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
     """Write ``new [B, Hk, D]`` into ``cache [B, Sc, Hk, D]`` at time slot
     ``slot`` (a copy: the reference's update is functional). An
     out-of-range slot is clamped, as ``dynamic_update_slice`` clamps it."""
+    return cache_update_(cache.clone(), new, slot)
+
+
+def cache_update_(cache: torch.Tensor, new: torch.Tensor,
+                  slot) -> torch.Tensor:
+    """:func:`cache_update` in place: writes ``cache[:, slot]`` and
+    returns ``cache``."""
     slot = min(max(int(slot), 0), cache.shape[1] - 1)
-    out = cache.clone()
-    out[:, slot] = new.to(cache.dtype)
-    return out
+    cache[:, slot] = new.to(cache.dtype)
+    return cache

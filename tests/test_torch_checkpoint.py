@@ -3,9 +3,10 @@ checkpoint cases (round trip with bf16, VByte-coded and zigzagged integer
 leaves; pruning to ``keep`` with async saves; no partial directories),
 corrupt and truncated steps raising ``CheckpointError`` and skipped back
 by ``restore_latest``, and directories that interchange with the
-reference's ``CheckpointManager`` both ways: the reference's GIN train
-state restored by the port and the port's by the reference, every leaf
-bit for bit."""
+reference's ``CheckpointManager`` both ways: the reference's GIN and LM
+train states (dense and MoE LMs, their layers stacked ``[L, ...]``)
+restored by the port and the port's by the reference, every leaf bit
+for bit."""
 import json
 import os
 
@@ -22,7 +23,7 @@ from repro.models import registry as Rreg
 from repro.train import init_train_state as r_init_state
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import (gnn_train_state_from_tree,
-                                 train_state_tree)
+                                 lm_train_state_from_tree, train_state_tree)
 from repro_torch.models import registry as Treg
 from repro_torch.robustness import CheckpointError
 from repro_torch.tree import flatten
@@ -209,3 +210,48 @@ def test_decode_stream_matches_reference(n_max, pad, differential):
     assert n_got == int(n_want)
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.asarray(want))
+
+
+def _lm_states(arch):
+    from repro.models import lm as RL
+
+    cfg, tcfg = Rreg.reduced_config(arch), Treg.reduced_config(arch)
+    rs = r_init_state(RL.init_params(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(1)
+    rs = jax.tree_util.tree_map(  # moments away from their zeros
+        lambda x: x if x.ndim == 0 else x + jnp.asarray(
+            rng.standard_normal(x.shape).astype(np.float32)), rs)
+    rs["opt"]["step"] = jnp.int32(11)
+    ts = lm_train_state_from_tree(jax.tree_util.tree_map(np.asarray, rs),
+                                  tcfg, device="cpu")
+    return tcfg, rs, ts
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmoe-1b-7b"])
+def test_lm_checkpoints_interchange_both_ways(tmp_path, arch):
+    from repro_torch.models import lm as TL
+    from repro_torch.train import init_train_state as t_init_state
+    from repro_torch.train import param_leaves
+
+    tcfg, rs, ts = _lm_states(arch)
+    # the reference's directory, restored by the port
+    RManager(str(tmp_path / "r")).save(5, rs)
+    fresh = train_state_tree(t_init_state(TL.init_params(tcfg, seed=9,
+                                                         device="cpu")))
+    got, step = CheckpointManager(str(tmp_path / "r")).restore_latest(fresh)
+    assert step == 5
+    state = lm_train_state_from_tree(got, tcfg, device="cpu")
+    _assert_same(train_state_tree(ts), train_state_tree(state))
+    assert int(state["opt"]["step"]) == 11
+    assert all(p.requires_grad for p in param_leaves(state["params"]).values())
+    # the port's directory, restored by the reference
+    CheckpointManager(str(tmp_path / "t")).save(7, train_state_tree(ts))
+    example = jax.tree_util.tree_map(jnp.zeros_like, rs)
+    back, step = RManager(str(tmp_path / "t")).restore_latest(example)
+    assert step == 7
+    for (k, a), (_, b) in zip(flatten(back), flatten(rs)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), k)
+    with open(tmp_path / "t" / "step_00000007" / "manifest.json") as f:
+        names = [e["name"] for e in json.load(f)["leaves"]]
+    assert names == [jax.tree_util.keystr(p, simple=True, separator="/")
+                     for p, _ in jax.tree_util.tree_flatten_with_path(rs)[0]]

@@ -1688,3 +1688,125 @@ def test_sdpa_attention_matches_plain_for_each_model(dev, model):
     assert float((o_s - o_p).abs().max()) <= 2 * ulp, model
     for a, b in zip(g_s, g_p):
         assert float((a - b).norm() / b.norm()) <= 2.0**-5, model
+
+
+# -- the LM family on the card -------------------------------------------------
+def test_token_pipeline_on_the_card_matches_torch_plan(dev):
+    """Every step's batch through kernel 1 (one launch a step) bit for bit
+    against ``plan="torch"`` on the card and the raw stream."""
+    from repro_torch.data.pipeline import CompressedTokenPipeline
+    from repro_torch.data.synthetic import token_stream
+
+    B, S = 8, 4096
+    toks = token_stream(np.random.default_rng(0), B * (S + 1) * 3, 32000)
+    pipe = CompressedTokenPipeline(toks, B, S, device=dev)
+    plain = CompressedTokenPipeline(toks, B, S, plan="torch", device=dev)
+    for step in range(3):
+        before = kernel.launches.count
+        got = pipe.get_batch(step)["tokens"]
+        torch.cuda.synchronize()
+        assert kernel.launches.count == before + 1
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got, plain.get_batch(step)["tokens"])
+        raw = toks[step * B * (S + 1):(step + 1) * B * (S + 1)]
+        np.testing.assert_array_equal(got.cpu().numpy().reshape(-1),
+                                      raw.astype(np.int32))
+
+
+@pytest.mark.parametrize("G,cf", [(1, 8.0), (2, 0.5), (1, 1.25)])
+def test_moe_apply_on_the_card_matches_the_cpu(dev, G, cf):
+    """float32 on both: the dispatch bit for bit, the output and aux within
+    1e-5 of the largest magnitude (float32 sums in another order)."""
+    from repro_torch.nn import moe
+
+    g = torch.Generator().manual_seed(G)
+    p = moe.moe_init(64, 96, 16, generator=g)
+    x = torch.randn(256, 64, generator=g)
+    x[::9] = 0.0  # rows that tie every expert
+    outs = {}
+    for d in ("cpu", dev):
+        pd = moe.MoE(*(t.to(d) for t in (p.router, p.gate, p.up, p.down)))
+        outs[str(d)] = moe.moe_apply(pd, x.to(d), top_k=4,
+                                     capacity_factor=cf, dispatch_groups=G,
+                                     dtype=torch.float32)
+    (o_c, a_c), (o_g, a_g) = outs["cpu"], outs[str(dev)]
+    scale = float(o_c.abs().max())
+    assert float((o_g.cpu() - o_c).abs().max()) <= 1e-5 * scale
+    assert float(a_g["moe_drop_frac"]) == float(a_c["moe_drop_frac"])
+    assert abs(float(a_g["moe_aux_loss"]) - float(a_c["moe_aux_loss"])) \
+        <= 1e-5 * float(a_c["moe_aux_loss"])
+
+
+@pytest.mark.parametrize("case", ["window_ge_seq", "window_bites",
+                                  "offsets_and_kv_valid"])
+def test_lm_attention_routes_match_plain(dev, case):
+    """``flash_attention`` on the card at the LM's layouts (GQA 32:8, head
+    dim 80, bf16) against its plain chunked version: SDPA without a mask
+    where the window cannot bite (train_4k at S <= window), with the
+    band mask where it does, and chunked prefill's offsets with
+    ``kv_valid``. Outputs within 2 bf16 ulps of their largest magnitude;
+    gradients (the unmasked case, which trains) within relative L2
+    2^-5."""
+    from repro_torch.nn import attention
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, H, Hk, D = 2, 32, 8, 80
+    Sq, Skv = (1024, 1024) if case != "offsets_and_kv_valid" else (512, 1024)
+    window = {"window_ge_seq": 1024, "window_bites": 256,
+              "offsets_and_kv_valid": 512}[case]
+    kw = dict(causal=True, window=window, q_chunk=256, kv_chunk=512)
+    if case == "offsets_and_kv_valid":
+        kw.update(q_offset=512, kv_offset=0, kv_valid=torch.arange(
+            Skv, device=dev) >= 128)
+    grad = case == "window_ge_seq"
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).requires_grad_(grad)
+    k, v = (torch.randn(B, Skv, Hk, D, generator=g, device=dev)
+            .requires_grad_(grad) for _ in range(2))
+    w = torch.randn(B, Sq, H, D, generator=g, device=dev)
+    outs = []
+    for plan in ("auto", "plain"):
+        with attention.plan(plan):
+            o = attention.flash_attention(q, k, v, **kw)
+            grads = (torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+                     if grad else ())
+        outs.append((o.detach().float(), grads))
+    (o_s, g_s), (o_p, g_p) = outs
+    ulp = 2.0 ** (int(np.floor(np.log2(float(o_p.abs().max())))) - 7)
+    assert float((o_s - o_p).abs().max()) <= 2 * ulp, case
+    for a, b in zip(g_s, g_p):
+        assert float((a - b).norm() / b.norm()) <= 2.0**-5, case
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmoe-1b-7b"])
+def test_lm_prefill_and_decode_on_the_card_match_plain(dev, arch):
+    """A reduced config (bf16) on the card: ``prefill`` of 64 tokens (the
+    window of 16 wraps the ring), ``prefill_chunked`` (chunk 16) and 8
+    ``decode_step``s, against the same calls under the plain attention on
+    the card and against the CPU: logits within 2^-5 of the largest
+    |logit|, ``index`` equal."""
+    from repro_torch.models import lm, registry
+    from repro_torch.nn import attention
+
+    cfg = registry.reduced_config(arch)
+    params = lm.init_params(cfg, seed=2, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 72)).astype(np.int32))
+
+    def run(device, plan):
+        p = params.to(device)
+        t = toks.to(device)
+        with torch.inference_mode(), attention.plan(plan):
+            lg, cache = lm.prefill(p, t[:, :64], cfg)
+            lg_c, _ = lm.prefill_chunked(p, t[:, :64], cfg, chunk=16)
+            out = [lg, lg_c]
+            for i in range(64, 72):
+                lg, cache = lm.decode_step(p, cache, t[:, i], cfg)
+                out.append(lg)
+        assert cache["index"] == 72
+        return [x.float().cpu() for x in out]
+
+    card, plain, cpu = run(dev, "auto"), run(dev, "plain"), run("cpu", "auto")
+    for a, b, c in zip(card, plain, cpu):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2.0**-5 * scale
+        assert float((a - c).abs().max()) <= 2.0**-5 * scale

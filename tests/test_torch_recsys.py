@@ -87,13 +87,12 @@ def test_config_and_registry(model):
     assert full.param_count() == Rreg.resolve_config(
         ARCH, "retrieval_cand").param_count()
     assert Treg.family_of(ARCH) == Rreg.family_of(ARCH) == "recsys"
-    # the sequence kinds are ported (tests/test_torch_recsys_train.py);
-    # the LM architectures are not
+    # the sequence kinds are ported (tests/test_torch_recsys_train.py),
+    # and so are the LM architectures (tests/test_torch_lm.py)
     assert Treg.family_of("sasrec") == "recsys"
     assert isinstance(T.init_params(T.RecSysConfig("s", "sasrec", 10, 8, 4),
                                     device="cpu"), T.SeqRec)
-    with pytest.raises(NotImplementedError, match="item 14.4"):
-        Treg.family_of("yi-6b")
+    assert Treg.family_of("yi-6b") == "lm"
 
 
 @pytest.mark.parametrize("b", [1, 8])
