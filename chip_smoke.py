@@ -163,6 +163,31 @@ fault. One JSON line per phase:
    2 at 2 of the 24 layers (full widths), bit for bit. Then
    ``parity_lm_pipeline``: kernel 1 on the pipeline's shard, held and
    timed.
+   Path ``sharded`` — ``make_mesh((8,), ("data",))``: over the cards when
+   there are several, else 8 logical shards of ``cuda:0`` (a single
+   controller, no collective, as the reference's ``shard_map`` decode).
+   ``sharded_parity``: each format at the parity layout, 4,096 and 4,093
+   blocks (padded to 4,096), through ``decode(plan="sharded")`` for
+   ``stream`` and every kernel 2 epilogue, bit for bit against the
+   unsharded launch, padding rows zero, 8 launches a call. Then, every
+   launch count set to 0 and no worker process alive:
+   ``sharded_search`` (``SearchEngine(mesh=...)`` over the three search
+   indexes, still on the card: each path's first ``SHARDED_QUERIES``
+   queries, one of each mode, and a ``topk_driver`` query over the
+   shortest list with the two longest, so kernel 2's ``bm25_weighted``
+   scores over the mesh; answers equal to the single-device engine's,
+   QPS, p50, p99, launches a query), ``sharded_two_tower``
+   (``ServingEngine(mesh=...)`` at full width, 64 requests at bucket 8
+   and 16 bags, bit for bit against the single-device engine run after
+   the counts are read; one item table on the card), and
+   ``device_encode`` (``encode_blocked_device`` over every search
+   posting, padded to a multiple of 128, stride 640, both differential
+   settings: bytes and bases against the host encoder, both through
+   kernel 1 bit for bit; ms beside the host encoder's seconds). Then, in
+   spawned workers side by side, ``sharded_search_parity`` (answers and
+   ``QueryStats`` against ``plan="torch"`` on the same mesh) and
+   ``sharded_degraded`` (``shard_loss_drill`` over a mesh engine,
+   ``validate=True, n_shards=8``, on the ``vbyte`` index).
 6. path ``gin`` — gin-tu at full width over an ogbn-products-sized graph
    made from ``--seed``, adjacency compressed: both decodes of
    ``decode_compressed_edges``, ``forward`` and ``loss_fn`` (GIN's
@@ -1535,8 +1560,11 @@ def _profile(torch, name, work, units: int, unit: str = "queries"):
     return share
 
 
-def phase_main_paths(np, torch, args) -> dict:
-    """The three main paths over the same lists and query stream."""
+def phase_main_paths(np, torch, args) -> tuple[dict, dict]:
+    """The three main paths over the same lists and query stream. Returns
+    the paths and what path ``sharded`` serves again later: the host
+    lists, the query stream, the indexes (left on the card) and the main
+    paths' answer digests."""
     from repro_torch.data.synthetic import CLUEWEB_DOCS
     from repro_torch.launch.serve import search_lists, search_queries
 
@@ -1567,14 +1595,15 @@ def phase_main_paths(np, torch, args) -> dict:
     telemetry = phase_telemetry(np, torch, paths, qs, args)
     live_index = phase_live_index(np, torch, paths, lists, tfs, qs, groups,
                                   args)
-    for name in path_queries:  # free the indexes
-        del paths[name]["index"], paths[name]["digests"]
+    search = {"lists": lists, "qs": qs, "n_queries": path_queries,
+              "indexes": {n: paths[n].pop("index") for n in path_queries},
+              "digests": {n: paths[n].pop("digests") for n in path_queries}}
     paths["hardened_search"] = hardened
     paths["telemetry"] = telemetry
     paths["live_index"] = live_index
     gc.collect()
     torch.cuda.empty_cache()
-    return paths
+    return paths, search
 
 
 # ---------------------------------------------------------------------------
@@ -4522,6 +4551,445 @@ def run_lm(np, torch, args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path sharded: block-sharded decode and the mesh-served engines, and the
+# device encoder
+# ---------------------------------------------------------------------------
+SHARDED_SHARDS = 8
+# the search queries of each path served over the mesh: its first five,
+# one of each mode (at 10, a topk_driver query over a K=20 driver makes
+# ~4,640 whole-list decode calls: PERF.md), plus _scored_query
+SHARDED_QUERIES = 5
+SHARDED_TT_REQUESTS = 64  # two-tower requests over the mesh, at bucket 8
+SHARDED_TT_BAGS = 16
+SHARDED_PARITY_BLOCKS = (N_PARITY_BLOCKS, N_PARITY_BLOCKS - 3)
+SHARDED_TABLE_ROWS = (1 << 20) + 512  # bag_sum / dot_score ids < 2^20
+SHARDED_D = 64
+
+
+def _sharded_mesh(torch):
+    """``make_mesh((8,), ("data",))``: over the cards when there are
+    several, else 8 logical shards of ``cuda:0``."""
+    from repro_torch.distributed import make_mesh
+
+    cards = torch.cuda.device_count()
+    mesh = make_mesh((SHARDED_SHARDS,), ("data",))
+    layout = (f"{SHARDED_SHARDS} logical shards on cuda:0" if cards == 1 else
+              f"{SHARDED_SHARDS} shards over {cards} cards")
+    return mesh, layout
+
+
+def _mesh_worker(kind: str, state: dict, queries: list) -> dict:
+    """A worker (a spawned process) over the same 8-shard mesh: the index
+    placed on the card from its numpy leaves, then ``kind`` ``"replay"``
+    (``SearchEngine(mesh=..., plan="torch")``: each query's answer,
+    ``QueryStats`` as a dict and seconds) or ``"drill"`` (``validate=True``
+    over ``HARDENED_SHARDS`` logical shards, ``serve.shard_loss_drill``
+    over ``queries`` and one OR query of the victim shard's first term:
+    the drill's counts and seconds, the healthy answers' digests, the
+    launches)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.convert import index_from_numpy
+    from repro_torch.index import QueryStats
+    from repro_torch.launch.serve import (SearchEngine, SimClock,
+                                          shard_loss_drill)
+
+    index = index_from_numpy(**state, device="cuda")
+    mesh, _ = _sharded_mesh(torch)
+    if kind == "replay":
+        engine = SearchEngine(index, mesh=mesh, top_k=10, plan="torch",
+                              probe_width=512)
+        out = []
+        for mode, terms in queries:
+            st = QueryStats()
+            t0 = time.perf_counter()
+            res = engine.search(terms, mode, stats=st)
+            out.append((res, dataclasses.asdict(st),
+                        time.perf_counter() - t0))
+        return {"answers": out}
+    counters = _launch_counters()
+    _reset(torch, counters)
+    clock = SimClock()
+    engine = SearchEngine(index, mesh=mesh, validate=True,
+                          n_shards=HARDENED_SHARDS, clock=clock)
+    if engine.quarantined or engine.bound_unsafe:
+        raise AssertionError(f"clean index gated: {engine.quarantined} "
+                             f"{engine.bound_unsafe}")
+    lo, _ = engine.shards[VICTIM_SHARD]
+    qs = list(queries) + [("or", [engine.term_order[lo]])]
+    d = shard_loss_drill(engine, qs, clock, victim=VICTIM_SHARD)
+    return {**{k: v for k, v in d.items() if k != "healthy"},
+            "validate_seconds": engine.validate_seconds,
+            "digests": [_digest(a) for a in d["healthy"]],
+            "launches": _read(torch, counters)}
+
+
+def _delta(a: dict, b: dict) -> dict:
+    """Launch counts of ``b`` minus those of ``a`` (both from ``_read``)."""
+    out = {k: b[k] - v for k, v in a.items() if isinstance(v, int)}
+    out["fused_decode_by"] = dict(Counter(b["fused_decode_by"])
+                                  - Counter(a["fused_decode_by"]))
+    return out
+
+
+def sharded_parity(np, torch, mesh, counters) -> dict:
+    """Phase ``sharded_parity``: each format at the parity layout (4,096
+    blocks, and 4,093 so the padding shows) through ``decode(sh,
+    plan="sharded")`` for ``stream`` and every kernel 2 epilogue, bit for
+    bit against the unsharded launch, padding rows zero, 8 launches a
+    call."""
+    from repro_torch.core import CompressedIntArray
+    from repro_torch.core.compressed_array import FORMAT_LEAVES
+    from repro_torch.distributed import BlockSharded
+    from repro_torch.kernels.vbyte_decode import dispatch, epilogues
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    table = torch.randn(SHARDED_TABLE_ROWS, SHARDED_D, device="cuda",
+                        generator=g).to(torch.bfloat16)
+    query = torch.randn(8, SHARDED_D, device="cuda",
+                        generator=g).to(torch.bfloat16)
+    calls = 0
+    for fmt, _, datasets in _parity_plan(rng):
+        label, bits = datasets[0]
+        for nb in SHARDED_PARITY_BLOCKS:
+            enc, w_enc, bases = _dataset(np, rng, fmt, n_blocks=nb, bits=bits)
+            leaves = {k: getattr(enc, k) for k in FORMAT_LEAVES[fmt]}
+            arr = CompressedIntArray.from_operands(
+                {**leaves, "bases": bases}, format=fmt, block_size=BLOCK,
+                differential=True)
+            w = CompressedIntArray.from_operands(
+                {k: getattr(w_enc, k) for k in FORMAT_LEAVES[fmt]},
+                format=fmt, block_size=BLOCK)
+            sh, wsh = arr.shard(mesh), w.shard(mesh)
+            nbp = sh.n_blocks
+            grid = dispatch.decode(arr).cpu().numpy()
+            ex = _extras(np, torch, rng, grid, enc.counts, {}, dev)
+            rows = torch.full((nbp, 1), -1, dtype=torch.int32, device=dev)
+            rows[:nb] = ex["probe_r"]
+            eb = torch.as_tensor(rng.integers(0, 1 << 20, (nbp, BLOCK))
+                                 .astype(np.int32), device=dev)
+            w_ops = {f"w_{k}": v for k, v in wsh.device_operands().items()
+                     if k not in ("counts", "bases")}
+            cases = {"stream": {}, "checksum": {},
+                     "membership": {"probe": ex["probe_b"]},
+                     "membership_rows": {"probe": rows},
+                     "bm25_accum": {"probe": ex["probe_b"],
+                                    "impact": ex["impact"]},
+                     "bm25_accum_rows": {"probe": rows,
+                                         "impact": ex["impact"]},
+                     "bm25_weighted": {"probe": ex["probe_b"], **w_ops},
+                     "bm25_weighted_rows": {"probe": rows, **w_ops},
+                     "bag_sum": {"table": table},
+                     "dot_score": {"table": table, "query": query},
+                     "adjacency_rebase": {"edge_base": eb}}
+            if set(cases) != set(epilogues.EPILOGUES):
+                die(f"sharded_parity covers {sorted(cases)}, kernel 2 has "
+                    f"{sorted(epilogues.EPILOGUES)}")
+            for ep, extras in cases.items():
+                single = {k: (v.gather()[:nb] if isinstance(v, BlockSharded)
+                              else v[:nb] if v.shape[0] == nbp else v)
+                          for k, v in extras.items()}
+                before = _read(torch, counters)
+                out = dispatch.decode(sh, epilogue=ep,
+                                      epilogue_operands=extras,
+                                      plan="sharded")
+                n = sum(_delta(before, _read(torch, counters))[k]
+                        for k in counters)
+                if n != SHARDED_SHARDS:
+                    die(f"sharded_parity {fmt}/{ep}: {n} launches for "
+                        f"{SHARDED_SHARDS} shards")
+                ref = dispatch.decode(arr, epilogue=ep,
+                                      epilogue_operands=single)
+                for o, r in zip(out if isinstance(out, tuple) else (out,),
+                                ref if isinstance(ref, tuple) else (ref,)):
+                    o = o.gather()
+                    if not torch.equal(o[:nb], r):
+                        die(f"sharded_parity {fmt}/{ep} at {nb} blocks "
+                            "differs from the unsharded launch")
+                    if (o[nb:].any() and not (ep == "dot_score"
+                                              and o.is_floating_point())):
+                        die(f"sharded_parity {fmt}/{ep}: padding rows not 0")
+                calls += 1
+    return {"formats": 3, "n_blocks": list(SHARDED_PARITY_BLOCKS),
+            "epilogues": len(epilogues.EPILOGUES), "calls": calls,
+            "launches_per_call": SHARDED_SHARDS, "bit_for_bit": True,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def sharded_two_tower(np, torch, seed, mesh, counters) -> dict:
+    """Phase ``sharded_two_tower``: ``ServingEngine(mesh=mesh)`` at the
+    two_tower path's full width (2^23 items, 2^20 candidates), 64 requests
+    at bucket 8 and 16 bags; then the single-device engine on the same
+    requests and bags (after the path's launch counts are read): top-k
+    ids, scores and bags bit for bit. The mesh engine's peak bytes show
+    one copy of the item table on the card."""
+    from repro_torch.core import CompressedIntArray
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import recsys, registry
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+
+    cfg = registry.resolve_config("two-tower-retrieval", "retrieval_cand")
+    rng = np.random.default_rng(seed)
+    params = recsys.init_params(cfg, seed=seed, device="cuda")
+    n_cand = RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"]
+    cands = np.sort(rng.choice(np.arange(1, cfg.n_items, dtype=np.int64),
+                               n_cand, replace=False)).astype(np.uint64)
+    corpus = CompressedIntArray.encode(cands, differential=True,
+                                       device="cuda")
+    reqs = [(int(rng.integers(1, cfg.n_users)),
+             rng.integers(1, cfg.n_items, cfg.seq_len).astype(np.int32))
+            for _ in range(SHARDED_TT_REQUESTS)]
+    bags = [np.sort(rng.choice(np.arange(1, cfg.n_items, dtype=np.int64),
+                               int(n), replace=False))
+            for n in rng.integers(0, cfg.seq_len + 1, SHARDED_TT_BAGS)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve(engine):
+        engine.warmup()
+        rec = []
+        stats = engine.run_workload(reqs, max_batch=8, record=rec)
+        emb = [engine.embed_bags(bags[i:i + 8]).cpu()
+               for i in range(0, len(bags), 8)]
+        return stats, rec, emb
+
+    engine = ServingEngine(params, cfg, corpus, mesh=mesh, top_k=10)
+    table_bytes = engine.item_table.numel() * engine.item_table.element_size()
+    copies = len(engine._table.copies)
+    stats, rec, emb = serve(engine)
+    launches = _read(torch, counters)  # the path's count window ends here
+    peak = torch.cuda.max_memory_allocated()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    single = ServingEngine(params, cfg, corpus, top_k=10)
+    _, rec1, emb1 = serve(single)
+    for (s, i), (s1, i1) in zip(rec, rec1):
+        if not (torch.equal(s, s1) and torch.equal(i, i1)):
+            die("sharded_two_tower: top-k differs from the single-device "
+                "engine's")
+    if not all(torch.equal(a, b) for a, b in zip(emb, emb1)):
+        die("sharded_two_tower: bags differ from the single-device engine's")
+    n_blocks = corpus.n_blocks
+    del single, params, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"requests": len(reqs), "bags": len(bags), "max_batch": 8,
+            "qps": stats["qps"], "p50_ms": stats["p50_ms"],
+            "p99_ms": stats["p99_ms"], "n_devices": stats["n_devices"],
+            "corpus_blocks": n_blocks, "table_bytes": table_bytes,
+            "table_copies": copies,
+            # the engine's peak over what was allocated before it (the
+            # params, the corpus, the search indexes): its one item table,
+            # its bf16 bag table and the item tower's transients
+            "peak_device_bytes_over_base": peak - base,
+            "allocated_before_engine_bytes": base, "equal": True,
+            "launches": launches}
+
+
+def device_encode(np, torch, lists: dict) -> dict:
+    """Phase ``device_encode``: ``encode_blocked_device`` on the card over
+    every search posting (padded to a multiple of 128, stride 640), both
+    differential settings: the non-differential bytes and bases bit for
+    bit against the host encoder, both outputs through kernel 1 bit for
+    bit; ms and G ints/s beside the host encoder's seconds."""
+    from repro_torch.core.vbyte import encode as venc
+    from repro_torch.core.vbyte.device_encode import encode_blocked_device
+    from repro_torch.kernels.vbyte_decode.kernel import (
+        vbyte_decode_blocked_cuda)
+
+    vals = np.concatenate([lists[t] for t in sorted(lists)]).astype(np.uint32)
+    n = vals.size
+    padded = np.zeros(-(-n // BLOCK) * BLOCK, np.uint32)
+    padded[:n] = vals
+    t0 = time.perf_counter()
+    host = venc.encode_blocked(vals, block_size=BLOCK, differential=False,
+                               stride_multiple=640, min_stride=640)
+    host_s = time.perf_counter() - t0
+    x = torch.as_tensor(padded.view(np.int32), device="cuda")
+    out = {"n_ints": n, "n_blocks": padded.size // BLOCK, "stride": 640,
+           "host_encoder_seconds": round(host_s, 3)}
+    for differential in (False, True):
+        kw = dict(block_size=BLOCK, stride=640, differential=differential)
+        torch.cuda.reset_peak_memory_stats()
+        enc = encode_blocked_device(x, **kw)  # warm-up
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        enc = encode_blocked_device(x, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        if not differential and not (
+                torch.equal(enc["payload"].cpu(),
+                            torch.as_tensor(host.payload))
+                and np.array_equal(enc["bases"].cpu().numpy()
+                                   .view(np.uint32), host.bases)):
+            die("device_encode: bytes or bases differ from the host "
+                "encoder's")
+        dec = vbyte_decode_blocked_cuda(enc["payload"], enc["counts"],
+                                        enc["bases"], block_size=BLOCK,
+                                        differential=differential)
+        if not torch.equal(dec.reshape(-1), x):
+            die(f"device_encode differential={differential}: kernel 1 "
+                "does not give the values back")
+        out[f"diff={int(differential)}"] = {
+            "ms": round(ms, 6), "gints_per_s": round(n / ms / 1e6, 3),
+            "payload_bytes": enc["payload"].numel(),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "roundtrip_kernel1": True}
+        del enc, dec
+    out["bytes_equal_host"] = True
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _scored_query(lists: dict) -> tuple:
+    """A ``topk_driver`` query over the shortest list, scored by the two
+    longest: each of its decode calls runs kernel 2's ``bm25_weighted``
+    over a whole long list, one call per 512 candidates of the driver."""
+    by_size = sorted(lists, key=lambda t: (lists[t].size, t))
+    return ("topk_driver", [int(by_size[0]), int(by_size[-1]),
+                            int(by_size[-2])])
+
+
+def run_sharded(np, torch, args, search: dict) -> dict:
+    """Path ``sharded``: block-sharded decode on an 8-shard mesh and the
+    mesh-served engines over the search paths' indexes (still on the card)
+    and two-tower at full width, then the device encoder. Every launch
+    count is set to 0 just before ``sharded_search`` and read after the
+    mesh two-tower engine served; the degraded drill's worker adds its
+    own. The timed phases run with no worker process alive; then the
+    drill and the plain-plan replays run in spawned workers, side by
+    side."""
+    t_path = time.perf_counter()
+    mesh, layout = _sharded_mesh(torch)
+    names = tuple(search["indexes"])
+    scored = _scored_query(search["lists"])
+    qs = {n: search["qs"][:min(SHARDED_QUERIES, search["n_queries"][n])]
+          + [scored] for n in names}
+    counters = _launch_counters()
+    from repro_torch.launch.serve import SearchEngine
+
+    emit("sharded_parity", layout=layout,
+         device_count=torch.cuda.device_count(),
+         **sharded_parity(np, torch, mesh, counters))
+    # the single-device answers: the main path's, and the scored query's
+    # from the single-device engine over the same index
+    expect = {}
+    for n in names:
+        single = SearchEngine(search["indexes"][n], top_k=10, plan="auto",
+                              probe_width=512)
+        expect[n] = (search["digests"][n][:len(qs[n]) - 1]
+                     + [_digest(single.search(scored[1], scored[0]))])
+        del single
+    _reset(torch, counters)
+    searched = {}
+    for n in names:
+        engine = SearchEngine(search["indexes"][n], mesh=mesh, top_k=10,
+                              plan="auto", probe_width=512)
+        before = _read(torch, counters)
+        record = []
+        stats = engine.run_workload(qs[n], record=record)
+        used = _delta(before, _read(torch, counters))
+        k = len(qs[n])
+        if [_digest(a) for a, _, _ in record] != expect[n]:
+            die(f"sharded_search {n}: answers differ from the single-device "
+                "engine's")
+        core = PATH_KERNELS[n][1]
+        if not used["fused_decode_by"].get(core + "/bm25_weighted"):
+            die(f"sharded_search {n}: kernel 2's {core}/bm25_weighted was "
+                f"never launched: {used}")
+        searched[n] = record
+        emit("sharded_search", path=n, layout=layout,
+             device_count=torch.cuda.device_count(), queries=k,
+             modes=[m for m, _ in qs[n]], scored_query=scored[1],
+             qps=stats["qps"], p50_ms=stats["p50_ms"],
+             p99_ms=stats["p99_ms"], mean_ms=stats["mean_ms"],
+             n_devices=stats["n_devices"],
+             blocks_decoded=stats["blocks_decoded"],
+             decode_calls=stats["decode_calls"],
+             resident_bytes=sum(
+                 tp.arr.resident_bytes + tp.impacts.resident_bytes
+                 for tp in engine.index.terms.values()),
+             launches_per_query={
+                 **{kk: round(v / k, 2) for kk, v in used.items()
+                    if isinstance(v, int) and v},
+                 **{kk: round(v / k, 2) for kk, v in
+                    used["fused_decode_by"].items()}},
+             single_device_answers_equal=True,
+             note="one card: the shards run one after another on one "
+                  "device, so this QPS is not a multi-card figure; no "
+                  "worker process runs beside it")
+        del engine
+    two_tower = sharded_two_tower(np, torch, args.seed, mesh, counters)
+    launches = two_tower.pop("launches")
+    emit("sharded_two_tower", layout=layout, **two_tower)
+    enc = device_encode(np, torch, search["lists"])
+    emit("device_encode", **enc)
+    t_workers = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=len(names) + 1,
+                             mp_context=mp.get_context("spawn")) as pool:
+        drill = pool.submit(_mesh_worker, "drill",
+                            _index_state(search["indexes"]["vbyte"]),
+                            qs["vbyte"])
+        replays = {n: pool.submit(
+            _mesh_worker, "replay",
+            _index_state(search["indexes"][n], checksums=False), qs[n])
+            for n in names}
+        replay_s = {}
+        for n in names:
+            got = replays[n].result()["answers"]
+            replay_s[n] = round(sum(s for _, _, s in got), 3)
+            for (mode, terms), (a, sa, _), (b, sb, _) in zip(
+                    qs[n], searched[n], got):
+                if not _results_equal(np, a, b):
+                    die(f"sharded_search {n}: the kernels and the torch plan "
+                        f"disagree on {mode} {terms}")
+                if dataclasses.asdict(sa) != sb:
+                    die(f"sharded_search {n}: QueryStats differ from the "
+                        f"torch plan's on {mode} {terms}")
+        emit("sharded_search_parity", paths=list(names),
+             queries={n: len(qs[n]) for n in names}, torch_plan_equal=True,
+             query_stats_equal=True, torch_plan_query_seconds=replay_s,
+             waited_seconds=round(time.perf_counter() - t_workers, 3),
+             note="the replays and the drill run side by side")
+        try:
+            d = drill.result()
+        except Exception as e:  # the worker's violation, with its message
+            die(f"sharded_degraded: shard-loss drill failed: {e!r}")
+    k = len(qs["vbyte"])
+    if d.pop("digests")[:k] != expect["vbyte"]:
+        die("sharded_degraded: the drill's healthy answers differ from the "
+            "single-device engine's")
+    launches = _merge_launches(launches, d.pop("launches"))
+    emit("sharded_degraded", path="vbyte", layout=layout, **d,
+         single_device_answers_equal=True,
+         note="the three replay workers run beside the drill")
+    by = launches["fused_decode_by"]
+    for n in names:
+        decode_kernel, core = PATH_KERNELS[n]
+        if not launches[decode_kernel] or not any(
+                k.startswith(core + "/") for k in by):
+            die(f"sharded {n}: {decode_kernel} or kernel 2's {core} core "
+                f"was never launched: {launches}")
+    for key in ("vbyte/dot_score", "vbyte/checksum"):
+        if not by.get(key):
+            die(f"sharded: kernel 2's {key} was never launched: {launches}")
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="sharded", seconds=round(seconds, 3),
+         layout=layout, launches=launches)
+    return {"launches": launches, "seconds": seconds, "device_encode": enc}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernels line
 # ---------------------------------------------------------------------------
 def kernels_line(records, max_err, paths):
@@ -4693,10 +5161,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emit("parity_done", seconds=round(time.perf_counter() - t_start, 3))
-    paths = phase_main_paths(np, torch, args)
+    paths, search = phase_main_paths(np, torch, args)
     paths["two_tower"] = run_two_tower(np, torch, args)
     paths["recsys"] = run_recsys(np, torch, args)
     paths["lm"] = run_lm(np, torch, args)
+    paths["sharded"] = run_sharded(np, torch, args, search)
+    del search  # the search indexes leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
     paths["gin"] = run_gin(np, torch, args)
     paths["gin_train"] = paths["gin"].pop("train")
     emit("done", seconds=round(time.perf_counter() - t_start, 3),

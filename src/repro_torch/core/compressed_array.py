@@ -24,6 +24,14 @@ copy (``counts_host``) next to the device tensor and no probe pass waits
 on the device for it. What does wait is :meth:`decode`, which copies the
 decoded grid to the host: that is inherent to the host-driven query
 engine.
+
+Sharding: :meth:`shard` places the block dimension across a mesh axis
+(``repro_torch.distributed``): every leaf becomes a
+:class:`~repro_torch.distributed.BlockSharded` of equal contiguous block
+ranges, ``n_blocks`` padded with count-0 blocks to a multiple of the
+axis size, and ``dispatch.decode`` runs once per shard where its bytes
+live. The block gathers and ``to`` refuse a sharded array rather than
+gather it silently.
 """
 from __future__ import annotations
 
@@ -230,9 +238,26 @@ class CompressedIntArray:
 
     @property
     def resident_bytes(self) -> int:
-        """Bytes the leaves hold on the device (padding included)."""
-        return sum(t.numel() * t.element_size()
+        """Bytes the leaves hold on their devices (padding included)."""
+        return sum(t.nbytes if self.sharding else t.numel() * t.element_size()
                    for t in self.device_operands().values())
+
+    @property
+    def sharding(self):
+        """``(mesh, axes)`` the block dimension is split over, or ``None``
+        for an array on one device."""
+        from repro_torch.distributed.sharding import BlockSharded
+
+        if isinstance(self.counts, BlockSharded):
+            return self.counts.mesh, self.counts.axes
+        return None
+
+    def _unsharded(self, what: str) -> None:
+        if self.sharding is not None:
+            raise TypeError(
+                f"{what} works on an array on one device; this one was "
+                "split over a mesh by shard() — decode it (dispatch.decode "
+                "runs per shard) or keep the array from before shard()")
 
     def _encoded_size(self, what: str) -> int:
         if self.payload_bytes is None:
@@ -256,14 +281,27 @@ class CompressedIntArray:
         """The format's leaves, as consumed by the decoders and kernels."""
         return {k: getattr(self, k) for k in FORMAT_LEAVES[self.format]}
 
+    def shard(self, mesh, axis="data") -> "CompressedIntArray":
+        """The array with its block dimension across ``mesh[axis]``: every
+        leaf a :class:`~repro_torch.distributed.BlockSharded`, ``n_blocks``
+        padded with count-0 blocks to a multiple of the axis size (padding
+        decodes to nothing). ``dispatch.decode`` runs the single-device
+        decode once per shard on sharded operands. A mesh of one shard
+        leaves the array as it is, on the mesh's device."""
+        from repro_torch.distributed.sharding import shard_compressed
+
+        return shard_compressed(self, mesh, axis=axis)
+
     def leaves_numpy(self) -> dict[str, np.ndarray]:
         """Host copies of the leaves: byte leaves uint8, counts int32,
         bases uint32."""
+        self._unsharded("leaves_numpy")
         out = {k: t.cpu().numpy() for k, t in self.device_operands().items()}
         out["bases"] = out["bases"].view(np.uint32)
         return out
 
     def to(self, device) -> "CompressedIntArray":
+        self._unsharded("to")
         dev = resolve_device(device)
         return replace(self, **{k: t.to(dev)
                                 for k, t in self.device_operands().items()})
@@ -283,6 +321,7 @@ class CompressedIntArray:
         posting lists. ``pad_to`` appends count-0 blocks up to a fixed
         block count, so pruned decodes hit a bounded set of shapes.
         """
+        self._unsharded("take_blocks / slice_blocks")
         idx = np.asarray(blocks, dtype=np.int64).reshape(-1)
         k = idx.size
         rows = max(k, pad_to or 0)
@@ -311,7 +350,8 @@ class CompressedIntArray:
     # -- decoding ------------------------------------------------------------
     def decode_blocked(self, *, plan="auto") -> torch.Tensor:
         """Decode on the device to the int32 (uint32 bits)
-        ``[n_blocks, block_size]`` grid (see ``kernels.vbyte_decode.dispatch``)."""
+        ``[n_blocks, block_size]`` grid (see ``kernels.vbyte_decode.dispatch``);
+        a sharded array decodes to a ``BlockSharded`` grid."""
         from repro_torch.kernels.vbyte_decode import dispatch
 
         return dispatch.decode(self, plan=plan)
@@ -332,6 +372,8 @@ class CompressedIntArray:
             grid = decode_checked(self, plan=plan)
         else:
             grid = self.decode_blocked(plan=plan)
+        if self.sharding is not None:  # the one host read of the shards
+            grid = grid.gather()
         grid = grid.cpu().numpy().view(np.uint32)
         mask = (np.arange(self.block_size)[None, :]
                 < self.counts_host[:, None])

@@ -1,6 +1,7 @@
 from . import (  # noqa: F401
     binpack,
     binpack_masked,
+    device_encode,
     encode,
     masked,
     ref,

@@ -29,6 +29,10 @@ numpy, and each decode's result comes back with one device→host copy
 (``.cpu()``), which waits for the card. Impacts are exact int32, so every
 plan gives bit-identical scores; ties break by ascending docid.
 :class:`QueryStats` counts decoded vs skipped vs threshold-pruned blocks.
+With ``use_skip=False`` (an index whose arrays are block-sharded over a
+mesh) every pass decodes each whole list in place, once per shard; a
+decoded list is gathered to the host, a probe pass's per-block hits are
+summed on each shard and only the partials come back.
 
 Telemetry (``repro_torch.obs``) opens the reference's stage spans at the
 same sites — ``gallop`` (a probe pass), ``merge`` (a bulk merge pass),
@@ -44,6 +48,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import BlockSharded
 from repro_torch.kernels.vbyte_decode import dispatch
 from repro_torch.kernels.vbyte_decode.ops import normalize_probe
 from repro_torch.obs import trace as _trace
@@ -214,8 +219,11 @@ def _expired(deadline: Deadline | None, stats: QueryStats | None,
     return True
 
 
-def _to_host(out: torch.Tensor) -> np.ndarray:
-    """One decode result to the host (waits for the card)."""
+def _to_host(out) -> np.ndarray:
+    """One decode result to the host (waits for the card); a block-sharded
+    result is gathered first."""
+    if isinstance(out, BlockSharded):
+        out = out.gather()
     return out.cpu().numpy()
 
 
@@ -236,7 +244,8 @@ def _decode_blocks(tp: TermPostings, i0: int, i1: int, *, plan, stats,
     if use_skip and (i0, i1) != (0, tp.n_blocks):
         sub = tp.arr.slice_blocks(i0, i1, pad_to=_pow2(i1 - i0))
     else:
-        sub = tp.arr  # whole list: decode the resident array in place
+        # whole list: decode the resident (possibly sharded) array in place
+        sub = tp.arr
     if stats is not None:
         stats.count(tp.term, i1 - i0, tp.n_blocks - (i1 - i0), sub.n)
         stats.touch(tp.term, range(i0, i1))
@@ -394,6 +403,11 @@ def _probe_pass_impl(tp: TermPostings, chunk: np.ndarray, *, impact: int,
     out = dispatch.decode(sub, epilogue=ep_name,
                           epilogue_operands=extras, plan=plan)
     # a docid lives in exactly one block → summing blocks is exact int32
+    if isinstance(out, BlockSharded):
+        # each shard sums its own blocks where they live: only the [P]
+        # partials come to the host, never the [n_blocks, P] output
+        out = torch.stack([s.sum(0).to(out.device, non_blocking=True)
+                           for s in out.shards])
     return _to_host(out).sum(axis=0, dtype=np.int32)[: len(chunk)]
 
 

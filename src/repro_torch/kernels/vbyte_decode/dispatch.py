@@ -24,23 +24,38 @@ CPU. There is no measured autotune cache yet (ROADMAP queue 1 item 5).
 reference; the CUDA core has one routing for every chunk width, so they
 change nothing here.
 
+**Sharded block-parallel decode.** Every block decodes independently
+(per-block ``counts``/``bases`` carry all cross-block state), so a stream
+whose block dimension is split over a mesh axis
+(``CompressedIntArray.shard(mesh, axis="data")``: one
+``repro_torch.distributed.BlockSharded`` a leaf) decodes where it lives:
+:func:`decode` runs the single-device body :func:`_execute` once per
+shard on the shard's device, issued back to back with no host sync, and
+returns block-sharded outputs — bit-exact with the single-device path by
+construction. Kernel 2's limits apply per shard. ``plan="sharded"``
+forces the path (raises on unsharded operands); otherwise sharded
+operands select it. The reference runs the same body under
+``shard_map``; neither moves decode bytes between devices.
+
 Telemetry (``repro_torch.obs``): every :func:`decode` call bumps
 ``decode_calls_total{plan, format, epilogue}`` once and runs inside one
 ``decode`` span (``format``, ``plan`` — the plan's :attr:`DecodePlan.label`
 — ``epilogue``, ``blocks``, ``chunk``, ``sharded``), a call that kernel
-2's limits split across launches included. The span is the call's only
-record: the counter is added from it when the registry is read
-(``obs.counted_trace``), the same counts as the reference's bump per
-call.
+2's limits split across launches, or a mesh across shards, included. The
+span is the call's only record: the counter is added from it when the
+registry is read (``obs.counted_trace``), the same counts as the
+reference's bump per call.
 With nothing installed it costs one global read.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed.sharding import BlockSharded, Replicated
 from repro_torch.obs import counted_trace as _obs_counted_trace
 
 from . import epilogues as eplib
@@ -133,6 +148,98 @@ def _decode_grid(operands: dict, *, format: str, block_size: int,
                block_size=block_size, differential=differential)
 
 
+def _normalize(operands: dict, format: str) -> dict:
+    """One device's operands as the kernels take them: contiguous byte
+    leaves, binpack's width column ``[n_blocks, 1]``, int32 ``[n_blocks]``
+    counts and bases."""
+    fmt_keys = eplib.FORMAT_OPERANDS[format]
+    nb = operands[fmt_keys[0]].shape[0]
+    counts, bases = normalize_counts_bases(operands["counts"],
+                                           operands["bases"], nb)
+    out = {k: operands[k].contiguous() for k in fmt_keys}
+    if format == "binpack":  # the width column, as [n_blocks] or [n_blocks, 1]
+        out["widths"] = normalize_block_meta(
+            "widths", operands["widths"], nb).reshape(nb, 1)
+    out.update(counts=counts, bases=bases)
+    return out
+
+
+def _execute(operands: dict, extras: dict, *, format: str, epilogue: str,
+             block_size: int, differential: bool, plan: DecodePlan):
+    """Run one resolved plan on one device's normalized operands.
+
+    This is the single-device body; the sharded path runs exactly this
+    function once per shard, which makes the sharded decode bit-exact with
+    the single-device one by construction."""
+    kw = dict(format=format, block_size=block_size, differential=differential)
+    if epilogue == "stream":
+        return _decode_grid(operands, plan=plan, **kw)
+    if plan.fused and plan.path == "cuda":
+        return _fused_within_limits(operands, extras, epilogue=epilogue,
+                                    plan=plan, **kw)
+    # torch fused (one torch pass on the device) or unfused: grid, then the
+    # epilogue body
+    grid = _decode_grid(operands, plan=plan, **kw)
+    return eplib.apply_grid(epilogue, grid, operands["counts"], extras)
+
+
+def operand_mesh_axes(operands: dict):
+    """``(mesh, axes)`` when every operand is block-sharded on the same
+    mesh and axes with more than one shard; ``None`` otherwise."""
+    first = next(iter(operands.values()))
+    if not isinstance(first, BlockSharded) or len(first.shards) < 2:
+        return None
+    if not all(first.same_layout(v) for v in operands.values()):
+        return None
+    return first.mesh, first.axes
+
+
+def _run_sharded(operands: dict, extras: dict, *, epilogue: str, **kw):
+    """:func:`_execute` once per shard on its own device, with no host sync
+    between shards. Tiled extras (one row per block) are split by the same
+    block ranges; replicated ones take the :class:`Replicated` copy of
+    the shard's device, or one copy a distinct device made for this call.
+    The outputs stay block-sharded: one ``BlockSharded`` (two for
+    ``dot_score`` and ``checksum``)."""
+    first = next(iter(operands.values()))
+    n = len(first.shards)
+    tiled = eplib.get_epilogue(epilogue).tiled_extras
+    copies = {}
+
+    def extra_for(k, v, i, dev):
+        if isinstance(v, BlockSharded):
+            if k not in tiled or not first.same_layout(v):
+                raise ValueError(f"epilogue operand {k!r} is sharded unlike "
+                                 "the compressed operands")
+            return v.shards[i]
+        if k in tiled:  # split a whole tensor by the shards' block ranges
+            if v.shape[0] != first.shape[0]:
+                raise ValueError(
+                    f"tiled epilogue operand {k!r} has {v.shape[0]} rows; "
+                    f"the sharded operands have {first.shape[0]} blocks")
+            per = v.shape[0] // n
+            return v[i * per:(i + 1) * per].to(dev)
+        if isinstance(v, Replicated):
+            return v.on(dev)
+        if (k, dev) not in copies:
+            copies[k, dev] = v if v.device == dev else v.to(dev)
+        return copies[k, dev]
+
+    outs = []
+    for i in range(n):
+        dev = first.shards[i].device
+        ops = _normalize({k: v.shards[i] for k, v in operands.items()},
+                         kw["format"])
+        ex = {k: extra_for(k, v, i, dev) for k, v in extras.items()}
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            outs.append(_execute(ops, ex, epilogue=epilogue, **kw))
+    mesh, axes = first.mesh, first.axes
+    if isinstance(outs[0], tuple):
+        return tuple(BlockSharded(mesh, axes, part) for part in zip(*outs))
+    return BlockSharded(mesh, axes, tuple(outs))
+
+
 def decode(
     operands,  # CompressedIntArray, or device_operands()-style dict
     *,
@@ -156,6 +263,12 @@ def decode(
     table's dtype for ``"bag_sum"`` and the ``(ids, float32 scores)`` pair
     for ``"dot_score"``. Every plan returns the same structure. Results
     stay on the operands' device; nothing here synchronises.
+
+    Block-sharded operands (``CompressedIntArray.shard``, more than one
+    shard) run the resolved plan once per shard on the shard's device and
+    return ``BlockSharded`` outputs. ``plan="sharded"`` forces that path
+    (the default plan for the shards' device) and raises ``ValueError`` on
+    unsharded operands.
     """
     from repro_torch.core.compressed_array import CompressedIntArray
 
@@ -181,30 +294,31 @@ def decode(
     missing = [k for k in fmt_keys if k not in operands]
     if missing:
         raise ValueError(f"format {format!r} operands missing {missing}")
+    operands = {k: operands[k] for k in fmt_keys}
+    mesh_axes = operand_mesh_axes(operands)
+    if mesh_axes is None:
+        if plan == "sharded":
+            raise ValueError(
+                "plan='sharded' requires operands whose block dimension is "
+                "sharded over more than one shard of a mesh — use "
+                "CompressedIntArray.shard(mesh, axis=...) first")
+        if any(isinstance(v, BlockSharded) for v in operands.values()):
+            raise ValueError("the compressed operands are sharded "
+                             "inconsistently (mixed meshes, axes or shards)")
+        operands = _normalize(operands, format)
     nb = operands[fmt_keys[0]].shape[0]
-    counts, bases = normalize_counts_bases(operands["counts"],
-                                           operands["bases"], nb)
-    operands = {k: operands[k].contiguous() for k in fmt_keys[:-2]}
-    if format == "binpack":  # the width column, as [n_blocks] or [n_blocks, 1]
-        operands["widths"] = normalize_block_meta(
-            "widths", operands["widths"], nb).reshape(nb, 1)
-    operands.update(counts=counts, bases=bases)
-    p = resolve_plan(plan, device=counts.device)
-    kw = dict(format=format, block_size=block_size, differential=differential)
+    p = resolve_plan("auto" if plan == "sharded" else plan,
+                     device=operands["counts"].device)
+    kw = dict(format=format, epilogue=epilogue, block_size=block_size,
+              differential=differential, plan=p)
 
     # one record a call: the span is also decode_calls_total's increment
     with _obs_counted_trace("decode", _DECODE_COUNT, format=format,
                             plan=p.label, epilogue=epilogue, blocks=int(nb),
-                            chunk=p.chunk, sharded=False):
-        if epilogue == "stream":
-            return _decode_grid(operands, plan=p, **kw)
-        if p.fused and p.path == "cuda":
-            return _fused_within_limits(operands, extras, epilogue=epilogue,
-                                        plan=p, **kw)
-        # torch fused (one torch pass on the device) or unfused: grid, then
-        # the epilogue body
-        grid = _decode_grid(operands, plan=p, **kw)
-        return eplib.apply_grid(epilogue, grid, operands["counts"], extras)
+                            chunk=p.chunk, sharded=mesh_axes is not None):
+        if mesh_axes is not None:
+            return _run_sharded(operands, extras, **kw)
+        return _execute(operands, extras, **kw)
 
 
 def _query_elems(table: torch.Tensor, d: int) -> int:

@@ -18,11 +18,17 @@ embedding bags over compressed id lists) and :class:`SearchEngine`
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --device cpu --tokens 4  # or any LM arch: prefill + greedy decode
 
-The port of the single-device paths of ``repro/launch/serve.py``. The
-search index's compressed streams live on the card for the engine's
-lifetime, skip tables prune on the host, and every decode runs through
-the CUDA kernels (``plan="auto"``). ``run_workload`` reports QPS, p50/p99
-latency and the decode-vs-skip-vs-pruned block accounting. The engine is
+The port of ``repro/launch/serve.py``. The search index's compressed
+streams live on the card for the engine's lifetime, skip tables prune on
+the host, and every decode runs through the CUDA kernels
+(``plan="auto"``). With ``mesh=`` (``repro_torch.distributed.make_mesh``)
+both engines shard their compressed streams' blocks over the mesh, as the
+reference does: every decode runs once per shard where the bytes live
+(``SearchEngine`` then decodes whole lists, ``use_skip=False``), and
+``ServingEngine`` keeps one copy of its item table a distinct device. The
+launchers build a mesh over the cards when there is more than one.
+``run_workload`` reports QPS, p50/p99 latency and the
+decode-vs-skip-vs-pruned block accounting. The engine is
 hardened as the reference's: startup validation through kernel 2's
 ``checksum`` epilogue, quarantine, retries, fault hooks, the unsafe-bound
 fallback to TAAT, and logical shards that can be lost and healed
@@ -46,8 +52,7 @@ calls. An LM architecture (``olmoe-1b-7b``, ``mixtral-8x7b``,
 ``h2o-danube-1.8b``, ``yi-6b``, ``glm4-9b``) runs :func:`serve_lm` at
 the reduced config, as the reference's CLI does: a 16-token prompt per
 row, ``prefill``, then ``--tokens`` greedy ``decode_step``s, in ms a
-token and tokens a second. The mesh-sharded engines are still to port
-(ROADMAP queue 1 item 13); the port writes no benchmark file.
+token and tokens a second. The port writes no benchmark file.
 """
 from __future__ import annotations
 
@@ -63,6 +68,34 @@ from repro_torch._device import resolve_device
 from repro_torch.obs import counter_inc as _obs_counter_inc
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.obs.stats import latency_summary
+
+
+def _engine_device(mesh, device) -> torch.device:
+    """An engine's own device: the mesh's first device, else ``device``
+    (default: the card)."""
+    if mesh is None:
+        return resolve_device(device)
+    home = mesh.devices.flat[0]
+    if device is not None and torch.device(device).type != home.type:
+        raise ValueError(f"device={device!r} disagrees with the mesh's "
+                         f"first device {home}")
+    return home
+
+
+def _n_devices(mesh) -> int:
+    return int(mesh.devices.size) if mesh is not None else 1
+
+
+def _launcher_mesh(device=None):
+    """The launchers' mesh, as the reference builds one when
+    ``len(jax.devices()) > 1``: every card on one ``"data"`` axis when the
+    launcher runs on the card and there is more than one, else ``None``."""
+    from repro_torch.distributed import make_mesh
+
+    n = torch.cuda.device_count()
+    if resolve_device(device).type != "cuda" or n < 2:
+        return None
+    return make_mesh((n,), ("data",))
 
 
 # ---------------------------------------------------------------------------
@@ -88,29 +121,43 @@ class ServingEngine:
       kernel 2's ``bag_sum`` epilogue. The bf16 copy of ``item_id_emb`` it
       reads is cast once here (the reference casts the f32 table on every
       call: the same values).
+    * **Mesh** — with ``mesh=`` the corpus's blocks are sharded over
+      ``mesh[axis]`` (``CompressedIntArray.shard``) and ``dot_score`` runs
+      once per shard; the item table is computed on the mesh's first
+      device and copied once to each other distinct device. The ids and
+      scores are gathered on the first device for the top-k.
 
     ``retrieve`` serves one microbatch; ``run_workload`` drives a request
     list and reports QPS and per-request p50/p99 latency.
     """
 
-    def __init__(self, params, cfg, corpus, *, top_k: int = 10,
-                 buckets=(1, 2, 4, 8), plan="auto", dtype=None, device=None):
+    def __init__(self, params, cfg, corpus, *, mesh=None, axis="data",
+                 top_k: int = 10, buckets=(1, 2, 4, 8), plan="auto",
+                 dtype=None, device=None):
+        from repro_torch.distributed import replicate
         from repro_torch.ft import StragglerDetector
         from repro_torch.models import recsys
         from repro_torch.nn import layers as nnl
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _engine_device(mesh, device)
         self.cfg = cfg
         self.params = params.to(self.device)
         self.top_k = top_k
         self.plan = plan
         self.buckets = tuple(sorted(buckets))
         self.dtype = dtype or nnl.DEFAULT_COMPUTE_DTYPE
-        self.corpus = corpus.to(self.device)
+        self.corpus = (corpus.shard(mesh, axis=axis) if mesh is not None
+                       else corpus.to(self.device))
         with torch.inference_mode():
             self.item_table = recsys.item_table(self.params, cfg,
                                                 dtype=self.dtype)
             self.bag_table = self.params.item_id_emb.to(self.dtype)
+        # what dot_score reads: the table, or its copy on each mesh device
+        # (a mesh of one shard leaves the corpus on one device)
+        self._table = (replicate(self.item_table, mesh)
+                       if self.corpus.sharding is not None
+                       else self.item_table)
         # liveness: one heartbeat per served microbatch; run_workload
         # reports the detector's straggler classification
         self.detector = StragglerDetector()
@@ -148,8 +195,10 @@ class ServingEngine:
                                   dtype=self.dtype)  # [b, d]
             ids, scores = dispatch.decode(
                 self.corpus, epilogue="dot_score",
-                epilogue_operands={"table": self.item_table, "query": u},
+                epilogue_operands={"table": self._table, "query": u},
                 plan=self.plan)
+            if self.corpus.sharding is not None:
+                ids, scores = ids.gather(), scores.gather()
             return self._mask_and_topk(ids, scores)
 
     # -- embedding-bag endpoint -------------------------------------------
@@ -230,7 +279,7 @@ class ServingEngine:
         wall = time.perf_counter() - t_start
         return {
             "n_requests": len(requests),
-            "n_devices": 1,
+            "n_devices": _n_devices(self.mesh),
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu"),
             **latency_summary(lat, wall, len(requests)),
@@ -267,18 +316,29 @@ class SearchEngine:
     ``heartbeat`` / ``check_health`` / ``kill_shard`` / ``heal``) keep the
     engine answering — partial and flagged, never hung, never silently
     wrong. Quarantine and heal move no index bytes.
+
+    **Mesh**: with ``mesh=`` every term's docid and impact streams are
+    block-sharded over ``mesh[axis]`` once, at construction, after the
+    startup validation; queries then decode whole lists in place, once
+    per shard (``use_skip=False``: the mesh replaces skip-table slicing,
+    as in the reference). The logical shards of the health layer are
+    independent of the mesh.
     """
 
-    def __init__(self, index, *, top_k: int = 10, plan="auto",
-                 probe_width: int = 512, validate: bool = False,
+    def __init__(self, index, *, mesh=None, axis="data", top_k: int = 10,
+                 plan="auto", probe_width: int = 512, validate: bool = False,
                  deep_validate: bool = False,
                  deadline_s: float | None = None, max_retries: int = 2,
                  backoff_s: float = 0.0, fault_hook=None, n_shards: int = 0,
                  clock=None, device=None):
+        from dataclasses import replace as _dc_replace
+
         from repro_torch.ft import StragglerDetector, shard_intervals
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _engine_device(mesh, device)
         self.index = index.to(self.device)  # no copy where it already lives
+        self.use_skip = mesh is None
         self.top_k = top_k
         self.plan = plan
         self.probe_width = probe_width
@@ -310,6 +370,19 @@ class SearchEngine:
                                                 self.n_shards))
         if validate:
             self._validate_index(deep=deep_validate)
+        if mesh is not None:
+            # shard every term's blocks across the mesh, once, up front —
+            # the per-posting impact stream too (same block layout, so the
+            # weighted scoring epilogues see aligned shards)
+            sharded = {}
+            for t, tp in self.index.terms.items():
+                if tp.df:
+                    tp = _dc_replace(tp, arr=tp.arr.shard(mesh, axis=axis),
+                                     impacts=(tp.impacts.shard(mesh, axis=axis)
+                                              if tp.impacts is not None
+                                              else None))
+                sharded[t] = tp
+            self.index = _dc_replace(self.index, terms=sharded)
 
     # -- startup validation / quarantine ----------------------------------
     def _validate_index(self, *, deep: bool):
@@ -435,7 +508,8 @@ class SearchEngine:
             empty = np.zeros(0, np.uint32)
             return (empty if mode in ("and", "or")
                     else (empty, np.zeros(0, np.int32)))
-        kw = dict(plan=self.plan, stats=stats, deadline=deadline)
+        kw = dict(plan=self.plan, stats=stats, use_skip=self.use_skip,
+                  deadline=deadline)
         if mode == "and":
             return conjunctive(self.index, terms,
                                probe_width=self.probe_width, **kw)
@@ -578,6 +652,7 @@ class SearchEngine:
         total_postings = st.ints_decoded + st.postings_pruned
         return {
             "n_queries": len(queries),
+            "n_devices": _n_devices(self.mesh),
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu"),
             **latency_summary(lat, wall, len(queries)),
@@ -690,9 +765,11 @@ def serve_search(*, queries: int, group_k: int = 10, n_lists: int = 16,
     universe = 1 << 22
     lists, tfs = search_lists(rng, {group_k: n_lists}, universe=universe)
     index = build_index(lists, tfs=tfs, n_docs=universe, device=device)
+    mesh = _launcher_mesh(device)
     print(f"index: {index.n_terms} terms, {index.n_postings} postings, "
-          f"{index.bits_per_int:.2f} bits/int on {index.device}")
-    engine = SearchEngine(index, top_k=top_k, device=device)
+          f"{index.bits_per_int:.2f} bits/int on {index.device} over "
+          f"{_n_devices(mesh)} device(s)")
+    engine = SearchEngine(index, mesh=mesh, top_k=top_k, device=device)
     qs = search_queries(rng, index, queries)
     engine.warmup(qs)
     tele = obs.Telemetry() if metrics_out else None
@@ -703,7 +780,8 @@ def serve_search(*, queries: int, group_k: int = 10, n_lists: int = 16,
     finally:
         if tele is not None:
             obs.uninstall()
-    print(f"served {stats['n_queries']} queries on {stats['device']}: "
+    print(f"served {stats['n_queries']} queries on {stats['device']} "
+          f"({stats['n_devices']} device(s)): "
           f"{stats['qps']} QPS, p50 {stats['p50_ms']} ms, "
           f"p99 {stats['p99_ms']} ms, block skip rate "
           f"{stats['block_skip_rate']}, pruned block rate "
@@ -836,10 +914,12 @@ def serve_search_degraded(*, queries: int = 32, group_k: int = 8,
     index = build_index(lists, tfs=tfs, n_docs=universe, checksum=True,
                         device=device)
     clock = SimClock()
-    engine = SearchEngine(index, top_k=top_k, validate=True,
+    mesh = _launcher_mesh(device)
+    engine = SearchEngine(index, mesh=mesh, top_k=top_k, validate=True,
                           n_shards=n_shards, clock=clock, device=device)
     print(f"degraded smoke: {index.n_terms} terms over {n_shards} logical "
-          f"shards on {engine.device}, validate=True "
+          f"shards on {engine.device} ({_n_devices(mesh)} device(s)), "
+          "validate=True "
           f"(quarantined={engine.serve_stats['quarantined_terms']})")
     _check(not engine.quarantined and not engine.bound_unsafe,
            f"clean index failed its gate: {engine.quarantined} "
@@ -855,7 +935,7 @@ def serve_search_degraded(*, queries: int = 32, group_k: int = 8,
     print(f"healed onto {engine.n_shards} shards: all {len(qs)} responses "
           "bit-identical to healthy — degraded-serving smoke OK")
     return {"n_queries": len(qs), "n_shards": n_shards,
-            "device": str(engine.device),
+            "device": str(engine.device), "n_devices": _n_devices(mesh),
             "degraded_responses": drill["degraded_responses"],
             "healed_shards": engine.n_shards, **engine.serve_stats}
 
@@ -1113,17 +1193,20 @@ def serve_engine(cfg, *, requests: int, candidates: int, top_k: int = 10,
     cands = np.sort(rng.choice(np.arange(1, cfg.n_items), n_cand,
                                replace=False)).astype(np.uint64)
     corpus = CompressedIntArray.encode(cands, differential=True, device=dev)
+    mesh = _launcher_mesh(dev)
     print(f"corpus: {corpus.n} candidate ids, {corpus.bits_per_int:.2f} "
           f"bits/int ({corpus.compression_ratio:.2f}x vs uint32), "
-          f"{corpus.n_blocks} blocks on {dev}")
-    engine = ServingEngine(params, cfg, corpus, top_k=top_k, device=dev)
+          f"{corpus.n_blocks} blocks on {dev} over {_n_devices(mesh)} "
+          "device(s)")
+    engine = ServingEngine(params, cfg, corpus, mesh=mesh, top_k=top_k,
+                           device=dev)
     engine.warmup()
     reqs = [(int(rng.integers(1, max(cfg.n_users, 2))),
              rng.integers(1, cfg.n_items, cfg.seq_len).astype(np.int32))
             for _ in range(requests)]
     stats = engine.run_workload(reqs)
-    print(f"served {stats['n_requests']} requests on {stats['device']}: "
-          f"{stats['qps']} QPS, p50 {stats['p50_ms']} ms, "
+    print(f"served {stats['n_requests']} requests on {stats['device']} "
+          f"({stats['n_devices']} device(s)): {stats['qps']} QPS, p50 {stats['p50_ms']} ms, "
           f"p99 {stats['p99_ms']} ms (top-{top_k} of {stats['corpus_n']} "
           "compressed candidates)")
     bags = [np.sort(rng.choice(np.arange(1, cfg.n_items),

@@ -520,7 +520,8 @@ def decode_checked(arr: CompressedIntArray, *, plan="auto",
 
     An array may carry more blocks than checksum rows (count-0 padding,
     which checksums to 0): only stored rows are compared, padding rows
-    must be 0.
+    must be 0. A sharded array runs the epilogue once per shard; its
+    column is gathered and its grid comes back block-sharded.
     """
     from repro_torch.kernels.vbyte_decode import dispatch
 
@@ -529,6 +530,8 @@ def decode_checked(arr: CompressedIntArray, *, plan="auto",
             "array carries no checksum column — encode with checksum=True "
             "(or validate via validate_array/scalar re-decode instead)")
     vals, cs = dispatch.decode(arr, epilogue="checksum", plan=plan)
+    if arr.sharding is not None:  # per-shard columns, gathered; the grid
+        cs = cs.gather()  # stays sharded
     cs = cs.reshape(-1).cpu().numpy().view(np.uint32)
     stored = np.asarray(arr.checksums).reshape(-1).astype(np.uint32)
     k = min(stored.shape[0], cs.shape[0])

@@ -1810,3 +1810,121 @@ def test_lm_prefill_and_decode_on_the_card_match_plain(dev, arch):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 2.0**-5 * scale
         assert float((a - c).abs().max()) <= 2.0**-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# block-sharded decode on 8 logical shards of the card, and the device
+# encoder
+# ---------------------------------------------------------------------------
+SHARDED_EPILOGUES = ("stream", "checksum", "membership", "membership_rows",
+                     "bm25_accum", "bm25_accum_rows", "bm25_weighted",
+                     "bm25_weighted_rows", "bag_sum", "dot_score",
+                     "adjacency_rebase")
+
+
+def _card_mesh(dev):
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((8,), ("data",), devices=[dev] * 8)
+
+
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_sharded_decode_on_the_card_matches_unsharded(dev, fmt):
+    """Every epilogue over 8 logical shards of the card: the kernels once a
+    shard, outputs bit for bit the unsharded launch's (the same kernel on
+    the same blocks); padding blocks decode to nothing."""
+    from repro_torch.distributed import BlockSharded
+    from repro_torch.kernels.vbyte_decode import dispatch
+
+    rng = np.random.default_rng(23)
+    B = 128
+    vals = np.sort(rng.integers(0, 1 << 20, 97 * B + 31)).astype(np.uint64)
+    arr = CompressedIntArray.encode(vals, format=fmt, block_size=B,
+                                    differential=True, device=dev)
+    w = CompressedIntArray.encode(rng.integers(1, 256, arr.n),
+                                  format=fmt, block_size=B, device=dev)
+    mesh = _card_mesh(dev)
+    sh, wsh = arr.shard(mesh), w.shard(mesh)
+    nb, nbp = arr.n_blocks, sh.n_blocks
+    table = torch.randn(1 << 20, 64, device=dev).to(torch.bfloat16)
+    probe = torch.as_tensor(normalize_probe(np.unique(rng.choice(
+        vals.astype(np.int64), 300)), 512), device=dev)
+    rows = torch.as_tensor(rng.integers(0, 1 << 20, (nbp, 1))
+                           .astype(np.int32), device=dev)
+    eb = torch.as_tensor(rng.integers(0, 1 << 20, (nbp, B)).astype(np.int32),
+                         device=dev)
+    w_ops = {f"w_{k}": v for k, v in wsh.device_operands().items()
+             if k not in ("counts", "bases")}
+    imp = torch.tensor([[7]], dtype=torch.int32, device=dev)
+    extras = {"stream": {}, "checksum": {}, "membership": {"probe": probe},
+              "membership_rows": {"probe": rows},
+              "bm25_accum": {"probe": probe, "impact": imp},
+              "bm25_accum_rows": {"probe": rows, "impact": imp},
+              "bm25_weighted": {"probe": probe, **w_ops},
+              "bm25_weighted_rows": {"probe": rows, **w_ops},
+              "bag_sum": {"table": table},
+              "dot_score": {"table": table,
+                            "query": torch.randn(4, 64, device=dev)
+                            .to(torch.bfloat16)},
+              "adjacency_rebase": {"edge_base": eb}}
+    for ep in SHARDED_EPILOGUES:
+        ex = extras[ep]
+        single_ex = {k: (v.gather()[:nb] if isinstance(v, BlockSharded)
+                         else v[:nb] if k in ("probe", "edge_base")
+                         and v.shape[0] == nbp else v)
+                     for k, v in ex.items()}
+        before = epilogues.launches.count + kernel.launches.count \
+            + stream_kernel.launches.count + binpack_kernel.launches.count
+        out = dispatch.decode(sh, epilogue=ep, epilogue_operands=ex,
+                              plan="sharded")
+        after = epilogues.launches.count + kernel.launches.count \
+            + stream_kernel.launches.count + binpack_kernel.launches.count
+        assert after - before == 8, ep
+        ref = dispatch.decode(arr, epilogue=ep, epilogue_operands=single_ex)
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for o, r in zip(out, ref):
+            g = o.gather()
+            assert g.device.type == "cuda"
+            assert torch.equal(g[:nb], r), f"{fmt}/{ep}"
+            if ep != "dot_score":
+                assert not g[nb:].any(), f"{fmt}/{ep}"
+
+
+def test_sharded_search_on_the_card_matches_single(dev):
+    from repro_torch.launch.serve import SearchEngine as Engine
+
+    rng = np.random.default_rng(29)
+    lists = {t: np.sort(rng.choice(1 << 22, size=s, replace=False))
+             for t, s in enumerate((60, 3000, 40000, 900))}
+    tfs = {t: rng.integers(1, 20, v.size) for t, v in lists.items()}
+    for fmt in ("vbyte", "auto", "streamvbyte"):
+        idx = build_index(lists, tfs=tfs, format=fmt, n_docs=1 << 22,
+                          device=dev)
+        single = Engine(idx, top_k=10)
+        sharded = Engine(idx, mesh=_card_mesh(dev), top_k=10)
+        for mode, terms in search_queries(np.random.default_rng(1), idx, 15):
+            a, b = sharded.search(terms, mode), single.search(terms, mode)
+            for x, y in zip(a if isinstance(a, tuple) else (a,),
+                            b if isinstance(b, tuple) else (b,)):
+                assert np.array_equal(x, y), f"{fmt} {mode} {terms}"
+
+
+@pytest.mark.parametrize("differential", [False, True])
+def test_device_encoder_on_the_card_matches_the_cpu(dev, differential):
+    from repro_torch.core.vbyte.device_encode import encode_blocked_device
+
+    rng = np.random.default_rng(31)
+    vals = rng.integers(0, 2**32, 64 * 128).astype(np.uint32)
+    if differential:
+        vals[: 32 * 128] = np.sort(vals[: 32 * 128])  # and gaps that wrap
+    t = torch.as_tensor(vals.view(np.int32))
+    cpu = encode_blocked_device(t, differential=differential)
+    card = encode_blocked_device(t.to(dev), differential=differential)
+    for k in ("payload", "counts", "bases"):
+        assert card[k].device.type == "cuda"
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    out = kernel.vbyte_decode_blocked_cuda(
+        card["payload"], card["counts"], card["bases"], block_size=128,
+        differential=differential)
+    assert torch.equal(out.cpu().reshape(-1), t)

@@ -1,6 +1,9 @@
 """``SearchEngine.run_workload`` on the port (CPU) gives the reference
 engine's accounting on the same index and query mix, and the port's entry
-points refuse to run without a card unless the CPU is asked for."""
+points refuse to run without a card unless the CPU is asked for. Over a
+mesh of 8 logical cpu shards: ``ServingEngine(mesh=...)`` against direct
+scoring and its own single-device twin, the embedding-bag endpoint, and
+the shard-loss drill on a mesh ``SearchEngine``."""
 import numpy as np
 import pytest
 import torch
@@ -73,3 +76,134 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SearchEngine(index)
     assert SearchEngine(index, device="cpu").search([0, 1], "and").tolist() == [5]
+
+
+# ---------------------------------------------------------------------------
+# the engines over a mesh of 8 logical cpu shards
+# ---------------------------------------------------------------------------
+def _mesh():
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((8,), ("data",), devices=["cpu"] * 8)
+
+
+@pytest.fixture(scope="module")
+def two_tower():
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import recsys
+    from repro_torch.models.registry import reduced_config
+
+    cfg = reduced_config("two-tower-retrieval")
+    params = recsys.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    cands = np.sort(rng.choice(np.arange(1, cfg.n_items), 300,
+                               replace=False)).astype(np.uint64)
+    corpus = CompressedIntArray.encode(cands, differential=True, device="cpu")
+    sharded = ServingEngine(params, cfg, corpus, mesh=_mesh(), top_k=5)
+    single = ServingEngine(params, cfg, corpus, top_k=5, device="cpu")
+    return cfg, cands, sharded, single
+
+
+def test_serving_engine_on_a_mesh_matches_direct_scoring(two_tower):
+    from repro_torch.models import recsys
+
+    cfg, cands, engine, single = two_tower
+    assert engine.corpus.sharding is not None and engine.corpus.n_blocks == 8
+    engine.warmup()
+    rng = np.random.default_rng(1)
+    uid = torch.tensor([7, 3], dtype=torch.int32)
+    hist = torch.as_tensor(rng.integers(1, cfg.n_items, (2, cfg.seq_len))
+                           .astype(np.int32))
+    top_s, top_i = engine.retrieve(uid, hist)
+    assert top_s.shape == (2, 5) and top_i.shape == (2, 5)
+    assert np.isin(top_i.numpy(), cands).all()  # pad slots masked out
+    assert (top_s[:, 1:] <= top_s[:, :-1]).all()  # descending
+    s1, i1 = single.retrieve(uid, hist)  # the per-block body is the same
+    assert torch.equal(top_i, i1) and torch.equal(top_s, s1)
+    # direct: the same user vectors against the same item table, each
+    # f32 sum of bf16 products rounded once to bf16 (the epilogue's)
+    with torch.inference_mode():
+        u = recsys.user_tower(engine.params, uid, hist, cfg,
+                              dtype=engine.dtype)
+    vecs = engine.item_table[torch.as_tensor(cands.astype(np.int64))]
+    direct = (vecs.float() @ u.float().T).to(torch.bfloat16).float()
+    for r in range(2):
+        order = torch.argsort(-direct[:, r], stable=True)[:5]
+        assert torch.equal(top_s[r].float(), direct[order, r])
+    stats = engine.run_workload(
+        [(1, rng.integers(1, cfg.n_items, cfg.seq_len).astype(np.int32))
+         for _ in range(9)], max_batch=16)  # above the largest bucket
+    assert stats["n_requests"] == 9 and stats["qps"] > 0
+    assert stats["p99_ms"] >= stats["p50_ms"] > 0
+    assert stats["n_devices"] == 8
+    assert single.run_workload([(1, hist[0].numpy())])["n_devices"] == 1
+
+
+def test_engine_embedding_bag_endpoint_on_a_mesh(two_tower):
+    from repro_torch.nn.embedding_bag import bag_from_padded
+
+    cfg, _, engine, single = two_tower
+    rng = np.random.default_rng(2)
+    bags = [np.sort(rng.choice(np.arange(1, cfg.n_items), size=k,
+                               replace=False)) for k in (4, 1, cfg.seq_len)]
+    out = engine.embed_bags(bags)
+    assert out.shape == (3, cfg.id_dim)
+    assert torch.equal(out, single.embed_bags(bags))
+    padded = np.zeros((3, cfg.seq_len), np.int32)
+    for i, ids in enumerate(bags):
+        padded[i, : len(ids)] = ids
+    ref = bag_from_padded(engine.params.item_id_emb, torch.as_tensor(padded),
+                          mode="mean", dtype=engine.dtype)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_serving_engine_on_a_one_shard_mesh(two_tower):
+    """A 1-device mesh (``make_host_mesh``) leaves the corpus unsharded:
+    the engine serves it as the single-device engine does, as the
+    reference's engine does on a 1-device mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import ServingEngine
+
+    cfg, cands, _, single = two_tower
+    corpus = CompressedIntArray.encode(cands, differential=True, device="cpu")
+    engine = ServingEngine(single.params, cfg, corpus,
+                           mesh=make_host_mesh("cpu"), top_k=5)
+    assert engine.corpus.sharding is None
+    rng = np.random.default_rng(4)
+    uid = torch.tensor([2, 9, 4], dtype=torch.int32)
+    hist = torch.as_tensor(rng.integers(1, cfg.n_items, (3, cfg.seq_len))
+                           .astype(np.int32))
+    top_s, top_i = engine.retrieve(uid, hist)
+    s1, i1 = single.retrieve(uid, hist)
+    assert torch.equal(top_i, i1) and torch.equal(top_s, s1)
+    assert engine.run_workload([(1, hist[0].numpy())])["n_devices"] == 1
+
+
+def test_shard_loss_drill_on_a_mesh_engine():
+    """The drill on a mesh engine (``validate=True``, 8 logical shards):
+    the single-device drill's healthy answers and degraded count, every
+    check of the drill passing on both."""
+    from repro_torch.launch.serve import SimClock, shard_loss_drill
+
+    rng = np.random.default_rng(3)
+    lists, tfs = _lists(rng)
+    index = t_build(lists, tfs=tfs, n_docs=1 << 16, checksum=True,
+                    device="cpu")
+    qs = search_queries(rng, index, 12)
+    drills = []
+    for mesh in (None, _mesh()):
+        clock = SimClock()
+        engine = SearchEngine(index, mesh=mesh, top_k=10, validate=True,
+                              n_shards=8, clock=clock, device="cpu")
+        assert not engine.quarantined and not engine.bound_unsafe
+        lo, _ = engine.shards[3]
+        drills.append(shard_loss_drill(
+            engine, qs + [("or", [engine.term_order[lo]])], clock))
+    single, sharded = drills
+    assert sharded["degraded_responses"] == single["degraded_responses"] > 0
+    assert sharded["healed_shards"] == single["healed_shards"] == 7
+    for a, b in zip(sharded["healthy"], single["healthy"]):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
