@@ -163,6 +163,23 @@ fault. One JSON line per phase:
    2 at 2 of the 24 layers (full widths), bit for bit. Then
    ``parity_lm_pipeline``: kernel 1 on the pipeline's shard, held and
    timed.
+   Path ``sharded_train`` — h2o-danube-1.8b at full width (24 layers,
+   float32 parameters from ``--seed``) trained data-parallel with ZeRO-1
+   over ``make_mesh((4, 1), ("data", "model"))`` (4 logical shards of
+   ``cuda:0`` on one card), every launch count set to 0 just before the
+   path and read just after, under deterministic algorithms: the
+   ``build_cell("h2o-danube-1.8b", "train_4k", zero1)`` specs place the
+   state (master, ``m``, ``v`` split over ``data`` wherever
+   ``zero1_extend`` applies) and its hooks gather one bf16 compute copy a
+   step; 2 steps of ``jit_train_step`` at 8 × 4,096 tokens (one
+   microbatch a shard, batches from ``CompressedTokenPipeline``: kernel
+   1), then the same 2 steps of the single-device
+   ``make_train_step(microbatch=4)`` with the same hooks from a fresh
+   state (one state on the card at a time): losses, grad norms and every
+   leaf's digest of params, ``m`` and ``v`` bit for bit; ms a step by
+   gather / forward_backward / reduce / update, peak bytes, state bytes a
+   shard, beside path ``lm``'s single-device step; ``compressed_psum``
+   over the 4 shards bit for bit against its CPU result.
    Path ``sharded`` — ``make_mesh((8,), ("data",))``: over the cards when
    there are several, else 8 logical shards of ``cuda:0`` (a single
    controller, no collective, as the reference's ``shard_map`` decode).
@@ -173,7 +190,8 @@ fault. One JSON line per phase:
    launch count set to 0 and no worker process alive:
    ``sharded_search`` (``SearchEngine(mesh=...)`` over the three search
    indexes, still on the card: each path's first ``SHARDED_QUERIES``
-   queries, one of each mode, and a ``topk_driver`` query over the
+   queries (and, or, topk), a ``topk_maxscore`` query over the two
+   shortest lists, and a ``topk_driver`` query over the
    shortest list with the two longest, so kernel 2's ``bm25_weighted``
    scores over the mesh; answers equal to the single-device engine's,
    QPS, p50, p99, launches a query), ``sharded_two_tower``
@@ -4551,14 +4569,264 @@ def run_lm(np, torch, args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path sharded_train: ZeRO-1 data-parallel training over a mesh
+# ---------------------------------------------------------------------------
+SHARDED_TRAIN_SHARDS = 4  # logical data shards (of cuda:0 on one card)
+SHARDED_TRAIN_STEPS = 2
+PSUM_SHAPE = (2560, 2560)  # compressed_psum's per-shard tensor (one wo layer)
+
+
+def _leaf_digests(torch, state) -> dict:
+    """Per leaf of a train state (placed or not; the reference's paths),
+    its dtype, shape and the int64 sums of its words and of its words
+    times a position weight, each leaf taken whole one at a time."""
+    from repro_torch.convert import train_state_tree
+    from repro_torch.distributed.sharding import whole
+    from repro_torch.tree import flatten
+
+    out = {}
+    for k, x in flatten(train_state_tree(state, whole=False)):
+        w = whole(x).detach().reshape(-1)
+        w = w.view(torch.int32 if w.element_size() == 4 else torch.int16)
+        s1 = s2 = 0
+        for a in range(0, w.numel(), 1 << 26):
+            c = w[a:a + (1 << 26)].to(torch.int64)
+            pos = torch.arange(a, a + c.numel(), device=c.device) % 1000003 + 1
+            s1 += int(c.sum())
+            s2 += int((c * pos).sum())
+        out[k] = f"{x.dtype}:{tuple(x.shape)}:{s1}:{s2}"
+    return out
+
+
+class _PhaseClock:
+    """CUDA events at the sharded step's phase marks (``on_phase``): ms a
+    step by gather, forward_backward, reduce and update (AdamW and the
+    global norm), and the step from the first mark to ``end``."""
+
+    def __init__(self, torch):
+        self.torch, self.ev = torch, []
+
+    def __call__(self, name):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.ev.append((name, e))
+
+    def step_ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = dict.fromkeys(("gather", "forward_backward", "reduce",
+                             "update"), 0.0)
+        for (a, ea), (_, eb) in zip(self.ev, self.ev[1:]):
+            out[a] += ea.elapsed_time(eb)
+        out["step"] = self.ev[0][1].elapsed_time(self.ev[-1][1])
+        self.ev = []
+        return out
+
+
+def _state_bytes(state, n_shards: int) -> dict:
+    """Bytes of a placed train state: each data shard's own (its slices
+    of the split leaves, and one copy of every replicated leaf, as one
+    card of a mesh over cards holds), the split and replicated shares."""
+    from repro_torch.convert import train_state_tree
+    from repro_torch.distributed.sharding import BlockSharded, pieces
+    from repro_torch.tree import flatten
+
+    split = [0] * n_shards
+    repl = 0
+    for _, x in flatten(train_state_tree(state, whole=False)):
+        if isinstance(x, BlockSharded):
+            for i, s in enumerate(x.shards):
+                split[i] += s.numel() * s.element_size()
+        else:
+            t = pieces(x)[0]
+            repl += t.numel() * t.element_size()
+    return {"per_shard": [b + repl for b in split], "split_per_shard": split,
+            "replicated": repl}
+
+
+def _psum_check(np, torch, mesh, seed: int) -> dict:
+    """``compressed_psum`` over the mesh's data shards on the card against
+    the same call on a mesh of CPU shards: bit for bit."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import BlockSharded
+    from repro_torch.train.grad_compress import compressed_psum
+
+    n = mesh.shape["data"]
+    rng = np.random.default_rng(seed)
+    host = [torch.as_tensor((rng.standard_normal(PSUM_SHAPE)
+                             * 10.0 ** rng.uniform(-4, -2)).astype(np.float32))
+            for _ in range(n)]
+    cpu_mesh = make_mesh((n, 1), ("data", "model"), devices=["cpu"] * n)
+    want = compressed_psum(BlockSharded(cpu_mesh, ("data",), tuple(host)),
+                           "data")
+    x = BlockSharded(mesh, ("data",), tuple(h.to(d) for h, d in zip(
+        host, (mesh.devices[i, 0] for i in range(n)))))
+    got = compressed_psum(x, "data")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compressed_psum(x, "data")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _on_card("compressed_psum", *got.shards)
+    equal = all(torch.equal(g.cpu(), w) for g, w in zip(got.shards,
+                                                          want.shards))
+    if not equal:
+        die("sharded_train: compressed_psum on the card differs from its "
+            "CPU result")
+    return {"shape": list(PSUM_SHAPE), "shards": n, "equal": equal,
+            "ms": round(ms, 3)}
+
+
+def run_sharded_train(np, torch, args, lm_path: dict) -> dict:
+    """Path ``sharded_train``: h2o-danube-1.8b at full width (float32
+    parameters from the seed), ZeRO-1 (``build_cell``'s ``zero1`` specs
+    and hooks) over ``make_mesh((4, 1), ("data", "model"))``, 8 × 4,096
+    tokens a step from the pipeline (kernel 1), one microbatch a shard,
+    under deterministic algorithms: SHARDED_TRAIN_STEPS steps of
+    ``jit_train_step``, then the same steps of the single-device
+    ``make_train_step(microbatch=4)`` with the same hooks from a fresh
+    state of the seed (one state on the card at a time): losses, grad
+    norms and every leaf's digest of params, ``m`` and ``v`` bit for bit;
+    ``compressed_psum`` over the 4 shards against its CPU result. Every
+    launch count is set to 0 just before the path and read just after."""
+    from repro_torch.convert import train_state_tree
+    from repro_torch.data.pipeline import CompressedTokenPipeline
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import pieces
+    from repro_torch.launch.train import LM_TRAIN_ROWS
+    from repro_torch.models import lm, registry
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   jit_train_step)
+    from repro_torch.tree import flatten
+
+    t_path = time.perf_counter()
+    counters = _launch_counters()
+    _reset(torch, counters)
+    n = SHARDED_TRAIN_SHARDS
+    mesh = make_mesh((n, 1), ("data", "model"))
+    opt = OptimizerConfig(peak_lr=LM_PEAK_LR, warmup_steps=1,
+                          total_steps=SHARDED_TRAIN_STEPS)
+    cell = registry.build_cell(LM_TRAIN_ARCH, "train_4k", mesh_dp=n,
+                               overrides={"zero1": True}, opt_cfg=opt)
+    cfg = cell.cfg
+    S = cell.shape.dims["seq_len"]
+    B = LM_TRAIN_ROWS
+    if cfg.microbatch % n:
+        die(f"sharded_train: microbatch {cfg.microbatch} over {n} shards")
+    toks = token_stream(np.random.default_rng(args.seed + 7),
+                        B * (S + 1) * SHARDED_TRAIN_STEPS, cfg.vocab)
+    pipe = CompressedTokenPipeline(toks, B, S, device="cuda")
+    rec = {"arch": LM_TRAIN_ARCH, "mesh": mesh.shape,
+           "devices": sorted({str(d) for d in mesh.devices.flat}),
+           "batch": [B, S + 1], "microbatch": cfg.microbatch,
+           "microbatches_per_shard": cfg.microbatch // n,
+           "steps": SHARDED_TRAIN_STEPS, "layers": cfg.n_layers,
+           "zero1_split_leaves": sorted(
+               k for k, s in cell.arg_specs[0]["params"].items()
+               if any(isinstance(a, tuple) and "data" in a for a in s))}
+
+    def batch(step):
+        b = pipe.get_batch(step)
+        _on_card("sharded train batch", b["tokens"])
+        return b
+
+    def run(step_fn, state, clock=None):
+        losses, norms, times = [], [], []
+        for i in range(SHARDED_TRAIN_STEPS):
+            b = batch(i)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, b)
+            end.record()
+            torch.cuda.synchronize()
+            t = clock.step_ms() if clock is not None else {}
+            t["call"] = start.elapsed_time(end)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append({k: round(v, 3) for k, v in t.items()})
+        return state, losses, norms, times
+
+    with _deterministic(torch):
+        sharded = jit_train_step(cell.fn,
+                                 in_shardings=cell.in_shardings(mesh))
+        state = init_train_state(lm.init_params(cfg, seed=args.seed,
+                                                device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded.place(state)
+        torch.cuda.synchronize()
+        rec["place_seconds"] = round(time.perf_counter() - t0, 3)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["state_bytes"] = _state_bytes(state, n)
+        torch.cuda.reset_peak_memory_stats()
+        sharded.on_phase = clock = _PhaseClock(torch)
+        state, losses, norms, times = run(sharded, state, clock)
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        _on_card("sharded train state", *(
+            p for _, x in flatten(train_state_tree(state, whole=False))
+            for p in pieces(x)))
+        digests = _leaf_digests(torch, state)
+        del state, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the single-device step with the same hooks, from a fresh state
+        single = init_train_state(lm.init_params(cfg, seed=args.seed,
+                                                 device="cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        single, s_losses, s_norms, s_times = run(cell.fn, single)
+        s_peak = torch.cuda.max_memory_allocated()
+        s_digests = _leaf_digests(torch, single)
+        del single
+        gc.collect()
+        torch.cuda.empty_cache()
+    bad = sorted(k for k in s_digests if digests.get(k) != s_digests[k])
+    equal = (losses == s_losses and norms == s_norms and not bad
+             and digests.keys() == s_digests.keys())
+    if not equal:
+        die(f"sharded_train: the {n}-shard step differs from the "
+            f"single-device step: losses {losses} vs {s_losses}, grad norms "
+            f"{norms} vs {s_norms}, leaves {bad[:6]}")
+    if not all(np.isfinite(losses)):
+        die(f"sharded_train: losses {losses}")
+    psum = _psum_check(np, torch, mesh, args.seed)
+    launches = _read(torch, counters)
+    want = dict.fromkeys(counters, 0)
+    want["vbyte_decode_blocked"] = 2 * SHARDED_TRAIN_STEPS
+    if {k: launches[k] for k in counters} != want:
+        die(f"sharded_train: launches {launches}, expected {want}")
+    seconds = time.perf_counter() - t_path
+    lm_train = lm_path["train"]
+    # the last step is the steady one (the first pays first-use costs)
+    rec.update(
+        losses=losses, grad_norms=norms, equal_bit_for_bit=equal,
+        leaves_compared=len(digests), ms_per_step=times,
+        steady_ms=times[-1], tokens_per_s=B * S / (times[-1]["call"] / 1e3),
+        single_device={"ms_per_step": s_times, "peak_device_bytes": s_peak,
+                       "losses": s_losses, "grad_norms": s_norms},
+        lm_path_single_device={"median_ms": lm_train["median_ms"],
+                               "peak_device_bytes":
+                                   lm_train["peak_device_bytes"],
+                               "note": "path lm's unhooked step (float32 "
+                                       "gradients), same shape"},
+        compressed_psum=psum)
+    emit("sharded_train", **rec)
+    emit("path_done", path="sharded_train", seconds=round(seconds, 3),
+         launches=launches)
+    return {"launches": launches, "seconds": seconds, "train": rec}
+
+
+# ---------------------------------------------------------------------------
 # path sharded: block-sharded decode and the mesh-served engines, and the
 # device encoder
 # ---------------------------------------------------------------------------
 SHARDED_SHARDS = 8
-# the search queries of each path served over the mesh: its first five,
-# one of each mode (at 10, a topk_driver query over a K=20 driver makes
-# ~4,640 whole-list decode calls: PERF.md), plus _scored_query
-SHARDED_QUERIES = 5
+# the search queries of each path served over the mesh: its first three
+# (and, or, topk; at 10, a topk_driver query over a K=20 driver makes
+# ~4,640 whole-list decode calls: PERF.md), plus _maxscore_query and
+# _scored_query (a topk_driver)
+SHARDED_QUERIES = 3
 SHARDED_TT_REQUESTS = 64  # two-tower requests over the mesh, at bucket 8
 SHARDED_TT_BAGS = 16
 SHARDED_PARITY_BLOCKS = (N_PARITY_BLOCKS, N_PARITY_BLOCKS - 3)
@@ -4851,6 +5119,14 @@ def device_encode(np, torch, lists: dict) -> dict:
     return out
 
 
+def _maxscore_query(lists: dict) -> tuple:
+    """A ``topk_maxscore`` query over the two shortest lists: the mode
+    over the mesh at the cost of two short whole-list passes (the
+    stream's first one, over long lists, took ~7 s a path there)."""
+    by_size = sorted(lists, key=lambda t: (lists[t].size, t))
+    return ("topk_maxscore", [int(by_size[0]), int(by_size[1])])
+
+
 def _scored_query(lists: dict) -> tuple:
     """A ``topk_driver`` query over the shortest list, scored by the two
     longest: each of its decode calls runs kernel 2's ``bm25_weighted``
@@ -4872,23 +5148,23 @@ def run_sharded(np, torch, args, search: dict) -> dict:
     t_path = time.perf_counter()
     mesh, layout = _sharded_mesh(torch)
     names = tuple(search["indexes"])
-    scored = _scored_query(search["lists"])
+    extra = [_maxscore_query(search["lists"]), _scored_query(search["lists"])]
     qs = {n: search["qs"][:min(SHARDED_QUERIES, search["n_queries"][n])]
-          + [scored] for n in names}
+          + extra for n in names}
     counters = _launch_counters()
     from repro_torch.launch.serve import SearchEngine
 
     emit("sharded_parity", layout=layout,
          device_count=torch.cuda.device_count(),
          **sharded_parity(np, torch, mesh, counters))
-    # the single-device answers: the main path's, and the scored query's
-    # from the single-device engine over the same index
+    # the single-device answers: the main path's, and the two extra
+    # queries' from the single-device engine over the same index
     expect = {}
     for n in names:
         single = SearchEngine(search["indexes"][n], top_k=10, plan="auto",
                               probe_width=512)
-        expect[n] = (search["digests"][n][:len(qs[n]) - 1]
-                     + [_digest(single.search(scored[1], scored[0]))])
+        expect[n] = (search["digests"][n][:len(qs[n]) - len(extra)]
+                     + [_digest(single.search(t, m)) for m, t in extra])
         del single
     _reset(torch, counters)
     searched = {}
@@ -4910,7 +5186,8 @@ def run_sharded(np, torch, args, search: dict) -> dict:
         searched[n] = record
         emit("sharded_search", path=n, layout=layout,
              device_count=torch.cuda.device_count(), queries=k,
-             modes=[m for m, _ in qs[n]], scored_query=scored[1],
+             modes=[m for m, _ in qs[n]], maxscore_query=extra[0][1],
+             scored_query=extra[1][1],
              qps=stats["qps"], p50_ms=stats["p50_ms"],
              p99_ms=stats["p99_ms"], mean_ms=stats["mean_ms"],
              n_devices=stats["n_devices"],
@@ -5165,6 +5442,7 @@ def main(argv=None) -> int:
     paths["two_tower"] = run_two_tower(np, torch, args)
     paths["recsys"] = run_recsys(np, torch, args)
     paths["lm"] = run_lm(np, torch, args)
+    paths["sharded_train"] = run_sharded_train(np, torch, args, paths["lm"])
     paths["sharded"] = run_sharded(np, torch, args, search)
     del search  # the search indexes leave the card
     gc.collect()

@@ -18,3 +18,5 @@ CONFIG = RecSysConfig(
 )
 
 FAMILY = "recsys"
+
+SKIPS = {}

@@ -19,3 +19,5 @@ CONFIG = RecSysConfig(
 )
 
 FAMILY = "recsys"
+
+SKIPS = {}

@@ -15,3 +15,5 @@ CONFIG = GNNConfig(
 )
 
 FAMILY = "gnn"
+
+SKIPS = {}

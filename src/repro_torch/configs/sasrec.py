@@ -17,3 +17,5 @@ CONFIG = RecSysConfig(
 )
 
 FAMILY = "recsys"
+
+SKIPS = {}

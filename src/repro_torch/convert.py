@@ -173,15 +173,18 @@ def lm_params_from_numpy(params: dict, cfg, device=None):
               _tensor(params["lm_head"]["w"], dev))
 
 
-def train_state_tree(state: dict) -> dict:
+def train_state_tree(state: dict, *, whole: bool = True) -> dict:
     """A train state (``repro_torch.train.init_train_state``) as the
     reference's train-state tree: ``params`` (the model's ``tree()``),
     ``opt/m`` and ``opt/v`` under the same paths, ``opt/step`` and, where
     the run compresses gradients, ``ef``. Its leaves are the state's own
     tensors; ``repro_torch.checkpoint.CheckpointManager`` writes them in
     the reference's leaf order and under its paths, so either package
-    restores the other's checkpoint directory."""
-    from repro_torch.tree import nest
+    restores the other's checkpoint directory. A state placed on a mesh
+    (``train.jit_train_step``) gives each leaf whole (gathered), or as
+    placed with ``whole=False``."""
+    from repro_torch.distributed.sharding import whole as whole_leaf
+    from repro_torch.tree import flatten, nest, unflatten_like
 
     opt = state["opt"]
     tree = {"params": state["params"].tree(),
@@ -189,7 +192,9 @@ def train_state_tree(state: dict) -> dict:
                     "step": opt["step"]}}
     if "ef" in state:
         tree["ef"] = nest(state["ef"])
-    return tree
+    if not whole:
+        return tree
+    return unflatten_like(tree, [whole_leaf(x) for _, x in flatten(tree)])
 
 
 def train_state_from_tree(tree: dict, params_from_numpy, cfg,

@@ -12,12 +12,27 @@ reference's forced host-device count.
 ``activate_mesh`` / ``current_mesh`` keep a thread-local mesh for code
 that asks which mesh it runs under; ``_resolve_axes`` drops axis names the
 mesh does not have, as the reference does (``'pod'`` on one pod).
+
+A sharding is a :class:`NamedSharding`: the mesh and a spec, a tuple with
+one entry a dimension (an axis name, a tuple of names, or ``None``), which
+compares equal to the reference's ``PartitionSpec`` entries.
+``constrain(x, *axes)`` lays ``x`` out by such a spec under the active
+mesh (``sharding.place``: a leaf split along one dimension over the data
+axes, or one copy on each distinct device) and is a no-op without one.
+The train step's hooks make the two moves the reference's ZeRO-1 asks of
+it: a gather of the master slices into a bf16 compute copy on each
+device, and the layout of a replica's gradients in the master's slices.
+The reference also calls ``constrain`` some 20 times in its model code
+(``nn/moe.py``, ``models/{lm,gnn,recsys}.py``) to place activations; in
+the port each replica already holds its own rows of the activations, so
+those hints are not carried over.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -25,17 +40,27 @@ import torch
 _state = threading.local()
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card), as a
+    tensor on it reports its device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class Mesh:
     """Devices on a grid with one name per axis.
 
     ``devices`` is a numpy object array of ``torch.device`` of shape
-    ``[mesh.shape[a] for a in axis_names]``; ``shape`` maps each axis name
+    ``[mesh.shape[a] for a in axis_names]`` (a card always with its
+    index); ``shape`` maps each axis name
     to its size. Two meshes are equal when their axis names and device
     grids are.
     """
 
     def __init__(self, devices, axis_names):
-        grid = np.vectorize(torch.device, otypes=[object])(
+        grid = np.vectorize(_indexed, otypes=[object])(
             np.asarray(devices, dtype=object))
         axis_names = tuple(axis_names)
         if grid.ndim != len(axis_names):
@@ -130,3 +155,35 @@ def _resolve_axes(axes, mesh: Mesh):
         else:
             out.append(a if a in mesh.axis_names else None)
     return tuple(out)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A layout on ``mesh``: ``spec`` has one entry a dimension, an axis
+    name, a tuple of names or ``None`` (axes the mesh lacks dropped)."""
+
+    mesh: Mesh
+    spec: tuple
+
+
+def resolved_spec(axes, mesh: Mesh) -> tuple:
+    """``axes`` against ``mesh`` (:func:`_resolve_axes`), a tuple of one
+    name written as the name, as the reference's ``PartitionSpec`` keeps
+    it."""
+    return tuple(a[0] if isinstance(a, tuple) and len(a) == 1 else a
+                 for a in _resolve_axes(axes, mesh))
+
+
+def named_sharding(mesh: Mesh, *axes) -> NamedSharding:
+    return NamedSharding(mesh, resolved_spec(axes, mesh))
+
+
+def constrain(x, *axes):
+    """``x`` laid out by ``axes`` on the active mesh (``sharding.place``);
+    ``x`` itself without one."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    from .sharding import place
+
+    return place(x, named_sharding(mesh, *axes))

@@ -1,6 +1,16 @@
-"""Block sharding of compressed arrays over a mesh.
+"""Sharding rules and placement over a mesh.
 
-The compressed-array part of ``repro/distributed/sharding.py``. Every leaf
+The port of ``repro/distributed/sharding.py``. Its rule tables
+(:func:`lm_param_spec`, :func:`lm_cache_spec`, :func:`gnn_param_spec`,
+:func:`recsys_param_spec`, with :func:`zero1_extend` for ZeRO-1) are pure
+functions of a leaf's path, shape and config that give a spec: a tuple of
+axis names, ``None`` or tuples, equal to the reference's
+``PartitionSpec``. :func:`tree_specs` / :func:`state_specs` map them over a
+model's leaves (a flat dict keyed by path, as the port's train state
+keeps its leaves), :func:`to_named` turns spec trees into
+``NamedSharding`` values, and :func:`place` lays a tensor out by one.
+
+Every leaf
 of a ``CompressedIntArray`` leads with the block dimension, and every
 block decodes independently (per-block ``counts``/``bases`` carry all
 cross-block state) — so the block dimension is THE sharding dimension:
@@ -10,26 +20,40 @@ shard's device. The dispatch layer then runs the single-device decode once
 per shard where the bytes live, with no cross-device traffic
 (``repro_torch.kernels.vbyte_decode.dispatch``).
 
-A sharded leaf is a :class:`BlockSharded`: the mesh, the axes the block
-dimension is split over, and one tensor per shard. Reading it on the host
-takes one explicit :meth:`BlockSharded.gather`. A :class:`Replicated` is
-one tensor with a copy on each distinct device of a mesh (an embedding
-table the per-shard epilogues read), made once by :func:`replicate`.
-
-The parameter / state rule tables of the reference wait for the training
-half of the sharded port (ROADMAP queue 1 item 13).
+A sharded leaf is a :class:`BlockSharded`: the mesh, the axes one
+dimension (the block dimension of a compressed array; any one dimension
+of a ZeRO-1 master leaf) is split over, and one tensor per shard. Reading
+it whole takes one explicit :meth:`BlockSharded.gather`. A
+:class:`Replicated` is one tensor with a copy on each distinct device of
+a mesh (an embedding table the per-shard epilogues read; a parameter the
+data-parallel replicas share), made by :func:`replicate`. The port
+computes data-parallel only: a spec that splits a leaf over an axis
+other than the data axes (tensor or expert parallelism over ``model``)
+raises, as does a spec that splits more than one dimension.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from .api import Mesh, _resolve_axes
+from .api import Mesh, NamedSharding, _resolve_axes, resolved_spec
 
 DP = ("pod", "data")
+TP = "model"
+ALL = ("pod", "data", "model")
+TP_MISSING = ("tensor- and expert-parallel compute over a 'model' axis "
+              "larger than 1 is not ported (ROADMAP.md queue 1 item 13, "
+              "what is left: 1)")
+DP_MISSING = ("a step over a mesh deals the single-device step's own "
+              "microbatches out whole, the same count to each data "
+              "position; a step whose loss would be reduced across "
+              "positions (masked means, the two-tower in-batch softmax, a "
+              "full graph: the recsys and GNN train cells, at microbatch "
+              "1) is not ported (ROADMAP.md queue 1 item 13, what is "
+              "left: 3)")
 # leaves with a trailing byte dimension; counts and bases are [n_blocks]
 _BYTE_LEAVES = ("payload", "control", "data", "widths")
 
@@ -46,17 +70,24 @@ def shard_devices(mesh: Mesh, axes: tuple[str, ...]) -> tuple:
 
 @dataclass(frozen=True, eq=False)
 class BlockSharded:
-    """A tensor whose leading (block) dimension is split into equal,
-    contiguous ranges, one tensor a shard on that shard's device."""
+    """A tensor whose dimension ``dim`` (the leading, block dimension
+    unless said) is split into equal, contiguous ranges, one tensor a
+    shard on that shard's device."""
 
     mesh: Mesh
     axes: tuple[str, ...]
     shards: tuple[torch.Tensor, ...]
+    dim: int = 0
 
     @property
     def shape(self) -> tuple:
-        first = self.shards[0]
-        return (sum(s.shape[0] for s in self.shards),) + tuple(first.shape[1:])
+        shape = list(self.shards[0].shape)
+        shape[self.dim] = sum(s.shape[self.dim] for s in self.shards)
+        return tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
 
     @property
     def device(self) -> torch.device:
@@ -71,12 +102,22 @@ class BlockSharded:
         """Every shard's rows, in block order, as one tensor on ``device``
         (default: the first shard's device)."""
         dev = self.device if device is None else torch.device(device)
-        return torch.cat([s.to(dev, non_blocking=True) for s in self.shards])
+        return torch.cat([s.to(dev, non_blocking=True) for s in self.shards],
+                         dim=self.dim)
 
     def same_layout(self, other) -> bool:
         return (isinstance(other, BlockSharded) and other.mesh == self.mesh
-                and other.axes == self.axes
+                and other.axes == self.axes and other.dim == self.dim
                 and len(other.shards) == len(self.shards))
+
+    def map(self, fn) -> "BlockSharded":
+        """``fn`` applied to every shard (an elementwise map keeps the
+        layout)."""
+        return replace(self, shards=tuple(fn(s) for s in self.shards))
+
+    def to(self, *args, **kwargs) -> "BlockSharded":
+        """Every shard ``.to(...)`` on its own device (a dtype cast)."""
+        return self.map(lambda s: s.to(*args, **kwargs))
 
 
 @dataclass(frozen=True, eq=False)
@@ -89,6 +130,27 @@ class Replicated:
     def on(self, device) -> torch.Tensor:
         return self.copies[str(torch.device(device))]
 
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.first.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.first.dtype
+
+    @property
+    def first(self) -> torch.Tensor:
+        """The copy on the mesh's first device."""
+        return self.on(self.mesh.devices.flat[0])
+
+    def map(self, fn) -> "Replicated":
+        """``fn`` applied to every copy."""
+        return Replicated(self.mesh, {k: fn(v) for k, v in self.copies.items()})
+
+    def to(self, *args, **kwargs) -> "Replicated":
+        """Every copy ``.to(...)`` on its own device (a dtype cast)."""
+        return self.map(lambda t: t.to(*args, **kwargs))
+
 
 def replicate(x: torch.Tensor, mesh: Mesh) -> Replicated:
     """``x`` on every distinct device of ``mesh``: one copy a device, the
@@ -100,18 +162,260 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> Replicated:
     return Replicated(mesh, copies)
 
 
-def split_blocks(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...]
-                 ) -> BlockSharded:
-    """``x`` (block dimension first, a multiple of the shard count) as
-    equal contiguous block ranges on the shards' devices. Ranges already
-    on their device are views of ``x``, not copies."""
+def split_blocks(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...], *,
+                 dim: int = 0, copy: bool = False) -> BlockSharded:
+    """``x`` (dimension ``dim`` a multiple of the shard count) as equal
+    contiguous ranges of that dimension on the shards' devices. Ranges
+    already on their device are views of ``x`` unless ``copy``; with it
+    every shard is a contiguous tensor of its own."""
     devs = shard_devices(mesh, axes)
-    if x.shape[0] % len(devs):
-        raise ValueError(f"{x.shape[0]} blocks do not split into "
+    if x.shape[dim] % len(devs):
+        raise ValueError(f"{x.shape[dim]} blocks do not split into "
                          f"{len(devs)} equal shards; pad them first")
-    per = x.shape[0] // len(devs)
-    return BlockSharded(mesh, axes, tuple(
-        x[i * per:(i + 1) * per].to(d) for i, d in enumerate(devs)))
+    per = x.shape[dim] // len(devs)
+    parts = [x.narrow(dim, i * per, per).to(d, copy=copy)
+             for i, d in enumerate(devs)]
+    if copy:
+        parts = [p.contiguous() for p in parts]
+    return BlockSharded(mesh, axes, tuple(parts), dim)
+
+
+def split_of(spec: tuple, mesh: Mesh) -> tuple[int | None, tuple[str, ...]]:
+    """The one dimension ``spec`` splits over ``mesh`` and the data axes
+    it splits it over, dropping axes of size 1; ``(None, ())`` for a spec
+    that splits nothing. Raises for a split over a non-data axis (tensor
+    or expert parallelism, not ported) and for a second split
+    dimension."""
+    found = None
+    for i, entry in enumerate(spec):
+        names = (() if entry is None else (entry,) if isinstance(entry, str)
+                 else tuple(entry))
+        names = tuple(a for a in names if mesh.shape.get(a, 1) > 1)
+        if not names:
+            continue
+        for a in names:
+            if a not in DP:
+                raise NotImplementedError(
+                    f"spec {spec} splits dimension {i} over {a!r} "
+                    f"({mesh.shape[a]}): {TP_MISSING}")
+        if found is not None:
+            raise NotImplementedError(
+                f"spec {spec} splits dimensions {found[0]} and {i}; a leaf "
+                "is split along one dimension")
+        found = (i, names)
+    return found or (None, ())
+
+
+def place(x, sharding: NamedSharding, *, copy: bool = False):
+    """``x`` (a tensor, :class:`BlockSharded` or :class:`Replicated`) laid
+    out by ``sharding``: split along its one split dimension
+    (:func:`split_of`) over its data axes, or one copy on each distinct
+    device of the mesh. A value already in that layout is returned as it
+    is; a split one is gathered (``torch.cat``) where the layout asks for
+    it whole. ``copy`` makes every split shard a tensor of its own (a
+    state leaf whose full tensor is then dropped), where by default a
+    shard on the tensor's own device is a view."""
+    mesh = sharding.mesh
+    dim, axes = split_of(tuple(sharding.spec), mesh)
+    if dim is None:
+        if isinstance(x, Replicated) and x.mesh == mesh:
+            return x
+        if isinstance(x, BlockSharded):
+            return Replicated(mesh, {str(d): x.gather(d) for d in
+                                     dict.fromkeys(mesh.devices.flat)})
+        return replicate(x.first if isinstance(x, Replicated) else x, mesh)
+    if isinstance(x, BlockSharded):
+        if x.mesh == mesh and x.axes == axes and x.dim == dim:
+            return x
+        x = x.gather()
+    if isinstance(x, Replicated):
+        devs = shard_devices(mesh, axes)
+        per = x.shape[dim] // len(devs)
+        if x.shape[dim] % len(devs):
+            raise ValueError(f"{x.shape[dim]} do not split into "
+                             f"{len(devs)} equal shards")
+        parts = [x.on(d).narrow(dim, i * per, per) if str(d) in x.copies
+                 else x.first.narrow(dim, i * per, per).to(d)
+                 for i, d in enumerate(devs)]
+        if copy:
+            parts = [p.clone(memory_format=torch.contiguous_format)
+                     for p in parts]
+        return BlockSharded(mesh, axes, tuple(parts), dim)
+    return split_blocks(x, mesh, axes, dim=dim, copy=copy)
+
+
+def pieces(x) -> list:
+    """The tensors that hold ``x``: its shards, its copies, or ``[x]``."""
+    if isinstance(x, BlockSharded):
+        return list(x.shards)
+    if isinstance(x, Replicated):
+        return list(x.copies.values())
+    return [x]
+
+
+def map_pieces(fn, x, *others):
+    """``fn`` over the pieces of ``x`` and of ``others`` (each in ``x``'s
+    layout) side by side: an elementwise operation in that layout."""
+    if isinstance(x, (BlockSharded, Replicated)):
+        for o in others:
+            same = (x.same_layout(o) if isinstance(x, BlockSharded) else
+                    isinstance(o, Replicated) and o.mesh == x.mesh)
+            if not same:
+                raise ValueError("operands of an elementwise map are laid "
+                                 "out differently")
+    if isinstance(x, BlockSharded):
+        return replace(x, shards=tuple(
+            fn(*ps) for ps in zip(x.shards, *(o.shards for o in others))))
+    if isinstance(x, Replicated):
+        return Replicated(x.mesh, {k: fn(v, *(o.copies[k] for o in others))
+                                   for k, v in x.copies.items()})
+    return fn(x, *others)
+
+
+def whole(x, device=None) -> torch.Tensor:
+    """``x`` as one tensor: a :class:`BlockSharded` gathered on ``device``
+    (default: its first shard's), a :class:`Replicated`'s copy there (its
+    first copy if it has none there), a tensor as it is."""
+    if isinstance(x, BlockSharded):
+        return x.gather(device)
+    if isinstance(x, Replicated):
+        if device is not None and str(torch.device(device)) in x.copies:
+            return x.on(device)
+        return x.first if device is None else x.first.to(device)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# parameter rules (the reference's tables, leaf by leaf)
+# ---------------------------------------------------------------------------
+def _path_str(path) -> str:
+    """A leaf's path as ``a/b/c``: a string as it is; a sequence of
+    ``jax``-style keys (``.key``, ``.idx``) or plain values joined."""
+    if isinstance(path, str):
+        return path
+    parts = []
+    for p in path:
+        if hasattr(p, "key"):
+            parts.append(str(p.key))
+        elif hasattr(p, "idx"):
+            parts.append(str(p.idx))
+        else:
+            parts.append(str(p))
+    return "/".join(parts)
+
+
+def _size(leaf) -> int:
+    return math.prod(leaf.shape)
+
+
+def zero1_extend(spec: tuple, leaf, *, min_size: int = 1 << 20,
+                 divisor: int = 32) -> tuple:
+    """ZeRO-1: additionally split a (master / moment) leaf of at least
+    ``min_size`` elements over the data axes, on its first unsplit
+    dimension divisible by ``divisor``: storage only; the train step
+    gathers a bf16 compute copy."""
+    if _size(leaf) < min_size:
+        return spec
+    axes = list(spec) + [None] * (len(leaf.shape) - len(spec))
+    for i, (ax, dim) in enumerate(zip(axes, leaf.shape)):
+        if ax is None and dim % divisor == 0:
+            axes[i] = DP
+            return tuple(axes)
+    return spec
+
+
+def _none(leaf) -> tuple:
+    return (None,) * len(leaf.shape)
+
+
+def lm_param_spec(cfg, *, zero1: bool = False):
+    """``rule(path, leaf) -> spec`` of an LM's parameters: embedding rows,
+    the head's columns, attention heads, FFN hidden units and MoE experts
+    (``ep_shard``) or their hidden units over ``model``; with ``zero1``,
+    :func:`zero1_extend` over the data axes."""
+    tp_divides_kv = ((cfg.n_kv_heads * cfg.dh) % 16 == 0
+                     and cfg.n_kv_heads % 16 == 0)
+    ep = bool(cfg.moe and cfg.moe.ep_shard)
+
+    def base(path, leaf):
+        s = _path_str(path)
+        if s.endswith("embed/emb"):
+            return (TP, None)
+        if s.endswith("lm_head/w"):
+            return (None, TP)
+        if "attn/wq" in s:
+            return (None, None, TP)
+        if "attn/wk" in s or "attn/wv" in s:
+            return (None, None, TP) if tp_divides_kv else (None, None, None)
+        if "attn/wo" in s:
+            return (None, TP, None)
+        if "ffn/gate" in s or "ffn/up" in s:
+            return (None, None, TP)
+        if "ffn/down" in s:
+            return (None, TP, None)
+        if "moe/router" in s:
+            return (None, None, None)
+        if "moe/gate" in s or "moe/up" in s:  # [L, E, d, f]
+            return (None, TP, None, None) if ep else (None, None, None, TP)
+        if "moe/down" in s:  # [L, E, f, d]
+            return (None, TP, None, None) if ep else (None, None, TP, None)
+        return _none(leaf)
+
+    def rule(path, leaf):
+        spec = base(path, leaf)
+        return zero1_extend(spec, leaf) if zero1 else spec
+
+    return rule
+
+
+def lm_cache_spec(cfg, batch: int, mesh_dp: int) -> tuple:
+    """The KV cache ``[L, B, Sc, Hk, dh]``: batch over the data axes when
+    they divide it, else the cache length over ``data`` (long_500k); heads
+    or head dim over ``model``."""
+    from repro_torch.models.lm import cache_head_axes
+
+    head_axes = cache_head_axes(cfg)
+    if batch % mesh_dp == 0 and batch >= mesh_dp:
+        return (None, DP, None, *head_axes)
+    return (None, None, "data", *head_axes)
+
+
+def gnn_param_spec(cfg):
+    """GIN's parameters are small: every leaf replicated."""
+    def rule(path, leaf):
+        return _none(leaf)
+
+    return rule
+
+
+def recsys_param_spec(cfg, *, serving: bool = False):
+    """Tables of at least 2^16 rows split by rows over ``model`` (by
+    columns in ``serve_table_mode="column"`` serving; every leaf
+    replicated in ``"replicated"`` serving), MLP layers alternating
+    column / row splits (megatron style), the rest replicated."""
+    table_mode = getattr(cfg, "serve_table_mode", "row") if serving else "row"
+
+    def rule(path, leaf):
+        s = _path_str(path)
+        if table_mode == "replicated" and serving:
+            return _none(leaf)
+        if s.endswith("_emb/emb") and leaf.shape[0] >= 1 << 16:
+            return (None, TP) if table_mode == "column" else (TP, None)
+        if "_mlp/" in s or s.startswith("mlp/") or "/mlp/" in s:
+            try:
+                layer_idx = int(s.split("layer_")[1].split("/")[0])
+            except (IndexError, ValueError):
+                layer_idx = 0
+            col = layer_idx % 2 == 0
+            if s.endswith("/w"):
+                if leaf.shape[-1] % 16 != 0:  # final logit layer etc.
+                    return _none(leaf)
+                return (None, TP) if col else (TP, None)
+            if s.endswith("/b"):
+                return (TP,) if col and leaf.shape[-1] % 16 == 0 else (None,)
+        return _none(leaf)
+
+    return rule
 
 
 def compressed_block_specs(format: str, axis=DP) -> dict:
@@ -123,6 +427,18 @@ def compressed_block_specs(format: str, axis=DP) -> dict:
 
     return {nm: (axis, None) if nm in _BYTE_LEAVES else (axis,)
             for nm in FORMAT_LEAVES[format]}
+
+
+def compressed_array_specs(arr, axis=DP):
+    """A ``CompressedIntArray`` of specs in place of its leaves (the
+    block dimension on ``axis``): the spec tree of a compressed batch
+    entry, beside the array's own."""
+    return replace(arr, counts_host=None, checksums=None,
+                   **compressed_block_specs(arr.format, axis))
+
+
+FORMAT_LEAVES_ALL = ("payload", "control", "widths", "data", "counts",
+                     "bases")
 
 
 def shard_compressed(arr, mesh: Mesh, axis="data"):
@@ -158,3 +474,63 @@ def shard_compressed(arr, mesh: Mesh, axis="data"):
         counts_host = np.concatenate([counts_host,
                                       np.zeros(pad, counts_host.dtype)])
     return replace(arr, counts_host=counts_host, **leaves)
+
+
+# ---------------------------------------------------------------------------
+# assembling state shardings
+# ---------------------------------------------------------------------------
+def tree_specs(params, rule) -> dict:
+    """``{path: rule(path, leaf)}`` over ``params`` (a model whose
+    ``tree()`` gives its leaves, or a nested dict), in the reference's
+    leaf order."""
+    from repro_torch.train.train_state import param_leaves
+
+    return {k: rule(k, v) for k, v in param_leaves(params).items()}
+
+
+def state_specs(params, rule, *, has_ef: bool = False) -> dict:
+    """Specs of a train state laid out as the port keeps one: ``params``,
+    the moments ``opt/m``, ``opt/v`` by ``rule``, ``opt/step``
+    replicated, and with ``has_ef`` the error feedback by ``rule``."""
+    pspec = tree_specs(params, rule)
+    out = {"params": pspec,
+           "opt": {"m": dict(pspec), "v": dict(pspec), "step": ()}}
+    if has_ef:
+        out["ef"] = dict(pspec)
+    return out
+
+
+def _is_spec(x) -> bool:
+    """A spec: a tuple of axis names, ``None`` and tuples of names (a
+    tuple holding anything else, such as the spec trees of a step's
+    arguments, is a container)."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def map_specs(fn, tree):
+    """``fn`` over every spec of a spec tree (dicts, tuples and lists of
+    spec trees, and ``CompressedIntArray`` objects of specs, whose leaves
+    are specs), the tree's structure kept."""
+    from repro_torch.core.compressed_array import CompressedIntArray
+
+    if _is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_specs(fn, v) for v in tree)
+    if isinstance(tree, CompressedIntArray):
+        return replace(tree, **{k: fn(getattr(tree, k))
+                                for k in FORMAT_LEAVES_ALL
+                                if getattr(tree, k) is not None})
+    raise TypeError(f"not a spec tree: {type(tree).__name__}")
+
+
+def to_named(mesh: Mesh, spec_tree):
+    """Every spec of ``spec_tree`` as a ``NamedSharding`` on ``mesh``
+    (axes the mesh lacks dropped)."""
+    return map_specs(lambda s: NamedSharding(mesh, resolved_spec(s, mesh)),
+                     spec_tree)

@@ -1,13 +1,35 @@
 """Mesh definitions for the launchers.
 
-The port of ``repro/launch/mesh.py``'s single-host part: ``dp_degree`` and
-the 1-device host mesh. The production meshes of 256 and 512 TPU chips
-wait for the multi-card slice (ROADMAP queue 1 item 15).
+The port of ``repro/launch/mesh.py``: ``dp_degree``, the 1-device host
+mesh, and the production mesh. The reference's production meshes are
+its TPU pods; on a GPU host the production mesh lies over the cards
+there are, all on the data axis: ``("data", "model")`` = ``(cards, 1)``,
+with a leading ``pod`` axis of size 1 for ``multi_pod`` (the axis names
+the rule tables use, so one code path serves both). The port computes
+data-parallel only (``train.jit_train_step``).
 """
 from __future__ import annotations
 
 from repro_torch._device import resolve_device
 from repro_torch.distributed.api import Mesh, make_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """Every card on the data axis: ``("data", "model")`` of shape
+    ``(cards, 1)``, or ``("pod", "data", "model")`` of ``(1, cards, 1)``
+    with ``multi_pod``. ``devices=`` gives the devices instead of the
+    cards (e.g. ``["cpu"]``). Raises without a card."""
+    if devices is None:
+        import torch
+
+        resolve_device("cuda")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    n = len(devices)
+    if multi_pod:
+        return make_mesh((1, n, 1), ("pod", "data", "model"), devices=devices)
+    return make_mesh((n, 1), ("data", "model"), devices=devices)
 
 
 def dp_degree(mesh: Mesh) -> int:

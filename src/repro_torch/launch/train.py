@@ -1,9 +1,8 @@
 """Training launcher of the port.
 
-Assembles an architecture's config (registry), its train step, a
-synthetic data source, checkpoint and restart, and straggler detection,
-on one card (the reference's launcher also builds a device mesh; one
-card has none). The LM, GNN and recsys families train::
+Assembles an architecture's config (registry), a mesh, its train step,
+a synthetic data source, checkpoint and restart, and straggler
+detection. The LM, GNN and recsys families train::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
         --steps 20 --reduced --device cpu
@@ -12,20 +11,32 @@ card has none). The LM, GNN and recsys families train::
                                             # two-tower-retrieval
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch h2o-danube-1.8b --steps 3 --reduced --device cpu  # any LM
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch h2o-danube-1.8b --steps 3 [--multi-pod]  # the mesh, cards
 
-``--reduced`` trains the reduced config on the reference's batch (GNN: a
-256-node, 2,048-edge ``random_graph``; recsys: a fresh ``recsys_batch``
-of 16 rows every step; LM: 4 × 64-token batches of a ``token_stream``
-through ``CompressedTokenPipeline``, decoded on the device, one
-microbatch). Without it, the config is the full one at the
-architecture's first shape, and the batch is the one that shape names:
-for an LM, ``train_4k``'s 4,096 tokens a row at ``LM_TRAIN_ROWS`` rows
-(cut from the shape's 256, which one card does not hold), in the
-config's microbatches, from the same pipeline;
-for gin-tu, ``full_graph_sm``'s node and edge counts, its adjacency
-compressed (``data/graph.compress_adjacency``) because the shape asks
-for compressed adjacency; for recsys, ``train_batch``'s 65,536 rows
-(a fresh batch every step), kept whole (``recsys.train_options``: block
+``--reduced`` trains the reduced config with the single-device step
+(what the reference's 1-device host mesh, jitted without shardings,
+runs), on the reference's batch (GNN: a 256-node,
+2,048-edge ``random_graph``; recsys: a fresh ``recsys_batch`` of 16 rows
+every step; LM: 4 × 64-token batches of a ``token_stream`` through
+``CompressedTokenPipeline``, decoded on the device, one microbatch).
+Without it, the launcher lays the production mesh over the cards
+(``launch/mesh.py``: every card on the data axis; ``--multi-pod`` adds a
+``pod`` axis of size 1), resolves the full config at the architecture's
+first shape at the mesh's data-parallel degree, and trains through
+``train.jit_train_step`` with the registry's state specs
+(``build_cell``): on one card the one-position mesh, which gives the
+single-device step. Over more cards the step deals its own microbatches
+out whole, so the cards must divide their count: the LM configs' 4 or
+8 over up to 4 cards; the recsys and GNN cells' 1 raises (a loss reduced
+across cards is not ported: ROADMAP queue 1 item 13, left 3). The batch is the one that shape names: for an LM,
+``train_4k``'s 4,096 tokens a row at ``LM_TRAIN_ROWS`` rows (cut from
+the shape's 256, which one card does not hold), in the config's
+microbatches, from the same pipeline; for gin-tu, ``full_graph_sm``'s
+node and edge counts, its adjacency compressed
+(``data/graph.compress_adjacency``) because the shape asks for
+compressed adjacency; for recsys, ``train_batch``'s 65,536 rows (a fresh
+batch every step), kept whole (``recsys.train_options``: block
 recomputation for BERT4Rec, the two-tower loss in row chunks). (The
 reference's launcher gives every config its reduced batch, which for
 gin-tu lacks the compressed fields: a deviation of the reference,
@@ -44,9 +55,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import (gnn_train_state_from_tree,
                                  recsys_train_state_from_tree,
                                  train_state_tree)
+from repro_torch.distributed.sharding import to_named
 from repro_torch.ft import StragglerDetector
+from repro_torch.launch.mesh import dp_degree, make_production_mesh
 from repro_torch.models import registry
-from repro_torch.train import OptimizerConfig, init_train_state, make_train_step
+from repro_torch.train import (OptimizerConfig, init_train_state,
+                               jit_train_step, make_train_step)
 
 REDUCED_NODES, REDUCED_EDGES = 256, 2048  # the reference's reduced batch
 REDUCED_RECSYS_BATCH = 16
@@ -107,6 +121,8 @@ def main(argv=None) -> dict:
                     help="the reduced config on the reference's small batch; "
                          "without it the full config at its first shape (an "
                          f"LM: train_4k at {LM_TRAIN_ROWS} rows, cut from 256)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the production mesh with a leading pod axis")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--grad-compression", action="store_true")
@@ -118,14 +134,19 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     fam = registry.family_of(args.arch)
     init = registry._family_init(fam)
-    shape = None
+    shape = mesh = None
     microbatch = 1
     if args.reduced:
         cfg = registry.reduced_config(args.arch)
     else:
+        mesh = make_production_mesh(
+            multi_pod=args.multi_pod,
+            devices=None if dev.type == "cuda" else [dev])
+        dev = mesh.devices.flat[0]
         name = list(registry.shapes_of(args.arch))[0]
         shape = registry.shapes_of(args.arch)[name]
-        cfg = registry.resolve_config(args.arch, name)
+        cfg = registry.resolve_config(args.arch, name,
+                                      dp_degree=dp_degree(mesh))
         if fam == "lm":
             microbatch = cfg.microbatch
     if fam == "lm":
@@ -153,6 +174,16 @@ def main(argv=None) -> dict:
     step_fn = make_train_step(loss_fn, opt,
                               grad_compression=args.grad_compression,
                               microbatch=microbatch)
+    if mesh is not None:
+        cell = registry.build_cell(args.arch, name, mesh_dp=dp_degree(mesh),
+                                   opt_cfg=opt)
+        sspec, bspec = cell.arg_specs
+        if args.grad_compression:
+            sspec = dict(sspec, ef=dict(sspec["params"]))
+        step_fn = jit_train_step(step_fn, in_shardings=(
+            to_named(mesh, sspec), to_named(mesh, bspec)))
+        print(f"mesh {mesh.shape} over {len(set(map(str, mesh.devices.flat)))}"
+              f" device(s)")
 
     mgr = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
     start = 0

@@ -18,8 +18,9 @@ recomputes each layer in the backward pass (``torch.utils.checkpoint``);
 ``remat_policy="save_block_outputs"`` checkpoints the attention block and
 the FFN block apart, so the backward pass keeps each block's output (the
 next block's input) and recomputes the rest. The reference's
-``constrain(...)`` sharding annotations have no meaning on one card and
-are dropped.
+``constrain(...)`` calls place activations on its mesh; over the port's
+mesh each replica already holds its own rows (``distributed/api.py``),
+so they are not carried over.
 
 ``decode_step`` writes the new token's key and value into the caller's
 cache in place (the reference's update is functional: one copy of the

@@ -7,8 +7,9 @@ pre-LN sequence encoder (``_block_init``, ``_encode_seq``, ``_seq_repr``,
 and ``retrieval_scores_compressed``. Parameters live in modules
 (:class:`SeqRec`, :class:`TwoTower`) whose ``tree()`` gives them under
 the reference's paths; the functions keep the reference's signatures.
-The reference's ``constrain(...)`` sharding annotations have no meaning
-on one card and are dropped. Pad id 0 attends like any other id, as in
+The reference's ``constrain(...)`` calls place activations on its mesh;
+over the port's mesh each replica already holds its own rows
+(``distributed/api.py``), so they are not carried over. Pad id 0 attends like any other id, as in
 the reference (no key-padding mask).
 
 Two ways of computing the same function keep a batch of 65,536 whole on

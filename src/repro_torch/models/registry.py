@@ -1,17 +1,28 @@
-"""Architecture registry of the port: configs and shape resolution.
+"""Architecture × shape registry: configs, abstract inputs, step
+functions, shardings.
 
 The port of ``repro/models/registry.py`` for the LM, GNN and recsys
-families (``family_of``, ``shapes_of``, ``resolve_config``,
-``reduced_config``, the families' ``_family_init`` for training) and, in
-place of its abstract inputs, concrete batches with the leaves and
-dtypes of the reference's ``_lm_batch`` (:func:`lm_batch_for`) and
-``_recsys_batch`` (:func:`recsys_batch_for`). Shardings and step
-functions are mesh/XLA tools with no counterpart on one card.
+families: ``list_archs``, ``family_of``, ``skips_of``, ``shapes_of``,
+``all_cells`` (the 40 cells), ``resolve_config``, ``reduced_config``,
+the families' ``_family_init``, and ``build_cell(arch, shape)``: a
+:class:`Cell` with the shape's step function, its abstract arguments and
+their sharding specs. Abstract arguments are tensors on the ``meta``
+device (:func:`abstract_params`, :func:`abstract_train_state`, the batch
+and cache builders), so every cell builds at full width with no memory;
+``Cell.in_shardings(mesh)`` gives the shardings that
+``train.jit_train_step`` takes. The port keeps uint32 leaves
+(``bases``, ``row_gap_bases``) as int32 holding their bits, so those
+abstract leaves are int32. Concrete batches with the reference's leaves
+and dtypes: :func:`lm_batch_for`, :func:`recsys_batch_for`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import importlib
+from dataclasses import dataclass
+from typing import Any, Callable
 
 from repro_torch.configs.shapes import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
                                         ShapeDef)
@@ -37,13 +48,32 @@ def _module(arch_id: str):
     return importlib.import_module(ARCH_IDS[arch_id])
 
 
+def list_archs() -> list[str]:
+    return list(ARCH_IDS)
+
+
 def family_of(arch_id: str) -> str:
     return _module(arch_id).FAMILY
+
+
+def skips_of(arch_id: str) -> dict[str, str]:
+    return dict(_module(arch_id).SKIPS)
 
 
 def shapes_of(arch_id: str) -> dict[str, ShapeDef]:
     return {"lm": LM_SHAPES, "gnn": GNN_SHAPES,
             "recsys": RECSYS_SHAPES}[family_of(arch_id)]
+
+
+def all_cells(include_skipped: bool = False):
+    """Yield ``(arch_id, shape_name, skip_reason or None)`` for the 40
+    cells."""
+    for arch in list_archs():
+        skips = skips_of(arch)
+        for shape in shapes_of(arch):
+            reason = skips.get(shape)
+            if reason is None or include_skipped:
+                yield arch, shape, reason
 
 
 def resolve_config(arch_id: str, shape_name: str, *, dp_degree: int = 1,
@@ -91,6 +121,367 @@ def _family_init(fam: str):
     from repro_torch.models import recsys
 
     return recsys.init_params
+
+
+@contextlib.contextmanager
+def _on_meta():
+    """Every tensor made inside on the ``meta`` device, a ``device=``
+    argument included (the initialisers draw on their generator's
+    device): a full-width model with no memory."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = dict(kwargs or {})
+            if "device" in kwargs:
+                kwargs["device"] = torch.device("meta")
+            return func(*args, **kwargs)
+
+    with torch.device("meta"), Mode():
+        yield
+
+
+def abstract_params(cfg, fam: str, *, dtype=None):
+    """The family's parameters for ``cfg`` on the ``meta`` device (shapes
+    and dtypes, no memory); floating leaves in ``dtype`` if given."""
+    import torch
+
+    from repro_torch.train.train_state import map_params
+
+    with _on_meta():
+        params = _family_init(fam)(cfg, generator=torch.Generator("cpu"))
+    if dtype is not None:
+        params = map_params(lambda k, p: p.to(dtype) if p.is_floating_point()
+                            else p, params)
+    return params
+
+
+def abstract_train_state(cfg, fam: str) -> dict:
+    """``init_train_state`` of :func:`abstract_params` (``meta``)."""
+    from repro_torch.train import init_train_state
+
+    return init_train_state(abstract_params(cfg, fam))
+
+
+# ----------------------------------------------------------------------------
+# batch builders: (abstract batch, spec tree)
+# ----------------------------------------------------------------------------
+def _meta(shape, dtype):
+    import torch
+
+    return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+
+
+def _entries(entries: dict) -> tuple[dict, dict]:
+    """``{name: (shape, dtype name, spec)}`` as (meta batch, specs)."""
+    return ({k: _meta(s, d) for k, (s, d, _) in entries.items()},
+            {k: p for k, (_, _, p) in entries.items()})
+
+
+def _lm_batch(cfg, shape: ShapeDef):
+    from repro_torch.distributed.sharding import DP
+
+    B, S = shape.dims["global_batch"], shape.dims["seq_len"]
+    if shape.step == "train":
+        return _entries({"tokens": ((B, S + 1), "int32", (DP, None))})
+    if shape.step == "prefill":
+        return _entries({"tokens": ((B, S), "int32", (DP, None))})
+    if shape.step == "decode":
+        return _entries({"tokens": ((B,), "int32",
+                                    (DP,) if B >= 16 else (None,))})
+    raise ValueError(shape.step)
+
+
+def _lm_cache(cfg, shape: ShapeDef, mesh_dp: int):
+    from repro_torch.distributed.sharding import lm_cache_spec
+    from repro_torch.models import lm
+
+    B, S = shape.dims["global_batch"], shape.dims["seq_len"]
+    kv = (cfg.n_layers, B, lm.cache_size(cfg, S), cfg.n_kv_heads, cfg.dh)
+    spec = lm_cache_spec(cfg, B, mesh_dp)
+    return ({"k": _meta(kv, "bfloat16"), "v": _meta(kv, "bfloat16"),
+             "index": _meta((), "int32")},
+            {"k": spec, "v": spec, "index": ()})
+
+
+def _abstract_compressed(leaves: dict, *, format: str, differential: bool,
+                         n: int, block_size: int = 128):
+    """A ``CompressedIntArray`` of ``meta`` leaves (an abstract batch
+    entry)."""
+    from repro_torch.core.compressed_array import CompressedIntArray
+
+    return CompressedIntArray(
+        counts_host=None, format=format, block_size=block_size,
+        differential=differential, n=n,
+        **{k: _meta(s, d) for k, (s, d) in leaves.items()})
+
+
+def _gnn_batch(cfg, shape: ShapeDef):
+    from repro_torch.distributed.sharding import ALL, compressed_array_specs
+
+    d = shape.dims
+    N, E, F = d["n_nodes"], d["n_edges"], d["d_feat"]
+    shard = d.get("task", "node") == "node"  # a molecule batch: replicated
+    nspec = (ALL, None) if shard else (None, None)
+    espec = (ALL,) if shard else (None,)
+    node = cfg.task == "node"
+    entries = {
+        "feats": ((N, F), "bfloat16" if cfg.feats_dtype == "bf16"
+                  else "float32", nspec),
+        "labels": ((N if node else d["batch_graphs"],), "int32",
+                   espec if node else (None,)),
+        "edge_valid": ((E,), "bool", espec),
+    }
+    if node:
+        entries["label_mask"] = ((N,), "bool", espec)
+    else:
+        entries["graph_ids"] = ((N,), "int32", (None,))
+    if cfg.compressed_adjacency:
+        nb = -(-(-(-E // 128)) // 512) * 512  # block-shardable
+        entries.update({"row_gap_bases": ((N,), "int32", (None,)),
+                        "row_offsets": ((N + 1,), "int32", (None,))})
+        batch, specs = _entries(entries)
+        batch["gaps"] = _abstract_compressed(
+            {"payload": ((nb, d["payload_stride"]), "uint8"),
+             "counts": ((nb,), "int32"), "bases": ((nb,), "int32")},
+            format="vbyte", differential=True, n=E)
+        specs["gaps"] = compressed_array_specs(batch["gaps"], axis=ALL)
+        return batch, specs
+    entries.update({"edge_src": ((E,), "int32", espec),
+                    "edge_dst": ((E,), "int32", espec)})
+    return _entries(entries)
+
+
+def _recsys_batch(cfg, shape: ShapeDef):
+    from repro_torch.distributed.sharding import (ALL, DP,
+                                                  compressed_array_specs)
+
+    B, L, k = shape.dims["batch"], cfg.seq_len, cfg.kind
+    rows = (DP, None)
+    if shape.step == "train":
+        if k == "sasrec":
+            return _entries({"hist": ((B, L + 1), "int32", rows),
+                             "neg": ((B, L), "int32", rows)})
+        if k == "bert4rec":
+            return _entries({
+                "hist": ((B, L), "int32", rows),
+                "mask_pos": ((B, cfg.n_mask), "int32", rows),
+                "targets": ((B, cfg.n_mask), "int32", rows),
+                "negatives": ((cfg.n_negatives,), "int32", (None,))})
+        if k == "bst":
+            return _entries({"hist": ((B, L), "int32", rows),
+                             "target": ((B,), "int32", (DP,)),
+                             "label": ((B,), "int32", (DP,))})
+        if k == "two_tower":
+            return _entries({"user_id": ((B,), "int32", (DP,)),
+                             "hist": ((B, L), "int32", rows),
+                             "item_id": ((B,), "int32", (DP,))})
+    if shape.step == "serve":
+        C = cfg.serve_candidates
+        if k == "bst":
+            return _entries({"hist": ((B, L), "int32", rows),
+                             "target": ((B,), "int32", (DP,))})
+        if k == "two_tower":
+            return _entries({"user_id": ((B,), "int32", (DP,)),
+                             "hist": ((B, L), "int32", rows),
+                             "cands": ((C,), "int32", (None,))})
+        return _entries({"hist": ((B, L), "int32", rows),
+                         "cands": ((B, C), "int32", rows)})
+    if shape.step == "retrieval":
+        nc = shape.dims["n_candidates"]
+        nb = nc // 128
+        entries = {"hist": ((1, L), "int32", (None, None))}
+        if k == "two_tower":
+            entries["user_id"] = ((1,), "int32", (None,))
+        batch, specs = _entries(entries)
+        batch["cands"] = _abstract_compressed(
+            {"payload": ((nb, shape.dims["payload_stride"]), "uint8"),
+             "counts": ((nb,), "int32"), "bases": ((nb,), "int32")},
+            format="vbyte", differential=True, n=nc)
+        specs["cands"] = compressed_array_specs(batch["cands"], axis=ALL)
+        return batch, specs
+    raise ValueError((cfg.kind, shape.step))
+
+
+# ----------------------------------------------------------------------------
+# cells
+# ----------------------------------------------------------------------------
+@dataclass
+class Cell:
+    arch_id: str
+    shape: ShapeDef
+    family: str
+    cfg: Any
+    fn: Callable  # positional-args step function
+    args: tuple  # abstract args (meta tensors)
+    arg_specs: tuple  # spec trees matching args
+    donate: tuple[int, ...] = ()
+    assembly: dict = None  # step-assembly options (e.g. zero1)
+
+    def in_shardings(self, mesh):
+        from repro_torch.distributed.sharding import to_named
+
+        return to_named(mesh, self.arg_specs)
+
+
+# overrides that configure the *step assembly*, not the model config
+_STEP_OVERRIDES = ("zero1", "prefill_impl", "prefill_chunk", "grad_bf16")
+
+
+def zero1_hooks(params, base_rule):
+    """The reference's ZeRO-1 assembly: ``(master_spec, compute_cast,
+    grad_transform)`` for ``params`` under ``base_rule``. The master and
+    moments take :func:`~repro_torch.distributed.sharding.zero1_extend` of
+    the rule (split over the data axes); ``compute_cast`` casts the
+    master to bf16 laid out by the rule (one gather a step);
+    ``grad_transform`` casts gradients to bf16 laid out as the master."""
+    import torch
+
+    from repro_torch.distributed import constrain
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import map_params
+
+    master_spec = shd.tree_specs(
+        params, lambda p, leaf: shd.zero1_extend(base_rule(p, leaf), leaf))
+    compute_spec = shd.tree_specs(params, base_rule)
+
+    def compute_cast(master):  # one bf16 gather a step
+        return map_params(lambda k, p: constrain(p.to(torch.bfloat16),
+                                                 *compute_spec[k]), master)
+
+    def grad_transform(g):  # bf16, laid out as the master
+        return {k: constrain(x.to(torch.bfloat16), *master_spec[k])
+                for k, x in g.items()}
+
+    return master_spec, compute_cast, grad_transform
+
+
+def build_cell(arch_id: str, shape_name: str, *, mesh_dp: int = 32,
+               overrides: dict[str, Any] | None = None,
+               opt_cfg=None) -> Cell:
+    """The cell ``(arch_id, shape_name)``: its config at ``mesh_dp`` data
+    shards, step function, abstract arguments and specs. ``overrides``
+    replace config fields, and ``zero1``, ``prefill_impl``,
+    ``prefill_chunk``, ``grad_bf16`` configure the step's assembly."""
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import OptimizerConfig, make_train_step
+
+    opt_cfg = opt_cfg or OptimizerConfig()
+    fam = family_of(arch_id)
+    shape = shapes_of(arch_id)[shape_name]
+    overrides = dict(overrides or {})
+    step_over = {k: overrides.pop(k) for k in _STEP_OVERRIDES
+                 if k in overrides}
+    cfg = resolve_config(arch_id, shape_name, dp_degree=mesh_dp,
+                         overrides=overrides)
+
+    if fam == "lm":
+        from repro_torch.models import lm
+
+        batch, bspec = _lm_batch(cfg, shape)
+        if shape.step == "train":
+            zero1 = bool(step_over.get("zero1", False))
+            state = abstract_train_state(cfg, fam)
+            sspec = shd.state_specs(state["params"],
+                                    shd.lm_param_spec(cfg, zero1=zero1))
+            compute_cast = grad_transform = None
+            if zero1:
+                _, compute_cast, grad_transform = zero1_hooks(
+                    state["params"], shd.lm_param_spec(cfg))
+            step = make_train_step(
+                functools.partial(lm.loss_fn, cfg=cfg), opt_cfg,
+                microbatch=cfg.microbatch, compute_cast=compute_cast,
+                grad_transform=grad_transform)
+            return Cell(arch_id, shape, fam, cfg, step, (state, batch),
+                        (sspec, bspec), donate=(0,), assembly={"zero1": zero1})
+        params = abstract_params(cfg, fam, dtype=torch.bfloat16)
+        pspec = shd.tree_specs(params, shd.lm_param_spec(cfg))
+        if shape.step == "prefill":
+            if step_over.get("prefill_impl") == "chunked":
+                fn = functools.partial(
+                    _lm_prefill_chunked_fn, cfg=cfg,
+                    chunk=int(step_over.get("prefill_chunk", 4096)))
+            else:
+                fn = functools.partial(_lm_prefill_fn, cfg=cfg,
+                                       seq=shape.dims["seq_len"])
+            return Cell(arch_id, shape, fam, cfg, fn,
+                        (params, batch["tokens"]), (pspec, bspec["tokens"]))
+        cache, cspec = _lm_cache(cfg, shape, mesh_dp)
+        fn = functools.partial(_lm_decode_fn, cfg=cfg)
+        return Cell(arch_id, shape, fam, cfg, fn,
+                    (params, cache, batch["tokens"]),
+                    (pspec, cspec, bspec["tokens"]), donate=(1,))
+
+    if fam == "gnn":
+        from repro_torch.models import gnn
+
+        batch, bspec = _gnn_batch(cfg, shape)
+        state = abstract_train_state(cfg, fam)
+        sspec = shd.state_specs(state["params"], shd.gnn_param_spec(cfg))
+        step = make_train_step(functools.partial(gnn.loss_fn, cfg=cfg),
+                               opt_cfg)
+        return Cell(arch_id, shape, fam, cfg, step, (state, batch),
+                    (sspec, bspec), donate=(0,))
+
+    from repro_torch.models import recsys
+
+    batch, bspec = _recsys_batch(cfg, shape)
+    if shape.step == "train":
+        state = abstract_train_state(cfg, fam)
+        base_rule = shd.recsys_param_spec(cfg)
+        sspec = shd.state_specs(state["params"], base_rule)
+        zero1 = bool(step_over.get("zero1", False))
+        compute_cast = grad_transform = None
+        if zero1:
+            master_spec, compute_cast, grad_transform = zero1_hooks(
+                state["params"], base_rule)
+            sspec = {"params": master_spec,
+                     "opt": {"m": dict(master_spec), "v": dict(master_spec),
+                             "step": ()}}
+        step = make_train_step(functools.partial(recsys.loss_fn, cfg=cfg),
+                               opt_cfg, compute_cast=compute_cast,
+                               grad_transform=grad_transform)
+        return Cell(arch_id, shape, fam, cfg, step, (state, batch),
+                    (sspec, bspec), donate=(0,), assembly={"zero1": zero1})
+    params = abstract_params(cfg, fam, dtype=torch.bfloat16)
+    pspec = shd.tree_specs(params, shd.recsys_param_spec(cfg, serving=True))
+    fn = functools.partial(_recsys_serve_fn if shape.step == "serve"
+                           else _recsys_retrieval_fn, cfg=cfg)
+    return Cell(arch_id, shape, fam, cfg, fn, (params, batch), (pspec, bspec))
+
+
+# top-level partials (picklable)
+def _lm_prefill_fn(params, tokens, *, cfg, seq):
+    from repro_torch.models import lm
+
+    return lm.prefill(params, tokens, cfg, cache_capacity=seq)
+
+
+def _lm_prefill_chunked_fn(params, tokens, *, cfg, chunk):
+    from repro_torch.models import lm
+
+    return lm.prefill_chunked(params, tokens, cfg, chunk=chunk)
+
+
+def _lm_decode_fn(params, cache, tokens, *, cfg):
+    from repro_torch.models import lm
+
+    return lm.decode_step(params, cache, tokens, cfg)
+
+
+def _recsys_serve_fn(params, batch, *, cfg):
+    from repro_torch.models import recsys
+
+    return recsys.serve_scores(params, batch, cfg)
+
+
+def _recsys_retrieval_fn(params, batch, *, cfg):
+    from repro_torch.models import recsys
+
+    return recsys.retrieval_scores_compressed(params, batch, cfg)
 
 
 def lm_batch_for(cfg, shape: ShapeDef, rng, *, device) -> dict:

@@ -11,8 +11,9 @@ arrives as raw ``(src, dst)``, grouped once per forward
 (``segments_from_owners``), or as a VByte-compressed gap stream decoded
 on the device by :func:`decode_compressed_edges`, already in CSR order.
 
-The reference's ``constrain`` calls are sharding annotations for its
-device mesh; one card has no counterpart, so they are dropped.
+The reference's ``constrain`` calls place activations on its mesh; over
+the port's mesh each replica already holds its own rows
+(``distributed/api.py``), so they are not carried over.
 """
 from __future__ import annotations
 

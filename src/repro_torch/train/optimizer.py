@@ -54,10 +54,13 @@ def init_opt_state(params: dict) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """√(Σ over leaves of Σ x²), in float32, leaf sums in dict order."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in tree.values()]
+def global_norm(tree: dict, whole=None) -> torch.Tensor:
+    """√(Σ over leaves of Σ x²), in float32, leaf sums in dict order.
+    ``whole(x)`` gives a leaf as one tensor (a sharded leaf gathered, one
+    at a time), so each leaf's sum is the one its whole tensor gives."""
+    sums = [torch.sum(torch.square(
+        (x if whole is None else whole(x)).to(torch.float32)))
+        for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -81,16 +84,18 @@ def _groups(keys: list, params: dict) -> list[list]:
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict,
-                 cfg: OptimizerConfig):
+                 cfg: OptimizerConfig, *, gnorm: torch.Tensor | None = None):
     """One AdamW step, in place on ``params`` and the moments: returns
     ``(params, opt_state, metrics)`` with ``opt_state["step"]`` advanced
-    and ``metrics`` the global norm before clipping (``grad_norm``) and the
-    step's ``lr``. Multi-tensor (``torch._foreach_*``) over groups of
+    and ``metrics`` the global norm before clipping (``grad_norm``; given
+    as ``gnorm`` where ``grads`` hold slices of the leaves) and the step's
+    ``lr``. Multi-tensor (``torch._foreach_*``) over groups of
     leaves (:func:`_groups`): a few launches a group, each operation
     rounded where the reference's is (elementwise, so the grouping
     changes no bit), each temporary freed as soon as it is used."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = lr_schedule(cfg, step)

@@ -1,34 +1,103 @@
-"""Train state and the train-step factory.
+"""Train state, the train-step factory, and the step over a mesh.
 
-The port of ``repro/train/train_state.py`` for one card. A state is a
-dict: ``params`` (a model whose ``tree()`` gives its parameters under the
-reference's paths, or a nested dict of tensors), ``opt`` (``m``, ``v``:
-float32 moments per leaf; ``step``: int32) and, with gradient
-compression, ``ef`` (the error feedback per leaf). ``train_step`` updates
-the state in place and returns it (the reference returns a new one):
-copy it (``copy.deepcopy``) to keep a step's input. The reference's ZeRO
-hooks (``compute_cast``, ``grad_transform``) and ``jit_train_step`` place
-state on a device mesh; one card has no counterpart (ROADMAP queue 1 item
-13).
+The port of ``repro/train/train_state.py``. A state is a dict: ``params``
+(a model whose ``tree()`` gives its parameters under the reference's
+paths, or a nested dict of tensors), ``opt`` (``m``, ``v``: float32
+moments per leaf; ``step``: int32) and, with gradient compression,
+``ef`` (the error feedback per leaf). ``train_step`` updates the state
+in place and returns it (the reference returns a new one): copy it
+(``copy.deepcopy``) to keep a step's input.
+
+``make_train_step``'s ZeRO-1 hooks are the reference's: ``compute_cast``
+builds the compute copy once a step, outside the microbatches, and the
+gradients are taken with respect to it; ``grad_transform`` applies to
+each microbatch's gradients, and the float32 accumulator takes the
+layout it gives (the master's).
+
+:func:`jit_train_step` runs a step over a mesh from one controller, with
+no process group (``repro_torch.distributed``): it places the state by
+its shardings, in place (the reference's donation), keeps a replica for
+each data position, and deals the step's own ``microbatch`` parts
+(:func:`_split`) out whole, ``microbatch / n`` to each of the ``n`` data
+positions in order. Every part's gradients add into one float32
+accumulator in the master layout in part order (:func:`accumulate`, the
+one loop both steps run). So the step computes the single-device step's
+function, as the reference's ``jax.jit(in_shardings=...)`` does (its
+shardings change only where data lives): over ``n`` data positions it
+equals ``make_train_step(microbatch=mb)`` bit for bit. The batch's
+shardings say where its inputs live and never split it otherwise. A
+microbatch count the data positions do not divide (the recsys and GNN
+cells' 1) would need the loss reduced across positions and raises
+(``sharding.DP_MISSING``). Each leaf's square sum in the global norm is
+taken over the whole leaf (gathered one leaf at a time), as one device
+takes it: free while one card hosts the mesh; over several cards it
+moves the split gradient to the first (ROADMAP queue 1 item 13, left 2,
+measures it first). Every other operation is elementwise on the pieces.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable
 
 import torch
 from torch import nn
 
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, nest, unflatten_like
 
 from .grad_compress import compress_grads_with_ef, init_ef_state
-from .optimizer import OptimizerConfig, adamw_update, init_opt_state
+from .optimizer import OptimizerConfig, adamw_update, global_norm, init_opt_state
 
 
-def param_leaves(params) -> dict[str, torch.Tensor]:
+class ShardedParams:
+    """A model's parameters placed on a mesh: ``skeleton``, the model with
+    its leaves on the ``meta`` device (its structure only), and
+    ``leaves`` by path, each a tensor, ``BlockSharded`` or
+    ``Replicated``."""
+
+    def __init__(self, skeleton, leaves: dict):
+        self.skeleton, self.leaves = skeleton, leaves
+
+    def tree(self) -> dict:
+        return nest(self.leaves)
+
+    def on(self, device):
+        """The model with each leaf's copy on ``device`` (every leaf
+        replicated, as a compute copy is)."""
+        from repro_torch.distributed.sharding import whole
+
+        return with_leaves(self.skeleton, {k: whole(v, device)
+                                           for k, v in self.leaves.items()})
+
+
+def param_leaves(params) -> dict:
     """The parameters keyed by path, in the reference's leaf order: a
-    model's ``tree()``, or a nested dict of tensors."""
+    model's ``tree()``, a nested dict of tensors, or a
+    :class:`ShardedParams`' leaves."""
+    if isinstance(params, ShardedParams):
+        return dict(params.leaves)
     return dict(flatten(params.tree() if isinstance(params, nn.Module)
                         else params))
+
+
+def with_leaves(params, leaves: dict):
+    """``params`` (a model or a nested dict) with the leaf at each path
+    replaced by ``leaves[path]``; a model's new leaves are parameters that
+    do not require grad, the rest of the model copied."""
+    old = param_leaves(params)
+    if isinstance(params, nn.Module):
+        memo = {id(t): nn.Parameter(leaves[k].detach(), requires_grad=False)
+                for k, t in old.items()}
+        return copy.deepcopy(params, memo)
+    return unflatten_like(params, [leaves[k] for k in old])
+
+
+def map_params(fn, params):
+    """``params`` with each leaf ``x`` at path ``k`` replaced by ``fn(k,
+    x)``: a model, a nested dict or a :class:`ShardedParams`, kept so."""
+    leaves = {k: fn(k, v) for k, v in param_leaves(params).items()}
+    if isinstance(params, ShardedParams):
+        return ShardedParams(params.skeleton, leaves)
+    return with_leaves(params, leaves)
 
 
 def init_train_state(params, *, grad_compression: bool = False) -> dict:
@@ -61,51 +130,305 @@ def _split(batch: dict, microbatch: int) -> list[dict]:
              for k, x in batch.items()} for i in range(microbatch)]
 
 
-def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
-                    grad_compression: bool = False, microbatch: int = 1):
-    """``loss_fn(params, batch) -> (loss, aux)``; returns
-    ``train_step(state, batch) -> (state, metrics)``.
+class TrainStep:
+    """``train_step(state, batch) -> (state, metrics)`` on one device
+    (:func:`make_train_step`); its settings are what
+    :func:`jit_train_step` runs over a mesh."""
 
-    ``microbatch > 1`` splits the batch's leading dim (:func:`_split`) and
-    sums float32 gradients over the parts in order, then scales by
-    1/``microbatch``, as the reference's scan does; loss and aux are
-    averaged the same way."""
+    def __init__(self, loss_fn: Callable, opt_cfg: OptimizerConfig, *,
+                 grad_compression: bool = False, microbatch: int = 1,
+                 compute_cast: Callable | None = None,
+                 grad_transform: Callable | None = None):
+        self.loss_fn, self.opt_cfg = loss_fn, opt_cfg
+        self.grad_compression, self.microbatch = grad_compression, microbatch
+        self.compute_cast, self.grad_transform = compute_cast, grad_transform
 
-    def value_and_grad(params, leaves, batch):
-        loss, aux = loss_fn(params, batch)
+    def value_and_grad(self, params, leaves: dict, batch):
+        """``(loss, aux, grads)`` of one batch: gradients with respect to
+        ``leaves`` (``params``' leaves by path)."""
+        loss, aux = self.loss_fn(params, batch)
         gs = torch.autograd.grad(loss, list(leaves.values()),
                                  allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(leaves.items(), gs)}
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
-    def grads_of(params, leaves, batch):
-        if microbatch <= 1:
-            return value_and_grad(params, leaves, batch)
-        gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in leaves.items()}
-        lsum = auxsum = None
-        for part in _split(batch, microbatch):
-            loss, aux, g = value_and_grad(params, leaves, part)
-            gsum = {k: a + g[k].to(torch.float32) for k, a in gsum.items()}
-            if lsum is None:
-                lsum = torch.zeros((), dtype=torch.float32,
-                                   device=loss.device)
-                auxsum = {k: torch.zeros((), dtype=torch.float32,
-                                         device=loss.device) for k in aux}
-            lsum = lsum + loss
-            auxsum = {k: a + aux[k] for k, a in auxsum.items()}
-        inv = 1.0 / microbatch
-        return (lsum * inv, {k: a * inv for k, a in auxsum.items()},
-                {k: g * inv for k, g in gsum.items()})
+    def _compute(self, params):
+        """The compute copy (``compute_cast``, once a step) and its leaves,
+        which require grad: the parameters themselves without a cast."""
+        if self.compute_cast is None:
+            return params, param_leaves(params)
+        with torch.no_grad():
+            cp = self.compute_cast(params)
+        leaves = param_leaves(cp)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        return cp, leaves
 
-    def train_step(state: dict, batch: Any) -> tuple[dict, dict]:
-        leaves = param_leaves(state["params"])
-        loss, aux, grads = grads_of(state["params"], leaves, batch)
-        if grad_compression:
+    def __call__(self, state: dict, batch: Any) -> tuple[dict, dict]:
+        cp, leaves = self._compute(state["params"])
+        parts = ([batch] if self.microbatch <= 1
+                 else _split(batch, self.microbatch))
+        loss, aux, grads = accumulate(self, [(cp, leaves, p) for p in parts])
+        return state, self.finish(state, loss, aux, grads)
+
+    def finish(self, state: dict, loss, aux: dict, grads: dict,
+               update: Callable | None = None) -> dict:
+        """The step's end, in place on ``state``: gradient compression,
+        then ``update(state, grads) -> metrics`` (default: ``adamw_update``
+        on one device). Returns the step's metrics."""
+        if self.grad_compression:
             grads, state["ef"] = compress_grads_with_ef(grads, state["ef"])
-        _, state["opt"], opt_metrics = adamw_update(leaves, grads,
-                                                    state["opt"], opt_cfg)
-        return state, {"loss": loss, **opt_metrics, **aux}
+        if update is None:
+            _, state["opt"], opt_metrics = adamw_update(
+                param_leaves(state["params"]), grads, state["opt"],
+                self.opt_cfg)
+        else:
+            opt_metrics = update(state, grads)
+        return {"loss": loss, **opt_metrics, **aux}
 
-    return train_step
+
+def accumulate(step: TrainStep, work: list, lay: Callable | None = None,
+               mark: Callable | None = None) -> tuple:
+    """``(loss, aux, grads)`` over ``work``'s parts, each ``(params,
+    leaves, part)``, in order: the gradients with respect to ``leaves``,
+    through ``step.grad_transform``, then ``lay(path, grad)`` (where the
+    accumulator lives; default: where they are). One part gives them as
+    they come, as the reference's ``microbatch <= 1`` does; several add
+    into float32 accumulators in the first part's layout, then scale by
+    1/parts, as its scan does, and average loss and aux the same way.
+    ``mark`` is called with ``"forward_backward"`` and ``"reduce"`` as each
+    part's two halves begin."""
+    from repro_torch.distributed.sharding import map_pieces
+
+    t = step.grad_transform
+    acc = lsum = auxsum = None
+    for params, leaves, part in work:
+        if mark:
+            mark("forward_backward")
+        loss, aux, g = step.value_and_grad(params, leaves, part)
+        if mark:
+            mark("reduce")
+        if t:
+            g = t(g)
+        if lay:
+            g = {k: lay(k, v) for k, v in g.items()}
+        if len(work) == 1:
+            return loss, aux, g
+        if acc is None:  # the accumulator adopts the (master) layout
+            acc = {k: map_pieces(lambda z: torch.zeros(
+                z.shape, dtype=torch.float32, device=z.device), v)
+                for k, v in g.items()}
+            lsum = torch.zeros((), dtype=torch.float32, device=loss.device)
+            auxsum = {k: torch.zeros((), dtype=torch.float32,
+                                     device=loss.device) for k in aux}
+        for k, v in g.items():
+            map_pieces(lambda a, b: a.add_(b.to(torch.float32)), acc[k], v)
+        lsum = lsum + loss.to(lsum.device)
+        auxsum = {k: a + aux[k].to(a.device) for k, a in auxsum.items()}
+    inv = 1.0 / len(work)
+    return (lsum * inv, {k: a * inv for k, a in auxsum.items()},
+            {k: map_pieces(lambda a: a * inv, v) for k, v in acc.items()})
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
+                    grad_compression: bool = False, microbatch: int = 1,
+                    compute_cast: Callable | None = None,
+                    grad_transform: Callable | None = None) -> TrainStep:
+    """``loss_fn(params, batch) -> (loss, aux)``; returns
+    ``train_step(state, batch) -> (state, metrics)``.
+
+    ``microbatch > 1`` splits the batch's leading dim (:func:`_split`) and
+    sums float32 gradients over the parts in order, then scales by
+    1/``microbatch``, as the reference's scan does; loss and aux are
+    averaged the same way. ``compute_cast(params)`` gives the compute copy
+    (once a step) whose gradients are taken; ``grad_transform(grads)``
+    applies to each part's gradients, and the accumulator takes its
+    layout (the reference's ZeRO-1 hooks, ``distributed.sharding``)."""
+    return TrainStep(loss_fn, opt_cfg, grad_compression=grad_compression,
+                     microbatch=microbatch, compute_cast=compute_cast,
+                     grad_transform=grad_transform)
+
+
+# ---------------------------------------------------------------------------
+# the step over a mesh
+# ---------------------------------------------------------------------------
+def _shardings(tree) -> list:
+    from repro_torch.distributed.api import NamedSharding
+
+    if isinstance(tree, NamedSharding):
+        return [tree]
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _shardings(v)]
+    if isinstance(tree, (list, tuple)):
+        return [s for v in tree for s in _shardings(v)]
+    if hasattr(tree, "counts_host"):  # a CompressedIntArray of shardings
+        from repro_torch.distributed.sharding import FORMAT_LEAVES_ALL
+
+        return [s for k in FORMAT_LEAVES_ALL
+                for s in _shardings(getattr(tree, k))]
+    return []
+
+
+def _to(batch: dict, device) -> dict:
+    return {k: v.to(device) if hasattr(v, "to") else v
+            for k, v in batch.items()}
+
+
+class ShardedTrainStep:
+    """A :class:`TrainStep` over the mesh of its shardings
+    (:func:`jit_train_step`): the step's ``microbatch`` parts dealt out,
+    ``per_shard`` to each data position in order. ``on_phase``, when set,
+    is called with ``"gather"``, ``"forward_backward"``, ``"reduce"``,
+    ``"update"`` (gradient compression, the norm and AdamW) and ``"end"``
+    as each part of a step begins (a clock's marks)."""
+
+    def __init__(self, step: TrainStep, in_shardings, out_shardings=None):
+        from repro_torch.distributed.api import NamedSharding
+        from repro_torch.distributed.sharding import (DP, DP_MISSING,
+                                                      TP_MISSING,
+                                                      shard_devices)
+
+        state_sh, _ = in_shardings
+        meshes = {s.mesh for s in _shardings(in_shardings)}
+        if len(meshes) != 1:
+            raise ValueError(f"in_shardings lie on {len(meshes)} meshes; "
+                             "a step runs over one")
+        mesh = meshes.pop()
+        wide = {a: n for a, n in mesh.shape.items() if a not in DP and n > 1}
+        if wide:
+            raise NotImplementedError(f"mesh axes {wide}: {TP_MISSING}")
+        self.step, self.mesh, self.state_sh = step, mesh, state_sh
+        self.out_state_sh = out_shardings[0] if out_shardings else None
+        self.devices = shard_devices(
+            mesh, tuple(a for a in DP if a in mesh.axis_names))
+        n, mb = len(self.devices), max(step.microbatch, 1)
+        if mb % n:
+            raise NotImplementedError(
+                f"the step's microbatch count {mb} does not split over {n} "
+                f"data positions: {DP_MISSING}")
+        self.per_shard = mb // n
+        self.whole = NamedSharding(mesh, ())
+        self.on_phase = None
+
+    def _mark(self, name: str) -> None:
+        if self.on_phase is not None:
+            self.on_phase(name)
+
+    def place(self, state: dict, shardings: dict | None = None) -> dict:
+        """``state`` laid out by ``shardings`` (default: the step's state
+        shardings), in place: a model's parameters become a
+        :class:`ShardedParams`, every split leaf its own tensor a shard;
+        a leaf already so laid out stays as it is."""
+        from repro_torch.distributed.sharding import place
+
+        sh = shardings or self.state_sh
+        params = state["params"]
+        if not isinstance(params, ShardedParams):
+            leaves = param_leaves(params)
+            params = ShardedParams(with_leaves(params, {
+                k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in leaves.items()}), leaves)
+            state["params"] = params
+
+        def lay(tree: dict, specs: dict) -> dict:
+            return {k: place(v.detach() if isinstance(v, torch.Tensor) else v,
+                             specs[k], copy=True) for k, v in tree.items()}
+
+        params.leaves = lay(params.leaves, sh["params"])
+        opt = state["opt"]
+        opt["m"], opt["v"] = lay(opt["m"], sh["opt"]["m"]), lay(
+            opt["v"], sh["opt"]["v"])
+        opt["step"] = place(opt["step"], sh["opt"]["step"])
+        if "ef" in state:
+            state["ef"] = lay(state["ef"], sh["ef"])
+        return state
+
+    def __call__(self, state: dict, batch: Any) -> tuple[dict, dict]:
+        from repro_torch.distributed.api import activate_mesh
+        from repro_torch.distributed.sharding import place
+
+        st = self.step
+        state = self.place(state)
+        master_sh = self.state_sh["params"]
+        dev0 = self.devices[0]
+        with activate_mesh(self.mesh):
+            self._mark("gather")
+            with torch.no_grad():
+                cp = (st.compute_cast(state["params"]) if st.compute_cast
+                      else state["params"])
+                if not isinstance(cp, ShardedParams):
+                    raise TypeError("compute_cast of placed parameters must "
+                                    "give placed parameters (map_params)")
+                cp = ShardedParams(cp.skeleton, {
+                    k: place(v, self.whole) for k, v in cp.leaves.items()})
+            replicas = {}
+            for dev in dict.fromkeys(self.devices):
+                model = cp.on(dev)
+                leaves = param_leaves(model)
+                for p in leaves.values():
+                    p.requires_grad_(True)
+                replicas[str(dev)] = (model, leaves)
+            parts = [batch] if st.microbatch <= 1 else _split(batch,
+                                                               st.microbatch)
+            work = [(*replicas[str(dev)], _to(part, dev)) for part, dev in
+                    zip(parts, (d for d in self.devices
+                                for _ in range(self.per_shard)))]
+            del replicas, cp
+            loss, aux, grads = accumulate(
+                st, work, lay=lambda k, g: place(g, master_sh[k]),
+                mark=self._mark)
+            del work
+            self._mark("update")
+            metrics = st.finish(state, loss.to(dev0),
+                                {k: a.to(dev0) for k, a in aux.items()},
+                                grads, update=self._adamw)
+            self._mark("end")
+        if self.out_state_sh is not None:
+            self.place(state, self.out_state_sh)
+        return state, metrics
+
+    def _adamw(self, state: dict, grads: dict) -> dict:
+        """``adamw_update`` once per distinct device over the pieces that
+        live there (the moments' pieces beside their leaf's), with the
+        global norm of the whole leaves, each gathered on the first data
+        position's device."""
+        from repro_torch.distributed.sharding import Replicated, pieces, whole
+
+        dev0 = self.devices[0]
+        gnorm = global_norm(grads, whole=lambda x: whole(x, dev0))
+        params, opt = state["params"].leaves, state["opt"]
+        groups = {}
+        for k, p in params.items():
+            ps = [pieces(x) for x in (p, grads[k], opt["m"][k], opt["v"][k])]
+            if len({len(x) for x in ps}) != 1 or any(
+                    a.device != b.device or a.shape != b.shape
+                    for x in ps[1:] for a, b in zip(ps[0], x)):
+                raise ValueError(f"{k}: the leaf, its gradient and moments "
+                                 "are laid out differently")
+            for i, quad in enumerate(zip(*ps)):
+                g = groups.setdefault(str(quad[0].device), ({}, {}, {}, {}))
+                for d, x in zip(g, quad):
+                    d[f"{k}#{i}"] = x
+        steps, metrics = {}, {}
+        for dev, (p, g, m, v) in groups.items():
+            o = {"m": m, "v": v, "step": opt["step"].on(dev)}
+            _, o, metrics[dev] = adamw_update(p, g, o, self.step.opt_cfg,
+                                              gnorm=gnorm.to(dev))
+            steps[dev] = o["step"]
+        opt["step"] = Replicated(self.mesh, {
+            k: steps.get(k, v) for k, v in opt["step"].copies.items()})
+        return metrics[str(dev0)]
+
+
+def jit_train_step(train_step, *, in_shardings=None, out_shardings=None):
+    """``train_step`` over the mesh of ``in_shardings`` (``(state
+    shardings, batch shardings)``, ``distributed.sharding.to_named`` of
+    the specs): a :class:`ShardedTrainStep`. Without shardings, the step
+    itself (one device, nothing to place). A mesh axis other than the
+    data axes larger than 1 raises (tensor-parallel compute is not
+    ported), as does a microbatch count that the data positions do not
+    divide (a loss reduced across positions is not ported)."""
+    if in_shardings is None:
+        return train_step
+    return ShardedTrainStep(train_step, in_shardings, out_shardings)

@@ -1928,3 +1928,99 @@ def test_device_encoder_on_the_card_matches_the_cpu(dev, differential):
         card["payload"], card["counts"], card["bases"], block_size=128,
         differential=differential)
     assert torch.equal(out.cpu().reshape(-1), t)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 data-parallel training over 4 logical shards of the card
+# ---------------------------------------------------------------------------
+def _zero1_lm(dev):
+    """A reduced h2o-danube at a vocabulary of 2^15, so its embedding and
+    head (2^21 elements) are split by ZeRO-1, and its ``build_cell``
+    hooks."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm, registry
+
+    cfg = dataclasses.replace(registry.reduced_config("h2o-danube-1.8b"),
+                              vocab=1 << 15, microbatch=4, window=None)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    _, cast, transform = registry.zero1_hooks(params, shd.lm_param_spec(cfg))
+    return cfg, cast, transform
+
+
+@pytest.mark.parametrize("grad_compression", [False, True])
+def test_sharded_zero1_train_step_on_the_card_matches_single(
+        dev, grad_compression):
+    """Three steps of ``jit_train_step`` over ``(4, 1)`` logical shards of
+    the card with the ZeRO-1 specs and hooks, against
+    ``make_train_step(microbatch=4)`` with the same hooks: losses, grad
+    norms and every leaf of the state bit for bit (deterministic
+    algorithms)."""
+    import os
+
+    from repro_torch.convert import train_state_tree
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   jit_train_step, make_train_step)
+    from repro_torch.tree import flatten
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg, cast, transform = _zero1_lm(dev)
+    opt = OptimizerConfig(peak_lr=1e-2, warmup_steps=1, total_steps=3)
+    loss = lambda p, b: lm.loss_fn(p, b, cfg)  # noqa: E731
+    step = make_train_step(loss, opt, microbatch=4, compute_cast=cast,
+                           grad_transform=transform,
+                           grad_compression=grad_compression)
+    mesh = make_mesh((4, 1), ("data", "model"), devices=[dev] * 4)
+    from repro_torch.models import registry
+
+    specs = shd.state_specs(registry.abstract_params(cfg, "lm"),
+                            shd.lm_param_spec(cfg, zero1=True),
+                            has_ef=grad_compression)
+    sharded = jit_train_step(step, in_shardings=(
+        shd.to_named(mesh, specs), shd.to_named(mesh, {"tokens": (shd.DP,
+                                                                  None)})))
+    rng = np.random.default_rng(9)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (8, 33)).astype(np.int32), device=dev)}
+        for _ in range(3)]
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for fn in (sharded, step):
+            state = init_train_state(lm.init_params(cfg, seed=0, device=dev),
+                                     grad_compression=grad_compression)
+            metrics = []
+            for b in batches:
+                state, m = fn(state, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((metrics, dict(flatten(train_state_tree(state)))))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m_sh, t_sh), (m_one, t_one) = runs
+    assert m_sh == m_one
+    assert t_sh.keys() == t_one.keys()
+    for k in t_one:
+        assert t_sh[k].device.type == "cuda"
+        assert torch.equal(t_sh[k], t_one[k]), k
+
+
+def test_compressed_psum_on_the_card_matches_the_cpu(dev):
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import BlockSharded
+    from repro_torch.train.grad_compress import compressed_psum
+
+    rng = np.random.default_rng(12)
+    xs = [torch.as_tensor((rng.standard_normal((8, 300)) * s).astype(
+        np.float32)) for s in (1e-3, 2.0, 0.5, 7.0)]
+
+    def psum(d):
+        mesh = make_mesh((4,), ("data",), devices=[d] * 4)
+        out = compressed_psum(BlockSharded(mesh, ("data",), tuple(
+            x.to(d) for x in xs)), "data")
+        assert all(s.device.type == torch.device(d).type for s in out.shards)
+        return [s.cpu() for s in out.shards]
+
+    for a, b in zip(psum(dev), psum("cpu")):
+        assert torch.equal(a, b)
