@@ -180,6 +180,28 @@ fault. One JSON line per phase:
    gather / forward_backward / reduce / update, peak bytes, state bytes a
    shard, beside path ``lm``'s single-device step; ``compressed_psum``
    over the 4 shards bit for bit against its CPU result.
+   Path ``model_parallel`` — tensor and expert parallelism over a
+   ``model`` axis (logical shards of ``cuda:0`` on one card), every
+   launch count set to 0 just before the path and read just after:
+   ``mp_train``: h2o-danube-1.8b at full width (24 layers, float32 from
+   ``--seed``), ``build_cell``'s ZeRO-1 specs and hooks over
+   ``make_mesh((2, 2), ("data", "model"))``, 8 × 4,096 tokens a step from
+   ``CompressedTokenPipeline`` (kernel 1), microbatch 4 (two parts a data
+   position), under deterministic algorithms: 2 steps of
+   ``jit_train_step`` against the single-device hooked step at
+   microbatch 4 (losses and grad norms within 1e-3 relative, the first
+   step's every gradient leaf within relative L2 2^-4), and a replay of
+   the 2 mesh steps bit for bit; ms a step by phase, peak bytes.
+   ``mp_serve`` over ``make_mesh((1, 4))`` through
+   ``registry.run_cell``, bf16 parameters from ``--seed``, against the
+   single-device functions fed the same tokens: olmoe-1b-7b (16 experts
+   and 4 K/V heads a position, the cache split by heads) prefill of 4 ×
+   2,048 and 16 decode steps; h2o-danube-1.8b (the cache split by head
+   dimension) prefill of 1 × 4,096 and 16 decode steps; mixtral-8x7b at
+   2 of its 32 layers (each expert's hidden units split) one prefill of 1
+   × 4,096. Logits within 2^-5 of the largest |logit|, ``moe_drop_frac``
+   equal; prefill seconds and decode ms a token beside the single
+   device's.
    Path ``sharded`` — ``make_mesh((8,), ("data",))``: over the cards when
    there are several, else 8 logical shards of ``cuda:0`` (a single
    controller, no collective, as the reference's ``shard_map`` decode).
@@ -241,6 +263,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -4818,6 +4841,386 @@ def run_sharded_train(np, torch, args, lm_path: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path model_parallel: tensor and expert parallelism over a model axis
+# ---------------------------------------------------------------------------
+MP_TRAIN_MESH = (2, 2)  # (data, model) logical shards of cuda:0
+MP_TRAIN_STEPS = 2
+MP_TRAIN_RTOL = 1e-3  # losses and grad norms against the single device
+MP_SERVE_MESH = (1, 4)
+MP_DECODE_STEPS = 16
+# arch: batch, prompt, decode steps, layers kept (None: all)
+MP_SERVE = {"olmoe-1b-7b": (4, 2048, MP_DECODE_STEPS, None),
+            "h2o-danube-1.8b": (1, 4096, MP_DECODE_STEPS, None),
+            "mixtral-8x7b": (1, 4096, 0, 2)}
+
+
+@contextlib.contextmanager
+def _mp_drop_recorder():
+    """Every MoE layer's ``moe_drop_frac`` while the block runs, single
+    device (``moe_apply``) and over the positions (``moe_apply_mp``), in
+    call order."""
+    from repro_torch.nn import moe
+
+    real = {n: getattr(moe, n) for n in ("moe_apply", "moe_apply_mp")}
+    seen = []
+
+    def wrap(fn):
+        def recorded(*a, **kw):
+            out, aux = fn(*a, **kw)
+            seen.append(float(aux["moe_drop_frac"]))
+            return out, aux
+        return recorded
+
+    for n, fn in real.items():
+        setattr(moe, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in real.items():
+            setattr(moe, n, fn)
+
+
+def _grads_at_finish(step_fn, fn):
+    """``step_fn`` (a train step) calling ``fn(grads)`` with its first
+    step's accumulated gradients, before the update."""
+    st = step_fn.step if hasattr(step_fn, "step") else step_fn
+    real, seen = st.finish, []
+
+    def finish(state, loss, aux, grads, update=None):
+        if not seen:
+            seen.append(True)
+            fn(grads)
+        return real(state, loss, aux, grads, update)
+
+    st.finish = finish
+    return step_fn
+
+
+def mp_train(np, torch, args) -> dict:
+    """h2o-danube-1.8b at full width over ``make_mesh((2, 2))`` with ZeRO-1
+    (``build_cell``'s specs and hooks): MP_TRAIN_STEPS steps of
+    ``jit_train_step``, the single-device hooked step at microbatch 4 from
+    a fresh state of the seed, then a replay of the mesh steps; one state
+    on the card at a time."""
+    from repro_torch.data.pipeline import CompressedTokenPipeline
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.train import LM_TRAIN_ROWS
+    from repro_torch.models import lm, registry
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   jit_train_step)
+
+    n, k = MP_TRAIN_MESH
+    mesh = make_mesh(MP_TRAIN_MESH, ("data", "model"))
+    opt = OptimizerConfig(peak_lr=LM_PEAK_LR, warmup_steps=1,
+                          total_steps=MP_TRAIN_STEPS)
+
+    def cell():  # a fresh step (its hooks patched per run)
+        return registry.build_cell(LM_TRAIN_ARCH, "train_4k", mesh_dp=n,
+                                   overrides={"zero1": True}, opt_cfg=opt)
+
+    c0 = cell()
+    cfg = c0.cfg
+    S, B = c0.shape.dims["seq_len"], LM_TRAIN_ROWS
+    toks = token_stream(np.random.default_rng(args.seed + 7),
+                        B * (S + 1) * MP_TRAIN_STEPS, cfg.vocab)
+    pipe = CompressedTokenPipeline(toks, B, S, device="cuda")
+    rec = {"arch": LM_TRAIN_ARCH, "mesh": mesh.shape, "layers": cfg.n_layers,
+           "batch": [B, S + 1], "microbatch": cfg.microbatch,
+           "parts_per_data_position": cfg.microbatch // n,
+           "steps": MP_TRAIN_STEPS,
+           "split_leaves": {
+               key: str(s) for key, s in c0.arg_specs[0]["params"].items()
+               if any(e is not None for e in s)}}
+
+    def run(step_fn, clock=None):
+        state = init_train_state(lm.init_params(cfg, seed=args.seed,
+                                                device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, times = [], [], []
+        for i in range(MP_TRAIN_STEPS):
+            b = pipe.get_batch(i)
+            _on_card("model_parallel train batch", b["tokens"])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, b)
+            end.record()
+            torch.cuda.synchronize()
+            t = clock.step_ms() if clock is not None else {}
+            t["call"] = start.elapsed_time(end)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append({key: round(v, 3) for key, v in t.items()})
+        peak = torch.cuda.max_memory_allocated()
+        digests = _leaf_digests(torch, state)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, norms, times, peak, digests
+
+    from repro_torch.distributed.sharding import whole
+
+    grads_mp, g_rel = {}, {}
+
+    def keep(grads):  # the mesh step's, whole on the card (float32)
+        grads_mp.update({key: whole(g).float() for key, g in grads.items()})
+
+    def against(grads):  # the single device's, leaf by leaf
+        for key, g in grads.items():
+            a, g = grads_mp.pop(key), g.float()
+            g_rel[key] = float((a - g).norm() / g.norm().clamp(min=1e-30))
+
+    with _deterministic(torch):
+        c = cell()
+        sharded = _grads_at_finish(jit_train_step(
+            c.fn, in_shardings=c.in_shardings(mesh)), keep)
+        sharded.on_phase = clock = _PhaseClock(torch)
+        losses, norms, times, peak, digests = run(sharded, clock)
+        one = _grads_at_finish(cell().fn, against)
+        s_losses, s_norms, s_times, s_peak, _ = run(one)
+        c = cell()
+        replay = jit_train_step(c.fn, in_shardings=c.in_shardings(mesh))
+        r_losses, r_norms, _, _, r_digests = run(replay)
+    rel = {what: max(abs(a - b) / abs(b) for a, b in zip(x, y))
+           for what, x, y in (("loss", losses, s_losses),
+                              ("grad_norm", norms, s_norms))}
+    if not all(np.isfinite(losses + norms)) or max(rel.values()) > \
+            MP_TRAIN_RTOL:
+        die(f"model_parallel train: losses {losses} vs {s_losses}, grad "
+            f"norms {norms} vs {s_norms}: {rel} > {MP_TRAIN_RTOL}")
+    worst = max(g_rel, key=g_rel.get)
+    if g_rel[worst] > LM_GRAD_RTOL:
+        die(f"model_parallel train: gradient {worst} {g_rel[worst]} > "
+            f"{LM_GRAD_RTOL} of the single device's")
+    if (r_losses, r_norms) != (losses, norms) or r_digests != digests:
+        bad = sorted(key for key in digests if r_digests.get(key)
+                     != digests[key])
+        die(f"model_parallel train: the replay differs: losses {r_losses} "
+            f"vs {losses}, leaves {bad[:6]}")
+    rec.update(losses=losses, grad_norms=norms, rel_to_single=rel,
+               grad_rel_l2_max={"leaf": worst, "value": g_rel[worst]},
+               replay_equal=True, ms_per_step=times, steady_ms=times[-1],
+               tokens_per_s=B * S / (times[-1]["call"] / 1e3),
+               peak_device_bytes=peak,
+               single_device={"ms_per_step": s_times, "losses": s_losses,
+                              "grad_norms": s_norms,
+                              "peak_device_bytes": s_peak})
+    emit("mp_train", **rec)
+    return rec
+
+
+def _mp_run(torch, registry, lm, cells, mesh, params, prompt, steps: int,
+            dtype):
+    """The prefill cell over ``mesh`` (a warm-up call, then a timed one),
+    ``steps`` greedy decode-cell calls, then the single-device ``prefill``
+    and ``decode_step`` fed the same tokens (teacher forcing), at
+    ``dtype``: the two runs' logits, caches, ``moe_drop_frac`` a layer
+    call and seconds."""
+    from repro_torch.distributed.sharding import whole
+
+    pre, dec = cells
+    cfg, cap = pre.fn.keywords["cfg"], pre.fn.keywords["cache_capacity"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out = {"mesh": {"logits": []}, "single": {"logits": []}}
+    registry.run_cell(pre, mesh, params, prompt)  # warm-up
+    with _mp_drop_recorder() as drops:
+        ((lg, cache), placed), t_pre = timed(
+            lambda: registry.run_cell(pre, mesh, params, prompt))
+        out["mesh"]["prefill_seconds"] = t_pre
+        out["mesh"]["prefill_cache_layout"] = [
+            [d, list(a)] for d, a in cache["k"].splits]
+        _on_card("prefill over the mesh", *(
+            x for v in (lg, cache["k"]) for x in v.shards))
+        out["mesh"]["logits"].append(whole(lg))
+        toks = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            toks.append(torch.argmax(out["mesh"]["logits"][-1], -1).to(
+                torch.int32))
+            (lg, cache), placed = registry.run_cell(dec, mesh, placed, cache,
+                                                    toks[-1])
+            out["mesh"]["logits"].append(whole(lg))
+        torch.cuda.synchronize()
+        out["mesh"]["decode_seconds"] = time.perf_counter() - t0
+    out["mesh"].update(drops=list(drops), cache={
+        k: whole(cache[k]) for k in ("k", "v")})
+    if steps:
+        out["mesh"]["decode_cache_layout"] = [
+            [d, list(a)] for d, a in cache["k"].splits]
+    del cache, placed
+    with _mp_drop_recorder() as drops:
+        (lg, cache), t_pre = timed(lambda: lm.prefill(
+            params, prompt, cfg, cache_capacity=cap, dtype=dtype))
+        out["single"]["prefill_seconds"] = t_pre
+        out["single"]["logits"].append(lg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tok in toks:
+            lg, cache = lm.decode_step(params, cache, tok, cfg, dtype=dtype)
+            out["single"]["logits"].append(lg)
+        torch.cuda.synchronize()
+        out["single"]["decode_seconds"] = time.perf_counter() - t0
+    out["single"].update(drops=list(drops), cache=cache)
+    out["tokens"] = toks
+    return out
+
+
+def mp_serve(np, torch, arch: str, args) -> dict:
+    """One config over ``make_mesh((1, 4))`` through ``registry.run_cell``
+    (bf16 parameters from the seed; mixtral cut to its first layers): the
+    prefill cell, then the decode cell MP_SERVE[arch] times greedily,
+    against the single-device ``prefill`` / ``decode_step`` fed the same
+    tokens. A dense config's logits and caches are held within
+    LM_SERVE_RTOL of their largest |value| as served (bf16). An MoE
+    config's router sends a token whose hidden state moved by a last bit
+    (the row-parallel sums re-associate) to another expert where its
+    top-k is a near tie, and at decode's 4 tokens a capacity of 1 drops
+    other rows then: its served readings (logits, caches, drop shares of
+    both runs) are reported, and its held checks run at float32 with
+    capacity E / K on the prompts' first LM_MOE_CHECK_PROMPT tokens
+    (LM_CHECK_STEPS decode steps), as path ``lm`` holds olmoe: logits and
+    caches within LM_SERVE_RTOL, ``moe_drop_frac`` equal."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models import lm, registry
+    from repro_torch.train import map_params
+
+    B, S, steps, layers = MP_SERVE[arch]
+    over = {} if layers is None else {"n_layers": layers}
+    mesh = make_mesh(MP_SERVE_MESH, ("data", "model"))
+    rng = np.random.default_rng(args.seed + 11)
+
+    def cells(cfg_over, cap, dtype):
+        pre = registry.build_cell(arch, "prefill_32k", mesh_dp=1,
+                                  overrides=cfg_over)
+        dec = registry.build_cell(arch, "decode_32k", mesh_dp=1,
+                                  overrides=cfg_over)
+        cfg = pre.cfg
+        return (dataclasses.replace(pre, fn=functools.partial(
+                    lm.prefill, cfg=cfg, cache_capacity=cap, dtype=dtype)),
+                dataclasses.replace(dec, fn=functools.partial(
+                    lm.decode_step, cfg=cfg, dtype=dtype)))
+
+    served = cells(over, S + steps, torch.bfloat16)
+    cfg = served[0].cfg
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32), device="cuda")
+    params = map_params(lambda key, p: p.to(torch.bfloat16),
+                        lm.init_params(cfg, seed=args.seed, device="cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"arch": arch, "mesh": mesh.shape, "batch": B, "prompt": S,
+           "layers": cfg.n_layers, "decode_steps": steps,
+           "cache_head_axes": str(lm.cache_head_axes(cfg))}
+
+    def hold(what, got, want):
+        err = _max_rel(torch, got, want)
+        rec.setdefault("held", {})[what] = err
+        if not err <= LM_SERVE_RTOL:
+            die(f"model_parallel {arch}: {what} {err} > {LM_SERVE_RTOL} of "
+                "the largest value")
+
+    def compare(run, check):
+        for i, (a, b) in enumerate(zip(run["mesh"]["logits"],
+                                       run["single"]["logits"])):
+            check("prefill logits" if i == 0 else f"decode {i - 1} logits",
+                  a, b)
+        for part in ("k", "v"):
+            check(f"cache {part}", run["mesh"]["cache"][part],
+                  run["single"]["cache"][part])
+
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        run = _mp_run(torch, registry, lm, served, mesh, params, prompt,
+                      steps, torch.bfloat16)
+        rec.update(
+            prefill_seconds=run["mesh"]["prefill_seconds"],
+            single_device_prefill_seconds=run["single"]["prefill_seconds"],
+            cache_layout=run["mesh"]["prefill_cache_layout"],
+            sample=(torch.stack(run["tokens"], 1)[0, :8].tolist()
+                    if steps else []))
+        if steps:
+            rec.update(
+                decode_ms_per_token=run["mesh"]["decode_seconds"] / steps
+                * 1e3,
+                single_device_decode_ms_per_token=run["single"][
+                    "decode_seconds"] / steps * 1e3,
+                decode_cache_layout=run["mesh"]["decode_cache_layout"])
+        if not cfg.moe:
+            compare(run, hold)
+        else:
+            def report(what, got, want):
+                rec.setdefault("reported_bf16", {})[what] = _max_rel(
+                    torch, got, want)
+
+            compare(run, report)
+            rec["reported_bf16"]["moe_drop_frac_equal"] = (
+                run["mesh"]["drops"] == run["single"]["drops"])
+            rec["reported_bf16"]["moe_drop_frac_mean"] = [
+                sum(r["drops"]) / len(r["drops"])
+                for r in (run["mesh"], run["single"])]
+            del run
+            ccfg = {**over, "moe.capacity_factor":
+                    cfg.moe.n_experts / cfg.moe.top_k}
+            Sc = LM_MOE_CHECK_PROMPT
+            n = LM_CHECK_STEPS if steps else 0
+            run = _mp_run(torch, registry, lm, cells(ccfg, Sc + n,
+                                                     torch.float32),
+                          mesh, params, prompt[:, :Sc], n, torch.float32)
+            rec["checks_at"] = {"capacity_factor": ccfg["moe.capacity_factor"],
+                                "prompt": Sc, "decode_steps": n,
+                                "dtype": "float32"}
+            compare(run, hold)
+            if run["mesh"]["drops"] != run["single"]["drops"]:
+                die(f"model_parallel {arch}: moe_drop_frac "
+                    f"{run['mesh']['drops']} vs {run['single']['drops']}")
+            rec["held"]["moe_drop_frac_equal"] = True
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("mp_serve", **rec)
+    return rec
+
+
+def run_model_parallel(np, torch, args) -> dict:
+    """Path ``model_parallel``: ``mp_train`` then ``mp_serve`` for each
+    config of MP_SERVE; every launch count set to 0 just before the path
+    and read just after (kernel 1: one launch a train batch)."""
+    t_path = time.perf_counter()
+    counters = _launch_counters()
+    _reset(torch, counters)
+    phases = {}
+    t0 = time.perf_counter()
+    train = mp_train(np, torch, args)
+    phases["mp_train"] = time.perf_counter() - t0
+    serve = {}
+    for arch in MP_SERVE:
+        t0 = time.perf_counter()
+        serve[arch] = mp_serve(np, torch, arch, args)
+        phases[f"mp_serve/{arch}"] = time.perf_counter() - t0
+    launches = _read(torch, counters)
+    want = dict.fromkeys(counters, 0)
+    want["vbyte_decode_blocked"] = 3 * MP_TRAIN_STEPS  # mesh, single, replay
+    if {k: launches[k] for k in counters} != want:
+        die(f"model_parallel: launches {launches}, expected {want}")
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="model_parallel", seconds=round(seconds, 3),
+         phase_seconds={k: round(v, 3) for k, v in phases.items()},
+         launches=launches)
+    return {"launches": launches, "seconds": seconds, "train": train,
+            "serve": serve}
+
+
+# ---------------------------------------------------------------------------
 # path sharded: block-sharded decode and the mesh-served engines, and the
 # device encoder
 # ---------------------------------------------------------------------------
@@ -5443,6 +5846,7 @@ def main(argv=None) -> int:
     paths["recsys"] = run_recsys(np, torch, args)
     paths["lm"] = run_lm(np, torch, args)
     paths["sharded_train"] = run_sharded_train(np, torch, args, paths["lm"])
+    paths["model_parallel"] = run_model_parallel(np, torch, args)
     paths["sharded"] = run_sharded(np, torch, args, search)
     del search  # the search indexes leave the card
     gc.collect()

@@ -17,15 +17,22 @@ A sharding is a :class:`NamedSharding`: the mesh and a spec, a tuple with
 one entry a dimension (an axis name, a tuple of names, or ``None``), which
 compares equal to the reference's ``PartitionSpec`` entries.
 ``constrain(x, *axes)`` lays ``x`` out by such a spec under the active
-mesh (``sharding.place``: a leaf split along one dimension over the data
-axes, or one copy on each distinct device) and is a no-op without one.
-The train step's hooks make the two moves the reference's ZeRO-1 asks of
-it: a gather of the master slices into a bf16 compute copy on each
-device, and the layout of a replica's gradients in the master's slices.
-The reference also calls ``constrain`` some 20 times in its model code
-(``nn/moe.py``, ``models/{lm,gnn,recsys}.py``) to place activations; in
-the port each replica already holds its own rows of the activations, so
-those hints are not carried over.
+mesh (``sharding.place``: a leaf split along up to two dimensions, over
+the data axes and ``model``, or one copy on each distinct device) and is
+a no-op without one. The train step's hooks make the two moves the
+reference's ZeRO-1 asks of it: a gather of the master slices into a bf16
+compute copy (split over ``model`` as the rule says, whole over the data
+axes), and the layout of a replica's gradients in the master's slices.
+The layouts the reference's ``constrain`` fixes at a function's boundary
+over ``model`` are the port's too: prefill's cache split along the
+sequence ``(None, DP, TP, None, None)``, logits over the vocabulary
+``(DP, TP)``, MoE's buffers over the experts or their hidden units
+(``registry.run_cell``, ``nn/moe.py::moe_apply_mp``). Inside a layer the
+model code makes the ``model`` split explicit
+(``distributed/tensor_parallel.py``). The reference's other calls (some
+20 in ``nn/moe.py``, ``models/{lm,gnn,recsys}.py``) place activations
+over the data axes; in the port each data position already holds its
+own rows, so those are not carried over.
 """
 from __future__ import annotations
 

@@ -21,15 +21,19 @@ per shard where the bytes live, with no cross-device traffic
 (``repro_torch.kernels.vbyte_decode.dispatch``).
 
 A sharded leaf is a :class:`BlockSharded`: the mesh, the axes one
-dimension (the block dimension of a compressed array; any one dimension
-of a ZeRO-1 master leaf) is split over, and one tensor per shard. Reading
-it whole takes one explicit :meth:`BlockSharded.gather`. A
-:class:`Replicated` is one tensor with a copy on each distinct device of
-a mesh (an embedding table the per-shard epilogues read; a parameter the
-data-parallel replicas share), made by :func:`replicate`. The port
-computes data-parallel only: a spec that splits a leaf over an axis
-other than the data axes (tensor or expert parallelism over ``model``)
-raises, as does a spec that splits more than one dimension.
+dimension (the block dimension of a compressed array; any dimension of a
+parameter) is split over, and one tensor per shard; or a grid of shards
+split along two dimensions (a leaf split over ``model`` that ZeRO-1 also
+splits over the data axes: h2o-danube's ``attn/wq`` ``(None, DP,
+"model")``). Reading it whole takes one explicit
+:meth:`BlockSharded.gather`; :meth:`BlockSharded.keep` gathers a grid
+along one of its splits. A :class:`Replicated` is one tensor with a copy
+on each distinct device of a mesh (an embedding table the per-shard
+epilogues read; a parameter the data-parallel replicas share), made by
+:func:`replicate`. The model code computes over the ``model`` axis
+(``distributed/tensor_parallel.py``) for the LM family; the recsys rule's
+``model`` splits are refused where a step or a cell would compute over
+them (``RECSYS_TP_MISSING``).
 """
 from __future__ import annotations
 
@@ -44,9 +48,11 @@ from .api import Mesh, NamedSharding, _resolve_axes, resolved_spec
 DP = ("pod", "data")
 TP = "model"
 ALL = ("pod", "data", "model")
-TP_MISSING = ("tensor- and expert-parallel compute over a 'model' axis "
-              "larger than 1 is not ported (ROADMAP.md queue 1 item 13, "
-              "what is left: 1)")
+RECSYS_TP_MISSING = ("the recsys rule's 'model' splits (row-split tables "
+                     "of at least 2^16 rows, the alternating column / row "
+                     "splits of its MLP layers) are not computed over a "
+                     "'model' axis larger than 1 (ROADMAP.md queue 1 item "
+                     "13, what is left: 1b)")
 DP_MISSING = ("a step over a mesh deals the single-device step's own "
               "microbatches out whole, the same count to each data "
               "position; a step whose loss would be reduced across "
@@ -58,12 +64,15 @@ DP_MISSING = ("a step over a mesh deals the single-device step's own "
 _BYTE_LEAVES = ("payload", "control", "data", "widths")
 
 
-def shard_devices(mesh: Mesh, axes: tuple[str, ...]) -> tuple:
+def shard_devices(mesh: Mesh, axes: tuple[str, ...],
+                  axes2: tuple[str, ...] = ()) -> tuple:
     """The device of each block shard, in block order: the sharded axes
-    row-major, the first position along every other axis."""
-    order = [mesh.axis_names.index(a) for a in axes]
+    row-major (``axes``, then ``axes2`` for a grid split along two
+    dimensions), the first position along every other axis."""
+    named = (*axes, *axes2)
+    order = [mesh.axis_names.index(a) for a in named]
     rest = [i for i in range(mesh.devices.ndim) if i not in order]
-    n = math.prod(mesh.shape[a] for a in axes)
+    n = math.prod(mesh.shape[a] for a in named)
     grid = np.transpose(mesh.devices, order + rest).reshape(n, -1)
     return tuple(grid[:, 0])
 
@@ -71,18 +80,40 @@ def shard_devices(mesh: Mesh, axes: tuple[str, ...]) -> tuple:
 @dataclass(frozen=True, eq=False)
 class BlockSharded:
     """A tensor whose dimension ``dim`` (the leading, block dimension
-    unless said) is split into equal, contiguous ranges, one tensor a
-    shard on that shard's device."""
+    unless said) is split into equal, contiguous ranges over ``axes``, one
+    tensor a shard on that shard's device; with ``dim2``, also split along
+    ``dim2`` over ``axes2``: a grid of shards, row-major (shard ``i·n2 +
+    j`` holds range ``i`` of ``dim`` and range ``j`` of ``dim2``)."""
 
     mesh: Mesh
     axes: tuple[str, ...]
     shards: tuple[torch.Tensor, ...]
     dim: int = 0
+    dim2: int | None = None
+    axes2: tuple[str, ...] = ()
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """Shards along ``dim`` and along ``dim2`` (1 without it)."""
+        n2 = (1 if self.dim2 is None
+              else math.prod(self.mesh.shape[a] for a in self.axes2))
+        return len(self.shards) // n2, n2
+
+    @property
+    def splits(self) -> tuple:
+        """``((dim, axes), ...)``: the split dimensions and their axes."""
+        one = ((self.dim, self.axes),)
+        return one if self.dim2 is None else one + ((self.dim2, self.axes2),)
 
     @property
     def shape(self) -> tuple:
+        n1, n2 = self.grid
         shape = list(self.shards[0].shape)
-        shape[self.dim] = sum(s.shape[self.dim] for s in self.shards)
+        shape[self.dim] = sum(self.shards[i * n2].shape[self.dim]
+                              for i in range(n1))
+        if self.dim2 is not None:
+            shape[self.dim2] = sum(s.shape[self.dim2]
+                                   for s in self.shards[:n2])
         return tuple(shape)
 
     @property
@@ -102,12 +133,34 @@ class BlockSharded:
         """Every shard's rows, in block order, as one tensor on ``device``
         (default: the first shard's device)."""
         dev = self.device if device is None else torch.device(device)
-        return torch.cat([s.to(dev, non_blocking=True) for s in self.shards],
-                         dim=self.dim)
+        parts = [s.to(dev, non_blocking=True) for s in self.shards]
+        if self.dim2 is None:
+            return torch.cat(parts, dim=self.dim)
+        n1, n2 = self.grid
+        return torch.cat([torch.cat(parts[i * n2:(i + 1) * n2], dim=self.dim2)
+                          for i in range(n1)], dim=self.dim)
+
+    def keep(self, axes: tuple[str, ...]) -> "BlockSharded":
+        """A grid gathered along its other split: the split over ``axes``
+        kept, each kept range whole along the other dimension on the
+        device of its first shard."""
+        n1, n2 = self.grid
+        if self.dim2 is None or axes not in (self.axes, self.axes2):
+            raise ValueError(f"keep({axes}) of a split over "
+                             f"{[a for _, a in self.splits]}")
+        if axes == self.axes:
+            rows = [self.shards[i * n2:(i + 1) * n2] for i in range(n1)]
+            dim, other = self.dim, self.dim2
+        else:
+            rows = [self.shards[j::n2] for j in range(n2)]
+            dim, other = self.dim2, self.dim
+        parts = tuple(torch.cat([s.to(r[0].device, non_blocking=True)
+                                 for s in r], dim=other) for r in rows)
+        return BlockSharded(self.mesh, axes, parts, dim)
 
     def same_layout(self, other) -> bool:
         return (isinstance(other, BlockSharded) and other.mesh == self.mesh
-                and other.axes == self.axes and other.dim == self.dim
+                and other.splits == self.splits
                 and len(other.shards) == len(self.shards))
 
     def map(self, fn) -> "BlockSharded":
@@ -162,86 +215,148 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> Replicated:
     return Replicated(mesh, copies)
 
 
+def _split(source, shape, mesh: Mesh, splits: tuple, *,
+           copy: bool) -> BlockSharded:
+    """A :class:`BlockSharded` of ``splits`` (``((dim, axes), ...)``, one
+    or two) made from ``source(device)``, a tensor of ``shape`` to narrow
+    for the shard on ``device``."""
+    (dim, axes), *rest = splits
+    dim2, axes2 = rest[0] if rest else (None, ())
+    devs = shard_devices(mesh, axes, axes2)
+    n2 = math.prod(mesh.shape[a] for a in axes2)
+    n1 = len(devs) // n2
+    for d, n in ((dim, n1), (dim2, n2)):
+        if d is not None and shape[d] % n:
+            raise ValueError(f"{shape[d]} blocks do not split into {n} "
+                             f"equal shards; pad them first")
+    per1 = shape[dim] // n1
+    per2 = shape[dim2] // n2 if dim2 is not None else 0
+    parts = []
+    for i in range(n1):
+        for j in range(n2):
+            d = devs[i * n2 + j]
+            p = source(d).narrow(dim, i * per1, per1)
+            if dim2 is not None:
+                p = p.narrow(dim2, j * per2, per2)
+            p = p.to(d, copy=copy)
+            parts.append(p.contiguous() if copy else p)
+    return BlockSharded(mesh, axes, tuple(parts), dim, dim2, axes2)
+
+
 def split_blocks(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...], *,
                  dim: int = 0, copy: bool = False) -> BlockSharded:
     """``x`` (dimension ``dim`` a multiple of the shard count) as equal
     contiguous ranges of that dimension on the shards' devices. Ranges
     already on their device are views of ``x`` unless ``copy``; with it
     every shard is a contiguous tensor of its own."""
-    devs = shard_devices(mesh, axes)
-    if x.shape[dim] % len(devs):
-        raise ValueError(f"{x.shape[dim]} blocks do not split into "
-                         f"{len(devs)} equal shards; pad them first")
-    per = x.shape[dim] // len(devs)
-    parts = [x.narrow(dim, i * per, per).to(d, copy=copy)
-             for i, d in enumerate(devs)]
-    if copy:
-        parts = [p.contiguous() for p in parts]
-    return BlockSharded(mesh, axes, tuple(parts), dim)
+    return _split(lambda d: x, x.shape, mesh, ((dim, tuple(axes)),),
+                  copy=copy)
 
 
-def split_of(spec: tuple, mesh: Mesh) -> tuple[int | None, tuple[str, ...]]:
-    """The one dimension ``spec`` splits over ``mesh`` and the data axes
-    it splits it over, dropping axes of size 1; ``(None, ())`` for a spec
-    that splits nothing. Raises for a split over a non-data axis (tensor
-    or expert parallelism, not ported) and for a second split
-    dimension."""
-    found = None
+def split_of(spec: tuple, mesh: Mesh) -> tuple:
+    """The dimensions ``spec`` splits over ``mesh`` and the axes it splits
+    each over, dropping axes of size 1: ``((dim, axes), ...)`` in
+    dimension order, ``()`` for a spec that splits nothing. A leaf is
+    split along at most two dimensions (a ``model`` split and ZeRO-1's
+    data split); a spec that names one axis twice raises."""
+    found, seen = [], set()
     for i, entry in enumerate(spec):
         names = (() if entry is None else (entry,) if isinstance(entry, str)
                  else tuple(entry))
-        names = tuple(a for a in names if mesh.shape.get(a, 1) > 1)
-        if not names:
-            continue
         for a in names:
-            if a not in DP:
-                raise NotImplementedError(
-                    f"spec {spec} splits dimension {i} over {a!r} "
-                    f"({mesh.shape[a]}): {TP_MISSING}")
-        if found is not None:
-            raise NotImplementedError(
-                f"spec {spec} splits dimensions {found[0]} and {i}; a leaf "
-                "is split along one dimension")
-        found = (i, names)
-    return found or (None, ())
+            if a in seen:
+                raise ValueError(f"spec {spec} names mesh axis {a!r} twice")
+            seen.add(a)
+        names = tuple(a for a in names if mesh.shape.get(a, 1) > 1)
+        if names:
+            found.append((i, names))
+    if len(found) > 2:
+        raise NotImplementedError(
+            f"spec {spec} splits {len(found)} dimensions; a leaf is split "
+            "along at most two")
+    return tuple(found)
+
+
+def without_data(spec: tuple) -> tuple:
+    """``spec`` with the data axes dropped from every entry: the layout a
+    data position computes in (the reference's compute spec of a ZeRO-1
+    master leaf)."""
+    out = []
+    for entry in spec:
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        kept = tuple(a for a in names if a not in DP)
+        out.append(kept[0] if len(kept) == 1 else (kept or None))
+    return tuple(out)
+
+
+def _on_devices(x: BlockSharded, devs: tuple) -> BlockSharded:
+    """``x`` with each shard on its layout's device (a no-op where it is
+    there already)."""
+    if all(s.device == d for s, d in zip(x.shards, devs)):
+        return x
+    return replace(x, shards=tuple(s.to(d) for s, d in zip(x.shards, devs)))
+
+
+def _refine(x: BlockSharded, mesh: Mesh, splits: tuple, kept: int, *,
+            copy: bool) -> BlockSharded:
+    """``x``, split once over ``splits[kept]``, split further into the grid
+    of ``splits``: each shard narrowed along the other dimension."""
+    (dim, axes), (dim2, axes2) = splits
+    devs = shard_devices(mesh, axes, axes2)
+    n2 = math.prod(mesh.shape[a] for a in axes2)
+    n1 = len(devs) // n2
+    other, n_other = (dim2, n2) if kept == 0 else (dim, n1)
+    if x.shape[other] % n_other:
+        raise ValueError(f"{x.shape[other]} blocks do not split into "
+                         f"{n_other} equal shards; pad them first")
+    per = x.shape[other] // n_other
+    parts = []
+    for i in range(n1):
+        for j in range(n2):
+            src, r = (x.shards[i], j) if kept == 0 else (x.shards[j], i)
+            p = src.narrow(other, r * per, per).to(devs[i * n2 + j],
+                                                   copy=copy)
+            parts.append(p.contiguous() if copy else p)
+    return BlockSharded(mesh, axes, tuple(parts), dim, dim2, axes2)
 
 
 def place(x, sharding: NamedSharding, *, copy: bool = False):
     """``x`` (a tensor, :class:`BlockSharded` or :class:`Replicated`) laid
-    out by ``sharding``: split along its one split dimension
-    (:func:`split_of`) over its data axes, or one copy on each distinct
-    device of the mesh. A value already in that layout is returned as it
-    is; a split one is gathered (``torch.cat``) where the layout asks for
-    it whole. ``copy`` makes every split shard a tensor of its own (a
-    state leaf whose full tensor is then dropped), where by default a
-    shard on the tensor's own device is a view."""
+    out by ``sharding``: split along its split dimensions
+    (:func:`split_of`), or one copy on each distinct device of the mesh. A
+    value already in that layout is returned as it is (its shards moved to
+    the layout's devices where they lie elsewhere); a grid whose one split
+    the layout keeps is gathered along the other (:meth:`BlockSharded.keep`);
+    a split the layout refines is split further; any other split value is
+    gathered (``torch.cat``) and split anew. ``copy`` makes every split
+    shard a tensor of its own (a state leaf whose full tensor is then
+    dropped), where by default a shard on the tensor's own device is a
+    view."""
     mesh = sharding.mesh
-    dim, axes = split_of(tuple(sharding.spec), mesh)
-    if dim is None:
+    splits = split_of(tuple(sharding.spec), mesh)
+    if not splits:
         if isinstance(x, Replicated) and x.mesh == mesh:
             return x
         if isinstance(x, BlockSharded):
             return Replicated(mesh, {str(d): x.gather(d) for d in
                                      dict.fromkeys(mesh.devices.flat)})
         return replicate(x.first if isinstance(x, Replicated) else x, mesh)
+    devs = shard_devices(mesh, *(a for _, a in splits))
+    if isinstance(x, BlockSharded) and x.mesh == mesh:
+        if x.splits == splits:
+            return _on_devices(x, devs)
+        if len(x.splits) == 2 and len(splits) == 1 and splits[0] in x.splits:
+            return _on_devices(x.keep(splits[0][1]), devs)
+        if len(x.splits) == 1 and len(splits) == 2 and x.splits[0] in splits:
+            return _refine(x, mesh, splits, splits.index(x.splits[0]),
+                           copy=copy)
     if isinstance(x, BlockSharded):
-        if x.mesh == mesh and x.axes == axes and x.dim == dim:
-            return x
         x = x.gather()
     if isinstance(x, Replicated):
-        devs = shard_devices(mesh, axes)
-        per = x.shape[dim] // len(devs)
-        if x.shape[dim] % len(devs):
-            raise ValueError(f"{x.shape[dim]} do not split into "
-                             f"{len(devs)} equal shards")
-        parts = [x.on(d).narrow(dim, i * per, per) if str(d) in x.copies
-                 else x.first.narrow(dim, i * per, per).to(d)
-                 for i, d in enumerate(devs)]
-        if copy:
-            parts = [p.clone(memory_format=torch.contiguous_format)
-                     for p in parts]
-        return BlockSharded(mesh, axes, tuple(parts), dim)
-    return split_blocks(x, mesh, axes, dim=dim, copy=copy)
+        src = x
+        return _split(lambda d: src.on(d) if str(d) in src.copies
+                      else src.first, x.shape, mesh, splits, copy=copy)
+    return _split(lambda d: x, x.shape, mesh, splits, copy=copy)
 
 
 def pieces(x) -> list:

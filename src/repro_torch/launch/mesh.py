@@ -5,8 +5,11 @@ mesh, and the production mesh. The reference's production meshes are
 its TPU pods; on a GPU host the production mesh lies over the cards
 there are, all on the data axis: ``("data", "model")`` = ``(cards, 1)``,
 with a leading ``pod`` axis of size 1 for ``multi_pod`` (the axis names
-the rule tables use, so one code path serves both). The port computes
-data-parallel only (``train.jit_train_step``).
+the rule tables use, so one code path serves both). A mesh with a
+``model`` axis larger than 1 (``distributed.make_mesh((n, k), ("data",
+"model"))``) is taken by ``train.jit_train_step`` and
+``models.registry.run_cell`` for the LM family; the launchers keep every
+card on ``data``, as the reference's do.
 """
 from __future__ import annotations
 

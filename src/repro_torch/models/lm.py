@@ -17,10 +17,25 @@ gradient per layer) and runs the layers in a Python loop. ``remat=True``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``);
 ``remat_policy="save_block_outputs"`` checkpoints the attention block and
 the FFN block apart, so the backward pass keeps each block's output (the
-next block's input) and recomputes the rest. The reference's
-``constrain(...)`` calls place activations on its mesh; over the port's
-mesh each replica already holds its own rows (``distributed/api.py``),
-so they are not carried over.
+next block's input) and recomputes the rest.
+
+Over a mesh, the reference's ``constrain(...)`` calls on the data axes
+are not carried over: each data position already holds its own rows
+(``distributed/api.py``). Over its ``model`` axis every entry point
+takes a :class:`~repro_torch.distributed.tensor_parallel.ModelParallel`
+(one data position's compute copy, built by ``train.jit_train_step`` and
+``registry.run_cell``) and computes the reference's GSPMD partition:
+the embedding by vocabulary rows, attention by head ranges (``wq``
+column-parallel, ``wk`` / ``wv`` split by K/V heads where the rule
+splits them, else each position reads the K/V heads its query heads map
+to), ``wo`` and the FFN's ``down`` row-parallel, MoE experts or their
+hidden units (``nn/moe.py::moe_apply_mp``), ``lm_head`` by columns with
+the logsumexp across the positions. Prefill returns the cache split
+along the sequence over ``model`` and the logits over the vocabulary,
+the layouts the reference's ``constrain`` fixes there; decode reads the
+cache in the cell's layout (``cache_head_axes``: split by K/V heads, or
+by head dimension, whose partial scores are added in position order,
+GSPMD's psum) and writes the new token in each position's slice.
 
 ``decode_step`` writes the new token's key and value into the caller's
 cache in place (the reference's update is functional: one copy of the
@@ -37,6 +52,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import moe as moe_lib
@@ -284,6 +300,9 @@ def forward(params: LM, tokens, cfg: LMConfig, *, collect_cache: bool = False,
     layers' mean ``moe_aux_loss`` and ``moe_drop_frac``; ``kv`` the keys
     and values ``([L, B, S, Hk, dh], [L, B, S, Hk, dh])`` if
     ``collect_cache``, else ``None``."""
+    if isinstance(params, tp.ModelParallel):
+        return _mp_forward(params, tokens, cfg, collect_cache=collect_cache,
+                           dtype=dtype)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
     x = nnl.embedding_lookup(params.embed, tokens, dtype=dtype)
@@ -317,13 +336,23 @@ def loss_fn(params: LM, batch, cfg: LMConfig, *,
 
     n_chunks = max(1, S // cfg.loss_chunk) if S % cfg.loss_chunk == 0 else 1
     c = S // n_chunks
-    head = params.lm_head.to(dtype)
+    mp = isinstance(params, tp.ModelParallel)
+    if mp:  # the head's columns a position, the logsumexp across them
+        heads = [w.to(dtype) for w in params.view("lm_head/w").parts]
+    else:
+        head = params.lm_head.to(dtype)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_chunks):
         h, t = hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c]
-        logits = (h.to(dtype) @ head).to(torch.float32)  # [B, c, V]
-        lse = torch.logsumexp(logits, dim=-1)
-        true = torch.gather(logits, -1, t[..., None])[..., 0]
+        if mp:
+            hd = h.to(dtype)
+            lse, true = tp.vocab_logsumexp(
+                [(hd.to(w.device) @ w).to(torch.float32) for w in heads], t,
+                home=params.home)
+        else:
+            logits = (h.to(dtype) @ head).to(torch.float32)  # [B, c, V]
+            lse = torch.logsumexp(logits, dim=-1)
+            true = torch.gather(logits, -1, t[..., None])[..., 0]
         total = total + torch.sum(lse - true)
     loss = total / (B * S)
     if cfg.moe:
@@ -377,6 +406,9 @@ def prefill(params: LM, tokens, cfg: LMConfig, *,
     B, S = tokens.shape
     hidden, _, (ks, vs) = forward(params, tokens, cfg, collect_cache=True,
                                   dtype=dtype)
+    if isinstance(params, tp.ModelParallel):
+        return _mp_prefill_out(params, hidden, ks, vs, S, cfg,
+                               cache_capacity=cache_capacity, dtype=dtype)
     sc = cache_size(cfg, cache_capacity or S)
     if sc < S:  # SWA ring: keep last `sc` positions, aligned to slot = pos % sc
         ks, vs = _ring(ks, vs, S, sc)
@@ -399,6 +431,9 @@ def prefill_chunked(params: LM, tokens, cfg: LMConfig, *, chunk: int = 4096,
 
     Returns (last-token logits [B, V], cache) — the contract of
     :func:`prefill`."""
+    if isinstance(params, tp.ModelParallel):
+        return _mp_prefill_chunked(params, tokens, cfg, chunk=chunk,
+                                   dtype=dtype)
     B, S = tokens.shape
     if S % chunk:
         raise ValueError(f"prompt length {S} is not a multiple of chunk "
@@ -458,6 +493,8 @@ def decode_step(params: LM, cache: dict, tokens, cfg: LMConfig, *,
     ``cache["k"]`` and ``cache["v"]`` in place, at slot ``index % sc`` for
     a sliding window (the ring), else ``index`` (clamped to the last
     slot, as ``dynamic_update_slice`` clamps)."""
+    if isinstance(params, tp.ModelParallel):
+        return _mp_decode_step(params, cache, tokens, cfg, dtype=dtype)
     B = tokens.shape[0]
     dh, Hk = cfg.dh, cfg.n_kv_heads
     pos = int(cache["index"])  # absolute position of the new token
@@ -481,3 +518,311 @@ def decode_step(params: LM, cache: dict, tokens, cfg: LMConfig, *,
     logits = nnl.dense(params.lm_head, x, dtype=dtype)
     return logits.to(torch.float32), {"k": cache["k"], "v": cache["v"],
                                       "index": pos + 1}
+
+
+# ----------------------------------------------------------------------------
+# over a mesh's ``model`` axis (one data position's ModelParallel)
+# ----------------------------------------------------------------------------
+_LAYER_LEAVES = {"an": "layers/attn_norm/scale", "fn": "layers/ffn_norm/scale",
+                 "wq": "layers/attn/wq/w", "wk": "layers/attn/wk/w",
+                 "wv": "layers/attn/wv/w", "wo": "layers/attn/wo/w"}
+_FFN_LEAVES = ("gate", "up", "down")
+
+
+def _mp_layers(mp: tp.ModelParallel) -> list[SimpleNamespace]:
+    """Per-layer views of ``mp``'s stacked leaves, shaped as
+    :meth:`Layers.unbind`'s: a tensor at home or ``tp.Slices``."""
+    top = {k: mp.unbind(p) for k, p in _LAYER_LEAVES.items()}
+    is_moe = "layers/moe/router/w" in mp.leaves
+    ff = {k: mp.unbind(f"layers/{'moe' if is_moe else 'ffn'}/{k}/w")
+          for k in _FFN_LEAVES + (("router",) if is_moe else ())}
+    out = []
+    for i in range(len(top["wq"])):
+        block = SimpleNamespace(**{k: v[i] for k, v in ff.items()})
+        out.append(SimpleNamespace(
+            attn_norm=SimpleNamespace(scale=top["an"][i]),
+            ffn_norm=SimpleNamespace(scale=top["fn"][i]),
+            wq=top["wq"][i], wk=top["wk"][i], wv=top["wv"][i],
+            wo=top["wo"][i], moe=block if is_moe else None,
+            ffn=None if is_moe else block))
+    return out
+
+
+def _mp_qkv(mp, layer, x, positions, cfg: LMConfig, dtype):
+    """Each position's queries (its head range, RoPE applied) and the K/V
+    heads they read: ``(qs, ks, vs, kv)``, the lists a position each;
+    ``kv`` the whole keys and values at home, or ``None`` where the rule
+    splits ``wk`` / ``wv`` (each position made its own heads)."""
+    B, S, _ = x.shape
+    dh = cfg.dh
+    ranges = attn.head_ranges(cfg.n_heads, cfg.n_kv_heads, mp.k)
+    h = nnl.rmsnorm(layer.attn_norm, x, eps=cfg.norm_eps, dtype=dtype)
+    qs = [attn.apply_rope(q.reshape(B, S, -1, dh), positions.to(q.device),
+                          cfg.rope_theta, cfg.rotary_dim)
+          for q in tp.column_dense(h, layer.wq, dtype=dtype)]
+    if isinstance(layer.wk, tp.Slices):  # the rule splits the K/V heads
+        ks = [attn.apply_rope(k.reshape(B, S, -1, dh),
+                              positions.to(k.device), cfg.rope_theta,
+                              cfg.rotary_dim)
+              for k in tp.column_dense(h, layer.wk, dtype=dtype)]
+        vs = [v.reshape(B, S, -1, dh)
+              for v in tp.column_dense(h, layer.wv, dtype=dtype)]
+        if any(k.shape[2] != hi - lo for k, (*_, lo, hi) in zip(ks, ranges)):
+            raise ValueError("the K/V heads a position holds are not those "
+                             "its query heads read")
+        return qs, ks, vs, None
+    k = nnl.dense(layer.wk, h, dtype=dtype).reshape(B, S, cfg.n_kv_heads, dh)
+    v = nnl.dense(layer.wv, h, dtype=dtype).reshape(B, S, cfg.n_kv_heads, dh)
+    k = attn.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
+    ks = [k[:, :, lo:hi].to(d) for (*_, lo, hi), d in zip(ranges, mp.devices)]
+    vs = [v[:, :, lo:hi].to(d) for (*_, lo, hi), d in zip(ranges, mp.devices)]
+    return qs, ks, vs, (k, v)
+
+
+def _mp_whole_kv(mp, ks, vs, kv):
+    """The whole keys and values at home: ``kv``, or the positions' heads
+    joined (each K/V head once)."""
+    if kv is not None:
+        return kv
+    return tp.gather(ks, 2, mp.home), tp.gather(vs, 2, mp.home)
+
+
+def _mp_attention_block(mp, layer, x, positions, cfg: LMConfig, dtype,
+                        collect: bool = False):
+    B, S, _ = x.shape
+    qs, ks, vs, kv = _mp_qkv(mp, layer, x, positions, cfg, dtype)
+    os = [attn.flash_attention(
+        q, k, v, causal=True, window=cfg.window, q_chunk=cfg.q_chunk,
+        kv_chunk=cfg.kv_chunk, banded=cfg.banded_attention, dtype=dtype)
+        for q, k, v in zip(qs, ks, vs)]
+    o = tp.row_dense([o.reshape(B, S, -1) for o in os], layer.wo,
+                     home=mp.home, dtype=dtype)
+    kv = _mp_whole_kv(mp, ks, vs, kv) if collect else None
+    return x + o, kv
+
+
+def _mp_ffn_block(mp, layer, x, cfg: LMConfig, dtype):
+    B, S, d = x.shape
+    h = nnl.rmsnorm(layer.ffn_norm, x, eps=cfg.norm_eps, dtype=dtype)
+    if cfg.moe:
+        out, aux = moe_lib.moe_apply_mp(
+            layer.moe, h.reshape(B * S, d), top_k=cfg.moe.top_k,
+            home=mp.home, capacity_factor=cfg.moe.capacity_factor,
+            dispatch_groups=cfg.moe.dispatch_groups, dtype=dtype)
+        return x + out.reshape(B, S, d), aux
+    f = layer.ffn
+    hs = [torch.nn.functional.silu(g) * u for g, u in zip(
+        tp.column_dense(h, f.gate, dtype=dtype),
+        tp.column_dense(h, f.up, dtype=dtype))]
+    out = tp.row_dense(hs, f.down, home=mp.home, dtype=dtype)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, {"moe_aux_loss": zero, "moe_drop_frac": zero}
+
+
+def _mp_layer(mp, layer, x, positions, cfg: LMConfig, dtype, collect=False):
+    x, kv = _mp_attention_block(mp, layer, x, positions, cfg, dtype, collect)
+    x, aux = _mp_ffn_block(mp, layer, x, cfg, dtype)
+    return x, aux, kv
+
+
+def _mp_remat_layer(mp, layer, x, positions, cfg: LMConfig, dtype):
+    """:func:`_remat_layer` over the positions: ``(x, aux)``."""
+    if cfg.remat_policy == "save_block_outputs":
+        x, _ = checkpoint(lambda y: _mp_attention_block(
+            mp, layer, y, positions, cfg, dtype), x, use_reentrant=False)
+        return checkpoint(lambda y: _mp_ffn_block(mp, layer, y, cfg, dtype),
+                          x, use_reentrant=False)
+    x, aux, _ = checkpoint(lambda y: _mp_layer(mp, layer, y, positions, cfg,
+                                               dtype), x, use_reentrant=False)
+    return x, aux
+
+
+def _mp_forward(mp, tokens, cfg: LMConfig, *, collect_cache: bool, dtype):
+    B, S = tokens.shape
+    home = mp.home
+    tokens = tokens.to(home)
+    positions = torch.arange(S, dtype=torch.int32, device=home)[None]
+    x = tp.vocab_embedding(mp.view("embed/emb"), tokens, home=home,
+                           dtype=dtype)
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    auxs, ks, vs = [], [], []
+    for layer in _mp_layers(mp):
+        if remat:
+            x, aux = _mp_remat_layer(mp, layer, x, positions, cfg, dtype)
+        else:
+            x, aux, kv = _mp_layer(mp, layer, x, positions, cfg, dtype,
+                                   collect_cache)
+            if collect_cache:
+                ks.append(kv[0])
+                vs.append(kv[1])
+        auxs.append(aux)
+    x = nnl.rmsnorm(SimpleNamespace(scale=mp.view("final_norm/scale")), x,
+                    eps=cfg.norm_eps,                     dtype=dtype)
+    aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    return x, aux, kv
+
+
+def _mp_logits(mp, x, dtype):
+    """The last position's logits split over the vocabulary (``lm_head``'s
+    columns a position), float32: a ``BlockSharded`` over ``model``."""
+    from repro_torch.distributed.sharding import BlockSharded
+
+    parts = [p.to(torch.float32) for p in tp.column_dense(
+        x, mp.view("lm_head/w"), dtype=dtype)]
+    return BlockSharded(mp.mesh, (tp.MODEL,), tuple(parts), x.dim() - 1)
+
+
+def _mp_prefill_out(mp, hidden, ks, vs, S: int, cfg: LMConfig, *,
+                    cache_capacity, dtype):
+    """:func:`prefill`'s ring or padding, then its outputs in the
+    reference's boundary layouts: the cache split along the sequence over
+    ``model`` and the logits over the vocabulary."""
+    sc = cache_size(cfg, cache_capacity or S)
+    if sc < S:
+        ks, vs = _ring(ks, vs, S, sc)
+    elif sc > S:
+        pad = (0, 0, 0, 0, 0, sc - S)
+        ks = torch.nn.functional.pad(ks, pad)
+        vs = torch.nn.functional.pad(vs, pad)
+    logits = _mp_logits(mp, hidden[:, -1], dtype)
+    return logits, {"k": mp.split(ks, 2), "v": mp.split(vs, 2), "index": S}
+
+
+def _mp_prefill_chunked(mp, tokens, cfg: LMConfig, *, chunk: int, dtype):
+    """:func:`prefill_chunked` over the positions: each keeps the K/V heads
+    its query heads read, chunk by chunk."""
+    B, S = tokens.shape
+    if S % chunk:
+        raise ValueError(f"prompt length {S} is not a multiple of chunk "
+                         f"{chunk}")
+    home = mp.home
+    tokens = tokens.to(home)
+    nc, dh = S // chunk, cfg.dh
+    swa_local = bool(cfg.window) and cfg.window <= chunk
+    kv_len = chunk if swa_local else S
+    ranges = attn.head_ranges(cfg.n_heads, cfg.n_kv_heads, mp.k)
+    layers = _mp_layers(mp)
+    kcs = [[torch.zeros((B, kv_len, hi - lo, dh), dtype=dtype, device=d)
+            for (*_, lo, hi), d in zip(ranges, mp.devices)] for _ in layers]
+    vcs = [[torch.zeros_like(k) for k in row] for row in kcs]
+    whole = [None] * len(layers)  # (k, v) at home where wk is replicated
+    ones = torch.ones(chunk, dtype=torch.bool, device=home)
+
+    for ci in range(nc):
+        offset = ci * chunk
+        x = tp.vocab_embedding(mp.view("embed/emb"),
+                               tokens[:, offset:offset + chunk], home=home,
+                               dtype=dtype)
+        positions = offset + torch.arange(chunk, dtype=torch.int32,
+                                          device=home)[None]
+        kv_valid = torch.cat([ones if ci > 0 else ~ones, ones])
+        for i, layer in enumerate(layers):
+            qs, ks, vs, kv = _mp_qkv(mp, layer, x, positions, cfg, dtype)
+            os = []
+            for p, (q, k, v) in enumerate(zip(qs, ks, vs)):
+                k, v = k.to(dtype), v.to(dtype)
+                if swa_local:
+                    os.append(attn.flash_attention(
+                        q, torch.cat([kcs[i][p], k], dim=1),
+                        torch.cat([vcs[i][p], v], dim=1), causal=True,
+                        window=cfg.window, q_chunk=min(cfg.q_chunk, chunk),
+                        kv_chunk=cfg.kv_chunk, q_offset=offset,
+                        kv_offset=offset - chunk,
+                        kv_valid=kv_valid.to(q.device), dtype=dtype))
+                    kcs[i][p], vcs[i][p] = k, v
+                else:
+                    kcs[i][p][:, offset:offset + chunk] = k
+                    vcs[i][p][:, offset:offset + chunk] = v
+                    os.append(attn.flash_attention(
+                        q, kcs[i][p], vcs[i][p], causal=True,
+                        window=cfg.window, q_chunk=min(cfg.q_chunk, chunk),
+                        kv_chunk=cfg.kv_chunk, banded=cfg.banded_attention,
+                        q_offset=offset, dtype=dtype))
+            if kv is not None:  # the whole carry at home, as one device's
+                k, v = (t.to(dtype) for t in kv)
+                if swa_local:
+                    whole[i] = (k, v)
+                else:
+                    if whole[i] is None:
+                        whole[i] = tuple(torch.zeros((B, kv_len) + k.shape[2:],
+                                                     dtype=dtype, device=home)
+                                         for _ in range(2))
+                    whole[i][0][:, offset:offset + chunk] = k
+                    whole[i][1][:, offset:offset + chunk] = v
+            x = x + tp.row_dense([o.reshape(B, chunk, -1) for o in os],
+                                 layer.wo, home=home, dtype=dtype)
+            x, _ = _mp_ffn_block(mp, layer, x, cfg, dtype)
+        x = nnl.rmsnorm(SimpleNamespace(scale=mp.view("final_norm/scale")), x,
+                    eps=cfg.norm_eps,                         dtype=dtype)
+        logits = _mp_logits(mp, x[:, -1], dtype)
+
+    ks = torch.stack([w[0] if w is not None else tp.gather(kc, 2, home)
+                      for w, kc in zip(whole, kcs)])
+    vs = torch.stack([w[1] if w is not None else tp.gather(vc, 2, home)
+                      for w, vc in zip(whole, vcs)])
+    sc = cache_size(cfg, S)
+    if swa_local or sc < S:
+        ks, vs = _ring(ks, vs, S, sc)
+    return logits, {"k": mp.split(ks, 2), "v": mp.split(vs, 2), "index": S}
+
+
+def _mp_decode_step(mp, cache: dict, tokens, cfg: LMConfig, *, dtype):
+    """:func:`decode_step` over the positions, the cache in the cell's
+    layout: ``cache["k"]`` / ``["v"]`` split over ``model`` by K/V heads
+    (dimension 3) or by head dimension (dimension 4), a slice on each
+    position's device, written in place."""
+    from repro_torch.distributed.sharding import BlockSharded
+
+    ck, cv = cache["k"], cache["v"]
+    if not isinstance(ck, BlockSharded) or ck.dim not in (3, 4):
+        raise ValueError("a decode over the model axis reads a cache split "
+                         "over it by K/V heads or by head dimension")
+    home = mp.home
+    B = tokens.shape[0]
+    tokens = tokens.to(home)
+    dh = cfg.dh
+    pos = int(cache["index"])
+    sc = ck.shape[2]
+    slot = pos % sc if cfg.window else pos
+    valid = torch.arange(sc, device=home) < min(pos + 1, sc)
+    ranges = attn.head_ranges(cfg.n_heads, cfg.n_kv_heads, mp.k)
+    by_heads = ck.dim == 3
+    if by_heads and [s.shape[3] for s in ck.shards] != [
+            hi - lo for *_, lo, hi in ranges]:
+        raise ValueError("the cache's K/V heads a position are not those its "
+                         "query heads read")
+    kl = [torch.unbind(s, 0) for s in ck.shards]
+    vl = [torch.unbind(s, 0) for s in cv.shards]
+
+    x = tp.vocab_embedding(mp.view("embed/emb"), tokens, home=home,
+                           dtype=dtype)  # [B, d]
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=home)
+    for i, layer in enumerate(_mp_layers(mp)):
+        qs, ks, vs, kv = _mp_qkv(mp, layer, x[:, None], posv, cfg, dtype)
+        kc = [t[i] for t in kl]
+        vc = [t[i] for t in vl]
+        if by_heads:
+            for p in range(mp.k):
+                attn.cache_update_(kc[p], ks[p][:, 0], slot)
+                attn.cache_update_(vc[p], vs[p][:, 0], slot)
+            os = [attn.decode_attention(q[:, 0], k, v, valid.to(q.device),
+                                        dtype=dtype).reshape(B, -1)
+                  for q, k, v in zip(qs, kc, vc)]
+        else:  # head dimension: partial scores summed in position order
+            k, v = _mp_whole_kv(mp, ks, vs, kv)
+            for kp, vp, nk, nv in zip(kc, vc, tp.scatter(k[:, 0], mp.devices,
+                                                          2),
+                                      tp.scatter(v[:, 0], mp.devices, 2)):
+                attn.cache_update_(kp, nk, slot)
+                attn.cache_update_(vp, nv, slot)
+            q = tp.gather([q[:, 0] for q in qs], 1, home)  # [B, H, dh]
+            o = attn.decode_attention_dh(q, kc, vc, valid, home=home,
+                                         dtype=dtype)
+            os = [t.reshape(B, -1) for t in tp.scatter(o, mp.devices, 1)]
+        x = x + tp.row_dense(os, layer.wo, home=home, dtype=dtype)
+        x2, _ = _mp_ffn_block(mp, layer, x[:, None], cfg, dtype)
+        x = x2[:, 0]
+    x = nnl.rmsnorm(SimpleNamespace(scale=mp.view("final_norm/scale")), x,
+                    eps=cfg.norm_eps,                     dtype=dtype)
+    return _mp_logits(mp, x, dtype), {"k": ck, "v": cv, "index": pos + 1}

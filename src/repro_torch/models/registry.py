@@ -10,7 +10,9 @@ their sharding specs. Abstract arguments are tensors on the ``meta``
 device (:func:`abstract_params`, :func:`abstract_train_state`, the batch
 and cache builders), so every cell builds at full width with no memory;
 ``Cell.in_shardings(mesh)`` gives the shardings that
-``train.jit_train_step`` takes. The port keeps uint32 leaves
+``train.jit_train_step`` takes, and :func:`run_cell` runs an LM serving
+cell (prefill, chunked prefill, decode) over a mesh, the counterpart of
+the reference's ``jax.jit(cell.fn, in_shardings=...)``. The port keeps uint32 leaves
 (``bases``, ``row_gap_bases``) as int32 holding their bits, so those
 abstract leaves are int32. Concrete batches with the reference's leaves
 and dtypes: :func:`lm_batch_for`, :func:`recsys_batch_for`.
@@ -451,6 +453,199 @@ def build_cell(arch_id: str, shape_name: str, *, mesh_dp: int = 32,
     fn = functools.partial(_recsys_serve_fn if shape.step == "serve"
                            else _recsys_retrieval_fn, cfg=cfg)
     return Cell(arch_id, shape, fam, cfg, fn, (params, batch), (pspec, bspec))
+
+
+def _replica(params, row: tuple, mesh):
+    """One data position's compute copy of placed parameters: the model on
+    its home device (a ``model`` axis of 1), else a ``ModelParallel``."""
+    from repro_torch.distributed.tensor_parallel import ModelParallel
+
+    if len(row) == 1:
+        return params.on(row[0])
+    return ModelParallel.of(mesh, row, params.leaves)
+
+
+def _per_position(fn, n: int):
+    """``fn`` (a cell's partial) for one of ``n`` data positions that
+    split its rows: an MoE config's ``dispatch_groups`` divided among them
+    (the reference keeps its dispatch groups batch-sharded: each data
+    position holds ``G / n`` of them, over its own rows)."""
+    cfg = fn.keywords.get("cfg")
+    if n == 1 or cfg is None or cfg.moe is None:
+        return fn
+    G = cfg.moe.dispatch_groups
+    if G % n:
+        raise ValueError(f"{G} MoE dispatch groups do not split over {n} "
+                         "data positions")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_groups=G // n))
+    return functools.partial(fn.func, *fn.args, **{**fn.keywords,
+                                                   "cfg": cfg})
+
+
+def _view(x, d: int, k: int, dim: int):
+    """Data position ``d``'s part of a placed value whose dimension ``dim``
+    is split over the data axes: its ``model`` slices, or its shard."""
+    from dataclasses import replace
+
+    from repro_torch.distributed.sharding import BlockSharded, Replicated
+
+    if isinstance(x, Replicated):  # one device holds it: write it there
+        return x.first
+    if not isinstance(x, BlockSharded) or x.dim != dim:
+        return x
+    if x.dim2 is None:
+        return x.shards[d]
+    return BlockSharded(x.mesh, x.axes2, x.shards[d * k:(d + 1) * k], x.dim2)
+
+
+def _join(parts: list, dim: int, mesh, spec: tuple):
+    """The data positions' outputs (each a tensor, or a ``BlockSharded``
+    over ``model``) joined along ``dim``, laid out by ``spec``."""
+    from repro_torch.distributed.api import named_sharding
+    from repro_torch.distributed.sharding import BlockSharded, DP, place
+
+    dp = tuple(a for a in DP if mesh.shape.get(a, 1) > 1)
+    if len(parts) == 1:
+        out = parts[0]
+    elif isinstance(parts[0], BlockSharded):
+        out = BlockSharded(mesh, dp, tuple(s for p in parts for s in p.shards),
+                           dim, parts[0].dim, parts[0].axes)
+    else:
+        out = BlockSharded(mesh, dp, tuple(parts), dim)
+    return place(out, named_sharding(mesh, *spec))
+
+
+def run_cell(cell: Cell, mesh, *args):
+    """``cell.fn`` over ``mesh`` for an LM serving cell (prefill, chunked
+    prefill, decode): the counterpart of the reference's
+    ``jax.jit(cell.fn, in_shardings=cell.in_shardings(mesh))(*args)``.
+
+    ``args`` are the cell's: the parameters (a model, or the
+    ``ShardedParams`` a previous call returned placed), then the cache
+    (decode) and the tokens. The runner places the parameters and the
+    cache by the cell's specs (a value already so placed stays as it is,
+    so a decode loop places once), activates the mesh and runs ``cell.fn``
+    once a data position, on its rows (where the specs split the batch
+    over the data axes; else the whole batch on the first data position)
+    and its compute copy over the ``model`` axis. Returns ``cell.fn``'s
+    outputs in the reference's boundary layouts: logits ``(DP, TP)`` (a
+    batch the data positions do not split whole over them), a
+    prefill's cache split along the sequence ``(None, DP, TP, None,
+    None)``, a decode's cache as placed (written in place), and the placed
+    parameters as ``(outputs, params)``."""
+    import torch
+
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.api import activate_mesh
+    from repro_torch.distributed.sharding import (DP, TP, RECSYS_TP_MISSING,
+                                                  BlockSharded, place)
+    from repro_torch.train.train_state import ShardedParams, param_leaves
+
+    k = mesh.shape.get(tp.MODEL, 1)
+    if cell.family != "lm" or cell.shape.step == "train":
+        if k > 1 and cell.family != "lm":
+            raise NotImplementedError(f"a mesh of {mesh.shape}: "
+                                      f"{RECSYS_TP_MISSING}")
+        raise ValueError(f"run_cell serves the LM prefill and decode cells, "
+                         f"not {cell.arch_id}/{cell.shape.name} (a train "
+                         "cell runs through train.jit_train_step)")
+    sh = cell.in_shardings(mesh)
+    params = args[0]
+    leaves = param_leaves(params)
+    if not isinstance(params, ShardedParams):
+        from repro_torch.train.train_state import with_leaves
+
+        skeleton = with_leaves(params, {
+            key: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for key, v in leaves.items()})
+    else:
+        skeleton = params.skeleton
+    params = ShardedParams(skeleton, {key: place(v.detach() if isinstance(
+        v, torch.Tensor) else v, sh[0][key]) for key, v in leaves.items()})
+    rows = tp.data_rows(mesh)
+    n = len(rows)
+    decode = cell.shape.step == "decode"
+    tokens = args[-1]
+    cache = None
+    if decode:
+        cache = {key: place(v, sh[1][key]) if key != "index" else v
+                 for key, v in args[1].items()}
+        split_rows = (isinstance(cache["k"], BlockSharded)
+                      and cache["k"].dim == 1)
+    else:
+        split_rows = n > 1
+    B = tokens.shape[0]
+    if split_rows and B % n:
+        raise ValueError(f"{B} rows do not split over {n} data positions")
+    fn = _per_position(cell.fn, n) if split_rows else cell.fn
+    outs = []
+    with activate_mesh(mesh), torch.no_grad():
+        for d, row in enumerate(rows if split_rows else rows[:1]):
+            per = B // n if split_rows else B
+            toks = tokens[d * per:(d + 1) * per].to(row[0])
+            replica = _replica(params, row, mesh)
+            if decode:
+                c = {key: _view(v, d, k, 1) if key != "index" else v
+                     for key, v in cache.items()}
+                if not split_rows:
+                    c = {key: _view(v, d, k, 1) for key, v in
+                         _whole_over_data(c, mesh).items()}
+                outs.append(fn(replica, c, toks))
+                if not split_rows:
+                    _write_back(outs[-1][1], cache)
+            else:
+                outs.append(fn(replica, toks))
+    # rows the data positions do not split stay whole over them
+    logits = _join([o[0] for o in outs], 0, mesh,
+                   (DP if split_rows else None, TP))
+    if decode:
+        return (logits, {"k": cache["k"], "v": cache["v"],
+                         "index": outs[0][1]["index"]}), params
+    out_cache = {key: _join([o[1][key] for o in outs], 1, mesh,
+                            (None, DP, TP, None, None))
+                 for key in ("k", "v")}
+    out_cache["index"] = outs[0][1]["index"]
+    return (logits, out_cache), params
+
+
+def _whole_over_data(cache: dict, mesh) -> dict:
+    """A cache whose data split is not its batch (the sequence: a batch the
+    data positions do not divide) gathered along the data axes, its
+    ``model`` split kept."""
+    from repro_torch.distributed.api import NamedSharding
+    from repro_torch.distributed.sharding import (DP, BlockSharded, place,
+                                                  without_data)
+
+    out = dict(cache)
+    for key in ("k", "v"):
+        x = cache[key]
+        if isinstance(x, BlockSharded) and any(
+                a in DP for _, axes in x.splits for a in axes):
+            spec = [None] * len(x.shape)
+            for dim, axes in x.splits:
+                spec[dim] = axes
+            out[key] = place(x, NamedSharding(mesh, without_data(spec)))
+    return out
+
+
+def _write_back(computed: dict, cache: dict) -> None:
+    """The decode's cache, computed gathered over the data axes, copied
+    into the placed cache's own shards."""
+    from repro_torch.distributed.api import NamedSharding
+    from repro_torch.distributed.sharding import BlockSharded, place
+
+    for key in ("k", "v"):
+        x = cache[key]
+        if computed[key] is x or not isinstance(x, BlockSharded):
+            continue
+        spec = [None] * len(x.shape)
+        for dim, axes in x.splits:
+            spec[dim] = axes[0] if len(axes) == 1 else axes
+        laid = place(computed[key], NamedSharding(x.mesh, tuple(spec)))
+        for dst, src in zip(x.shards, laid.shards):
+            if dst is not src:
+                dst.copy_(src)
 
 
 # top-level partials (picklable)

@@ -34,6 +34,10 @@ in another order.
 ``PLAN = "plain"`` (or the :func:`plan` context manager) keeps the plain
 version on the card too; on the CPU it runs always.
 
+:func:`head_ranges` gives the query and K/V heads each position of a
+``model`` axis holds (attention by head ranges); :func:`decode_attention_dh`
+is decode attention over a cache split along the head dimension.
+
 :func:`cache_update` writes a decode step's key or value into a copy of
 the cache, as the reference's functional update does;
 :func:`cache_update_` writes it in place, for a caller that owns the
@@ -320,3 +324,64 @@ def cache_update_(cache: torch.Tensor, new: torch.Tensor,
     slot = min(max(int(slot), 0), cache.shape[1] - 1)
     cache[:, slot] = new.to(cache.dtype)
     return cache
+
+
+# ----------------------------------------------------------------------------
+# attention by head ranges over a ``model`` axis
+# ----------------------------------------------------------------------------
+def head_ranges(n_heads: int, n_kv_heads: int, k: int) -> list[tuple]:
+    """``(q_lo, q_hi, kv_lo, kv_hi)`` for each of ``k`` positions: the
+    query heads ``[p·H/k, (p+1)·H/k)`` position ``p`` holds, and the K/V
+    heads they read under GQA (query head ``h`` reads ``h // (H/Hk)``).
+    With ``Hk < k`` several positions share one K/V head. Raises where a
+    position's query heads do not read whole K/V groups of their own
+    (or one head whole)."""
+    if n_heads % k:
+        raise ValueError(f"{n_heads} query heads do not split over {k} "
+                         "positions")
+    hq, G = n_heads // k, n_heads // n_kv_heads
+    if hq % G and G % hq:
+        raise ValueError(f"{hq} query heads a position do not align with "
+                         f"GQA groups of {G}")
+    out = []
+    for p in range(k):
+        lo = p * hq
+        out.append((lo, lo + hq, lo // G, (lo + hq - 1) // G + 1))
+    return out
+
+
+def decode_attention_dh(
+    q: torch.Tensor,  # [B, H, D] at home: every query head, RoPE applied
+    k_parts: list,  # per position [B, Sc, Hk, D/k]: its head-dim slice
+    v_parts: list,
+    valid: torch.Tensor,  # bool [Sc] or [B, Sc]
+    *,
+    home,
+    dtype=DEFAULT_COMPUTE_DTYPE,
+) -> torch.Tensor:
+    """:func:`decode_attention` over a cache split along the head
+    dimension: each position scores its slice of ``q`` against its slice
+    of the keys (float32), the partial scores are added at ``home`` in
+    position order, the softmax runs there, and each position forms its
+    slice of the output, joined at ``home``: ``[B, H, D]`` in ``dtype``."""
+    from repro_torch.distributed.tensor_parallel import reduce_sum
+
+    B, H, D = q.shape
+    Hk = k_parts[0].shape[2]
+    G = H // Hk
+    qg = _scaled_q(q, D, dtype).reshape(B, Hk, G, D)
+    parts, lo = [], 0
+    for kc in k_parts:
+        w = kc.shape[-1]
+        qs = qg[..., lo:lo + w].to(kc.device)
+        parts.append(accum_matmul("bhgd,bshd->bhgs", qs, kc.to(dtype)))
+        lo += w
+    s = reduce_sum(parts, home)
+    if valid.dim() == 1:
+        valid = valid[None]
+    s = torch.where(valid.to(home)[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(dtype)
+    outs = [accum_matmul("bhgs,bshd->bhgd", p.to(vc.device), vc.to(dtype))
+            for vc in v_parts]
+    out = torch.cat([o.to(home) for o in outs], dim=-1)
+    return out.reshape(B, H, D).to(dtype)

@@ -18,8 +18,19 @@ are ``torch.einsum`` with float32 products and sums
 dtype after each, as the reference's ``preferred_element_type`` asks;
 they are plain products outside any Pallas kernel there. The top-k
 probabilities are renormalised (the reference's default, which every
-caller keeps). The config's ``ep_shard`` (expert parallelism over the
-reference's model axis) has no meaning on one card and is not taken.
+caller keeps).
+
+Over a mesh's ``model`` axis (:func:`moe_apply_mp`, the reference's
+GSPMD partition of the same function) the router, the dispatch and the
+combine run once a data position, at home, on the whole ``x``: the
+choice of expert, the capacity drops and ``moe_aux_loss`` /
+``moe_drop_frac`` are the single-device ones for the same ``x``. Only
+the expert products are split, as the leaves' layout says: by experts
+(the config's ``ep_shard``, ``gate`` / ``up`` / ``down`` split along
+``E``: each position runs its experts on their rows of the dispatch
+buffer, and the combine reads the gathered outputs), or by each expert's
+hidden units (``gate`` and ``up`` column-parallel, ``down`` row-parallel:
+float32 partials added in position order, rounded once).
 """
 from __future__ import annotations
 
@@ -107,16 +118,12 @@ def _dispatch_group(x, top_e, top_p, *, n_experts: int, capacity: int,
     return buf, dst, gates, keep
 
 
-def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, dispatch_groups: int = 1,
-              dtype=DEFAULT_COMPUTE_DTYPE):
-    """``x [T, d]`` -> ``(out [T, d]`` in ``dtype``, ``{"moe_aux_loss",
-    "moe_drop_frac"}``): the switch-style load-balance loss and the share of
-    dispatch rows dropped, float32 0-d tensors). ``params`` holds
-    ``router``, ``gate``, ``up`` and ``down`` (a :class:`MoE`, or one
-    layer's views of a stacked one)."""
+def _route(params, x, *, top_k: int, capacity_factor: float,
+           dispatch_groups: int, dtype):
+    """The router, top-k and dispatch of :func:`moe_apply`: ``(buf [G, E,
+    C, d], dst, gates, keep, probs, top_e)``."""
     T, d = x.shape
-    E = params.gate.shape[0]
+    E = params.router.shape[-1]
     K = top_k
     G = dispatch_groups if T % dispatch_groups == 0 else 1
     Tg = T // G
@@ -130,22 +137,35 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     buf, dst, gates, keep = _dispatch_group(
         x.reshape(G, Tg, d), top_e.reshape(G, Tg, K),
         top_p.reshape(G, Tg, K), n_experts=E, capacity=C, dtype=dtype)
-    buf = buf.reshape(G, E, C, d)
+    return buf.reshape(G, E, C, d), dst, gates, keep, probs, top_e
 
-    g = accum_matmul("gecd,edf->gecf", buf, params.gate.to(dtype)).to(dtype)
-    u = accum_matmul("gecd,edf->gecf", buf, params.up.to(dtype)).to(dtype)
+
+def _experts(buf, gate, up, down, dtype, *, round_out: bool = True):
+    """The stacked per-expert SwiGLU over ``buf [G, E', C, d]``; float32
+    products and sums, rounded to ``dtype`` after each product (the last
+    one left in float32 without ``round_out``)."""
+    g = accum_matmul("gecd,edf->gecf", buf, gate.to(dtype)).to(dtype)
+    u = accum_matmul("gecd,edf->gecf", buf, up.to(dtype)).to(dtype)
     h = torch.nn.functional.silu(g) * u
-    y = accum_matmul("gecf,efd->gecd", h, params.down.to(dtype)).to(dtype)
-    y = y.reshape(G, E * C, d)
+    y = accum_matmul("gecf,efd->gecd", h, down.to(dtype))
+    return y.to(dtype) if round_out else y
 
-    # combine: gather each dispatch row's expert output, weight by its gate
+
+def _combine(y, dst, gates, *, T: int, K: int):
+    """Each dispatch row's expert output (``y [G, E·C, d]``) weighted by
+    its gate, summed over the token's ``K`` rows: ``[T, d]``."""
+    G, EC, d = y.shape
     y_pad = torch.cat([y, y.new_zeros(G, 1, d)], dim=1).reshape(-1, d)
     rows = torch.nn.functional.embedding(  # the drop bin reads zeros
-        dst + (E * C + 1) * torch.arange(G, device=x.device)[:, None], y_pad)
-    out = (rows * gates[..., None]).reshape(G, Tg, K, d).sum(dim=2)
-    out = out.reshape(T, d)
+        dst + (EC + 1) * torch.arange(G, device=y.device)[:, None], y_pad)
+    return (rows * gates[..., None]).reshape(G, T // G, K, d).sum(
+        dim=2).reshape(T, d)
 
-    # switch-style load-balance loss (global, cheap)
+
+def _aux(probs, top_e, keep, *, T: int, K: int) -> dict:
+    """The switch-style load-balance loss and the share of dispatch rows
+    dropped (float32 0-d tensors)."""
+    E = probs.shape[-1]
     frac = torch.bincount(top_e.reshape(-1), minlength=E).to(torch.float32) \
         / (T * K)
     mean_p = probs.mean(dim=0)
@@ -154,4 +174,58 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
     # to float32 (a Python number: no host-to-device copy)
     inv_n = torch.tensor(1.0 / keep.numel(), dtype=torch.float32).item()
     dropped = 1.0 - keep.to(torch.float32).sum() * inv_n
-    return out, {"moe_aux_loss": aux_loss, "moe_drop_frac": dropped}
+    return {"moe_aux_loss": aux_loss, "moe_drop_frac": dropped}
+
+
+def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, dispatch_groups: int = 1,
+              dtype=DEFAULT_COMPUTE_DTYPE):
+    """``x [T, d]`` -> ``(out [T, d]`` in ``dtype``, ``{"moe_aux_loss",
+    "moe_drop_frac"}``): the switch-style load-balance loss and the share of
+    dispatch rows dropped, float32 0-d tensors). ``params`` holds
+    ``router``, ``gate``, ``up`` and ``down`` (a :class:`MoE`, or one
+    layer's views of a stacked one)."""
+    T, d = x.shape
+    buf, dst, gates, keep, probs, top_e = _route(
+        params, x, top_k=top_k, capacity_factor=capacity_factor,
+        dispatch_groups=dispatch_groups, dtype=dtype)
+    G, E, C, _ = buf.shape
+    y = _experts(buf, params.gate, params.up, params.down, dtype)
+    out = _combine(y.reshape(G, E * C, d), dst, gates, T=T, K=top_k)
+    return out, _aux(probs, top_e, keep, T=T, K=top_k)
+
+
+def moe_apply_mp(params, x: torch.Tensor, *, top_k: int, home,
+                 capacity_factor: float = 1.25, dispatch_groups: int = 1,
+                 dtype=DEFAULT_COMPUTE_DTYPE):
+    """:func:`moe_apply` over a ``model`` axis: ``x`` whole at ``home``;
+    ``params.router`` a tensor there, ``gate`` / ``up`` / ``down``
+    :class:`~repro_torch.distributed.tensor_parallel.Slices` split along
+    the experts (``[E/k, d, f]``: expert parallelism) or along each
+    expert's hidden units (``[E, d, f/k]`` and ``[E, f/k, d]``)."""
+    from repro_torch.distributed.tensor_parallel import gather, reduce_sum
+
+    T, d = x.shape
+    buf, dst, gates, keep, probs, top_e = _route(
+        params, x, top_k=top_k, capacity_factor=capacity_factor,
+        dispatch_groups=dispatch_groups, dtype=dtype)
+    G, E, C, _ = buf.shape
+    gate, up, down = params.gate, params.up, params.down
+    if gate.dim == 0:  # expert parallel: each position its experts' rows
+        ys, lo = [], 0
+        for g, u, dn in zip(gate.parts, up.parts, down.parts):
+            n = g.shape[0]
+            ys.append(_experts(buf[:, lo:lo + n].to(g.device), g, u, dn,
+                               dtype))
+            lo += n
+        y = gather(ys, 1, home)
+    elif gate.dim == 2 and down.dim == 1:  # each expert's hidden units
+        y = reduce_sum([
+            _experts(buf.to(g.device), g, u, dn, dtype, round_out=False)
+            for g, u, dn in zip(gate.parts, up.parts, down.parts)],
+            home).to(dtype)
+    else:
+        raise ValueError(f"MoE leaves split along gate {gate.dim} / down "
+                         f"{down.dim}: neither experts nor hidden units")
+    out = _combine(y.reshape(G, E * C, d), dst, gates, T=T, K=top_k)
+    return out, _aux(probs, top_e, keep, T=T, K=top_k)

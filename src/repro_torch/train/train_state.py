@@ -23,20 +23,30 @@ positions in order. Every part's gradients add into one float32
 accumulator in the master layout in part order (:func:`accumulate`, the
 one loop both steps run). So the step computes the single-device step's
 function, as the reference's ``jax.jit(in_shardings=...)`` does (its
-shardings change only where data lives): over ``n`` data positions it
-equals ``make_train_step(microbatch=mb)`` bit for bit. The batch's
-shardings say where its inputs live and never split it otherwise. A
-microbatch count the data positions do not divide (the recsys and GNN
-cells' 1) would need the loss reduced across positions and raises
-(``sharding.DP_MISSING``). Each leaf's square sum in the global norm is
-taken over the whole leaf (gathered one leaf at a time), as one device
-takes it: free while one card hosts the mesh; over several cards it
-moves the split gradient to the first (ROADMAP queue 1 item 13, left 2,
-measures it first). Every other operation is elementwise on the pieces.
+shardings change only where data lives): over ``n`` data positions and
+a ``model`` axis of 1 it equals ``make_train_step(microbatch=mb)`` bit
+for bit. Over a ``model`` axis of ``k > 1`` (the LM family) a data
+position's replica is a ``tensor_parallel.ModelParallel``: each leaf laid
+out as its master without the data axes (the reference's compute spec),
+its ``model`` slices on the position's devices; the model code computes
+over them (``models/lm.py``), and a slice's gradient lands in the
+master's grid (a leaf ZeRO-1 splits over the data axes too). It differs
+from the single-device step only where the row-parallel and vocabulary
+sums re-associate. The recsys and GNN families over ``model > 1`` raise
+(``sharding.RECSYS_TP_MISSING``). The batch's shardings say where its
+inputs live and never split it otherwise. A microbatch count the data
+positions do not divide (the recsys and GNN cells' 1) would need the
+loss reduced across positions and raises (``sharding.DP_MISSING``).
+Each leaf's square sum in the global norm is taken over the whole leaf
+(gathered one leaf at a time), as one device takes it: free while one
+card hosts the mesh; over several cards it moves the split gradient to
+the first (ROADMAP queue 1 item 13, left 2, measures it first). Every
+other operation is elementwise on the pieces.
 """
 from __future__ import annotations
 
 import copy
+from dataclasses import replace
 from typing import Any, Callable
 
 import torch
@@ -145,12 +155,20 @@ class TrainStep:
 
     def value_and_grad(self, params, leaves: dict, batch):
         """``(loss, aux, grads)`` of one batch: gradients with respect to
-        ``leaves`` (``params``' leaves by path)."""
+        ``leaves`` (``params``' leaves by path; a leaf split over a mesh's
+        ``model`` axis gives its gradient in the same layout, a slice a
+        position)."""
+        from repro_torch.distributed.sharding import BlockSharded, pieces
+
         loss, aux = self.loss_fn(params, batch)
-        gs = torch.autograd.grad(loss, list(leaves.values()),
-                                 allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(leaves.items(), gs)}
+        flat = [t for p in leaves.values() for t in pieces(p)]
+        gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+        grads = {}
+        for k, p in leaves.items():
+            g = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(pieces(p), gs)]
+            grads[k] = (replace(p, shards=tuple(g))
+                        if isinstance(p, BlockSharded) else g[0])
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
     def _compute(self, params):
@@ -284,10 +302,10 @@ class ShardedTrainStep:
     as each part of a step begins (a clock's marks)."""
 
     def __init__(self, step: TrainStep, in_shardings, out_shardings=None):
+        from repro_torch.distributed import tensor_parallel as tp
         from repro_torch.distributed.api import NamedSharding
-        from repro_torch.distributed.sharding import (DP, DP_MISSING,
-                                                      TP_MISSING,
-                                                      shard_devices)
+        from repro_torch.distributed.sharding import (DP_MISSING,
+                                                      RECSYS_TP_MISSING)
 
         state_sh, _ = in_shardings
         meshes = {s.mesh for s in _shardings(in_shardings)}
@@ -295,13 +313,15 @@ class ShardedTrainStep:
             raise ValueError(f"in_shardings lie on {len(meshes)} meshes; "
                              "a step runs over one")
         mesh = meshes.pop()
-        wide = {a: n for a, n in mesh.shape.items() if a not in DP and n > 1}
-        if wide:
-            raise NotImplementedError(f"mesh axes {wide}: {TP_MISSING}")
+        self.k = mesh.shape.get(tp.MODEL, 1)
+        if self.k > 1 and not tp.is_lm(state_sh["params"]):
+            raise NotImplementedError(f"a mesh of {mesh.shape}: "
+                                      f"{RECSYS_TP_MISSING}")
         self.step, self.mesh, self.state_sh = step, mesh, state_sh
         self.out_state_sh = out_shardings[0] if out_shardings else None
-        self.devices = shard_devices(
-            mesh, tuple(a for a in DP if a in mesh.axis_names))
+        # each data position's devices, one a model position (home first)
+        self.rows = tp.data_rows(mesh)
+        self.devices = tuple(row[0] for row in self.rows)
         n, mb = len(self.devices), max(step.microbatch, 1)
         if mb % n:
             raise NotImplementedError(
@@ -360,21 +380,26 @@ class ShardedTrainStep:
                 if not isinstance(cp, ShardedParams):
                     raise TypeError("compute_cast of placed parameters must "
                                     "give placed parameters (map_params)")
-                cp = ShardedParams(cp.skeleton, {
-                    k: place(v, self.whole) for k, v in cp.leaves.items()})
-            replicas = {}
-            for dev in dict.fromkeys(self.devices):
-                model = cp.on(dev)
-                leaves = param_leaves(model)
-                for p in leaves.values():
-                    p.requires_grad_(True)
-                replicas[str(dev)] = (model, leaves)
             parts = [batch] if st.microbatch <= 1 else _split(batch,
                                                                st.microbatch)
-            work = [(*replicas[str(dev)], _to(part, dev)) for part, dev in
-                    zip(parts, (d for d in self.devices
-                                for _ in range(self.per_shard)))]
-            del replicas, cp
+            if self.k > 1:
+                work = self._model_parallel_work(cp, master_sh, parts)
+            else:
+                with torch.no_grad():
+                    cp = ShardedParams(cp.skeleton, {
+                        k: place(v, self.whole) for k, v in cp.leaves.items()})
+                replicas = {}
+                for dev in dict.fromkeys(self.devices):
+                    model = cp.on(dev)
+                    leaves = param_leaves(model)
+                    for p in leaves.values():
+                        p.requires_grad_(True)
+                    replicas[str(dev)] = (model, leaves)
+                work = [(*replicas[str(dev)], _to(part, dev)) for part, dev in
+                        zip(parts, (d for d in self.devices
+                                    for _ in range(self.per_shard)))]
+                del replicas
+            del cp
             loss, aux, grads = accumulate(
                 st, work, lay=lambda k, g: place(g, master_sh[k]),
                 mark=self._mark)
@@ -387,6 +412,33 @@ class ShardedTrainStep:
         if self.out_state_sh is not None:
             self.place(state, self.out_state_sh)
         return state, metrics
+
+    def _model_parallel_work(self, cp: ShardedParams, master_sh: dict,
+                             parts: list) -> list:
+        """The parts dealt out over the data positions, each with its
+        position's compute copy over the ``model`` axis
+        (``tensor_parallel.ModelParallel``): every leaf laid out as its
+        master minus the data axes (the reference's compute spec), a split
+        leaf's slices on the position's devices, a whole leaf at its home;
+        each requires grad."""
+        from repro_torch.distributed.api import NamedSharding
+        from repro_torch.distributed.sharding import place, without_data
+        from repro_torch.distributed.tensor_parallel import ModelParallel
+
+        with torch.no_grad():
+            compute = {k: place(v, NamedSharding(
+                self.mesh, without_data(master_sh[k].spec)))
+                for k, v in cp.leaves.items()}
+        replicas = {}
+        for row in self.rows:
+            key = tuple(str(d) for d in row)
+            if key not in replicas:
+                mp = ModelParallel.of(self.mesh, row, compute,
+                                      requires_grad=True)
+                replicas[key] = (mp, mp.leaves)
+        rows = (r for r in self.rows for _ in range(self.per_shard))
+        return [(*replicas[tuple(str(d) for d in row)], _to(part, row[0]))
+                for part, row in zip(parts, rows)]
 
     def _adamw(self, state: dict, grads: dict) -> dict:
         """``adamw_update`` once per distinct device over the pieces that
@@ -425,10 +477,10 @@ def jit_train_step(train_step, *, in_shardings=None, out_shardings=None):
     """``train_step`` over the mesh of ``in_shardings`` (``(state
     shardings, batch shardings)``, ``distributed.sharding.to_named`` of
     the specs): a :class:`ShardedTrainStep`. Without shardings, the step
-    itself (one device, nothing to place). A mesh axis other than the
-    data axes larger than 1 raises (tensor-parallel compute is not
-    ported), as does a microbatch count that the data positions do not
-    divide (a loss reduced across positions is not ported)."""
+    itself (one device, nothing to place). A ``model`` axis larger than 1
+    computes over the LM family's splits (a recsys or GNN state raises);
+    a microbatch count that the data positions do not divide raises (a
+    loss reduced across positions is not ported)."""
     if in_shardings is None:
         return train_step
     return ShardedTrainStep(train_step, in_shardings, out_shardings)

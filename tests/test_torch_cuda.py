@@ -2024,3 +2024,142 @@ def test_compressed_psum_on_the_card_matches_the_cpu(dev):
 
     for a, b in zip(psum(dev), psum("cpu")):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism over 4 logical model shards of the card
+# ---------------------------------------------------------------------------
+def _tp_slices(w, dim):
+    from repro_torch.distributed.tensor_parallel import Slices
+
+    return Slices(tuple(torch.chunk(w, 4, dim=dim)), dim)
+
+
+def test_tensor_parallel_helpers_on_the_card(dev):
+    """The column- and row-parallel products, the vocabulary-parallel
+    lookup and logsumexp over 4 slices on the card against the unsplit
+    operations: the lookup and the target's logit bit for bit, the
+    column product within one bf16 ulp of its largest value (cuBLAS picks
+    its kernel by width), the row product (float32 partials summed, then
+    rounded) within 2^-7 of the largest value, the logsumexp within 1e-5
+    relative."""
+    from repro_torch.distributed import tensor_parallel as tp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, 64, 256, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randn(256, 512, device=dev, generator=g) / 16
+    want = x @ w.to(torch.bfloat16)
+    cols = torch.cat(tp.column_dense(x, _tp_slices(w, 1)), -1)
+    scale = want.float().abs().max()
+    assert (cols.float() - want.float()).abs().max() <= scale * 2.0**-8
+    rows = tp.row_dense(list(torch.chunk(x, 4, -1)), _tp_slices(w, 0),
+                        home=dev)
+    assert rows.dtype == torch.bfloat16 and rows.device.type == "cuda"
+    assert (rows.float() - want.float()).abs().max() <= scale * 2.0**-7
+    emb = torch.randn(1024, 64, device=dev, generator=g)
+    ids = torch.randint(0, 1024, (4, 33), device=dev, generator=g)
+    assert torch.equal(
+        tp.vocab_embedding(_tp_slices(emb, 0), ids, home=dev),
+        torch.nn.functional.embedding(ids, emb).to(torch.bfloat16))
+    logits = torch.randn(4, 33, 1024, device=dev, generator=g) * 8
+    lse, true = tp.vocab_logsumexp(list(torch.chunk(logits, 4, -1)), ids,
+                                   home=dev)
+    ref = torch.logsumexp(logits, -1)
+    assert ((lse - ref).abs() / ref.abs()).max() <= 1e-5
+    assert torch.equal(true, torch.gather(logits, -1, ids[..., None])[..., 0])
+
+
+TP_LM = dict(n_layers=2, d_model=128, n_heads=8, n_kv_heads=4, head_dim=16,
+             d_ff=256, vocab=1 << 14, window=None, q_chunk=64, kv_chunk=64,
+             loss_chunk=32, microbatch=4)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_model_parallel_train_step_on_the_card(dev, shape):
+    """Two steps of a 2-layer LM's ``jit_train_step`` (ZeRO-1 hooks, bf16
+    compute) over logical shards of the card against the single-device
+    hooked step: losses and grad norms within 1e-3 relative (the
+    row-parallel and vocabulary sums re-associate), a replay bit for
+    bit."""
+    import os
+
+    from repro_torch.convert import train_state_tree
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models import lm, registry
+    from repro_torch.train import init_train_state, jit_train_step
+    from repro_torch.tree import flatten
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cell = registry.build_cell("h2o-danube-1.8b", "train_4k",
+                               mesh_dp=shape[0],
+                               overrides=dict(TP_LM, zero1=True))
+    mesh = make_mesh(shape, ("data", "model"), devices=[dev] * 4)
+    rng = np.random.default_rng(13)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cell.cfg.vocab, (8, 129)).astype(np.int32), device=dev)}
+        for _ in range(2)]
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for fn in (jit_train_step(cell.fn, in_shardings=cell.in_shardings(
+                mesh)), cell.fn, jit_train_step(
+                cell.fn, in_shardings=cell.in_shardings(mesh))):
+            state = init_train_state(lm.init_params(cell.cfg, seed=0,
+                                                    device=dev))
+            metrics = []
+            for b in batches:
+                state, m = fn(state, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((metrics, dict(flatten(train_state_tree(state)))))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m_mp, t_mp), (m_one, _), (m_re, t_re) = runs
+    np.testing.assert_allclose(np.asarray(m_mp), np.asarray(m_one),
+                               rtol=1e-3)
+    assert m_re == m_mp
+    for k in t_mp:
+        assert t_mp[k].device.type == "cuda"
+        assert torch.equal(t_mp[k], t_re[k]), k
+
+
+def test_model_parallel_decode_on_the_card(dev):
+    """A 2-layer LM's prefill and 4 decode steps through ``run_cell`` over
+    ``(1, 4)`` logical shards of the card (its cache split by head
+    dimension) against the single-device functions fed the same tokens:
+    logits within 2^-5 of the largest |logit|, bf16."""
+    import functools
+
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import whole
+    from repro_torch.models import lm, registry
+    from repro_torch.train import map_params
+
+    over = {k: v for k, v in TP_LM.items() if k != "microbatch"}
+    pre = registry.build_cell("h2o-danube-1.8b", "prefill_32k", mesh_dp=1,
+                              overrides=over)
+    dec = registry.build_cell("h2o-danube-1.8b", "decode_32k", mesh_dp=1,
+                              overrides=over)
+    pre = dataclasses.replace(pre, fn=functools.partial(
+        lm.prefill, cfg=pre.cfg, cache_capacity=72))
+    mesh = make_mesh((1, 4), ("data", "model"), devices=[dev] * 4)
+    params = map_params(lambda k, p: p.to(torch.bfloat16),
+                        lm.init_params(pre.cfg, seed=0, device=dev))
+    rng = np.random.default_rng(14)
+    prompt = torch.as_tensor(rng.integers(0, pre.cfg.vocab, (2, 64)).astype(
+        np.int32), device=dev)
+    with torch.inference_mode():
+        (lg, cache), placed = registry.run_cell(pre, mesh, params, prompt)
+        lg1, cache1 = lm.prefill(params, prompt, pre.cfg, cache_capacity=72)
+        assert cache["k"].splits == ((2, ("model",)),)
+        for i in range(5):
+            got, want = whole(lg), lg1
+            assert ((got - want).abs().max() / want.abs().max()
+                    <= 2.0**-5), i
+            tok = torch.argmax(got, -1).to(torch.int32)
+            if i == 4:
+                break
+            (lg, cache), placed = registry.run_cell(dec, mesh, placed, cache,
+                                                    tok)
+            lg1, cache1 = lm.decode_step(params, cache1, tok, pre.cfg)
+        assert cache["k"].splits == ((4, ("model",)),)
+        assert all(s.device.type == "cuda" for s in cache["k"].shards)

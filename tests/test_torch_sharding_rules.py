@@ -9,8 +9,8 @@ port's arguments are tensors on the ``meta`` device, the reference's
 their bits, so a reference uint32 leaf is an int32 one here. Then the
 rule tables leaf by leaf (``zero1_extend``, ``lm_cache_spec``,
 ``recsys_param_spec`` in each serving mode), ``named_sharding`` /
-``constrain``, the production mesh, and the refusal of a ``model`` axis
-larger than 1.
+``constrain``, the production mesh, and a ``model`` axis larger than 1
+(placed, gathered back and stepped over).
 """
 import dataclasses
 
@@ -215,22 +215,42 @@ def test_constrain_places_under_a_mesh_and_is_a_noop_without():
 
 
 def test_a_model_axis_larger_than_one_raises():
-    from repro_torch.train import jit_train_step, make_train_step
-    from repro_torch.train import OptimizerConfig
+    """What replaced the refusal of a ``model`` axis larger than 1: a
+    ``model`` split places and gathers back (with a data split on a second
+    dimension, a grid), ``jit_train_step`` takes a ``(2, 2)`` mesh and
+    runs an LM step (its loss the single-device step's within 1e-5 at
+    float32: the row-parallel sums re-associate), and a spec that names
+    one axis twice still raises."""
+    from repro_torch.models import lm
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   jit_train_step, make_train_step)
 
     mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
-    x = torch.zeros(8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                                                  "item 13"):
-        t_shd.place(x, t_api.named_sharding(mesh, "model", None))
-    step = make_train_step(lambda p, b: (p["w"].sum(), {}),
-                           OptimizerConfig())
-    sh = t_shd.to_named(mesh, t_shd.state_specs({"w": x},
-                                                lambda p, leaf: (None, None)))
-    with pytest.raises(NotImplementedError, match="tensor- and "
-                                                  "expert-parallel"):
-        jit_train_step(step, in_shardings=(sh, {}))
-    with pytest.raises(NotImplementedError, match="one dimension"):
+    x = torch.arange(64.0).reshape(8, 8)
+    split = t_shd.place(x, t_api.named_sharding(mesh, "model", None))
+    assert split.splits == ((0, ("model",)),)
+    assert torch.equal(split.gather(), x)
+    grid = t_shd.place(x, t_api.named_sharding(mesh, "model", "data"))
+    assert grid.splits == ((0, ("model",)), (1, ("data",)))
+    assert [tuple(s.shape) for s in grid.shards] == [(4, 4)] * 4
+    assert torch.equal(grid.gather(), x)
+
+    cfg = dataclasses.replace(Treg.reduced_config("h2o-danube-1.8b"),
+                              n_layers=1, vocab=64, microbatch=2)
+    step = make_train_step(
+        lambda p, b: lm.loss_fn(p, b, cfg, dtype=torch.float32),
+        OptimizerConfig(), microbatch=2)
+    specs = t_shd.state_specs(Treg.abstract_params(cfg, "lm"),
+                              t_shd.lm_param_spec(cfg))
+    sharded = jit_train_step(step, in_shardings=(t_shd.to_named(mesh, specs),
+                                                 {}))
+    batch = {"tokens": torch.arange(4 * 17, dtype=torch.int32).reshape(
+        4, 17) % cfg.vocab}
+    losses = [float(fn(init_train_state(lm.init_params(
+        cfg, seed=0, device="cpu")), batch)[1]["loss"])
+        for fn in (sharded, step)]
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    with pytest.raises(ValueError, match="names mesh axis 'data' twice"):
         t_shd.place(x, t_api.named_sharding(
             make_mesh((4,), ("data",), devices=["cpu"] * 4), "data", "data"))
 

@@ -42,8 +42,8 @@ def rows(cards: int) -> list[dict]:
             master = full = 0
             for k, leaf in state["opt"]["m"].items():
                 n = math.prod(leaf.shape)
-                dim, _ = split_of(resolved_spec(specs[k], mesh), mesh)
-                master += 4 * n // (cards if dim is not None else 1)
+                split = split_of(resolved_spec(specs[k], mesh), mesh)
+                master += 4 * n // (cards if split else 1)
                 full += n
             compute = 2 * full if zero1 else 0
             grads = master + 2 * full if zero1 else 4 * full
