@@ -49,12 +49,13 @@ fault. One JSON line per phase:
    partition DPs run in worker processes, one ``build_index`` call per
    term, merged on the card) and ``format="streamvbyte"`` (the first 10),
    2 queries of each of the 5 modes.
-   Every query's result and ``QueryStats`` is then held equal to the plain
-   ``plan="torch"`` engine's on the card (the replay runs in 6 spawned
+   The first 5 queries' results and ``QueryStats`` (one of each mode) are
+   then held equal to the plain
+   ``plan="torch"`` engine's on the card (the replay runs in spawned
    worker processes, each placing the index on the card from its numpy
    leaves without the checksum columns the indexes are built with: the
    same answers, accounting and bits/int, so the column is off the request
-   path), and every AND/OR answer (4 per path) against numpy set operations
+   path), and each replayed AND/OR answer against numpy set operations
    on the host lists. A profiler window gives each path's device busy
    share.
    Then phase ``hardened_search`` over the three indexes, the launch
@@ -102,13 +103,13 @@ fault. One JSON line per phase:
    queries as and / or / topk, each answer equal to the materialize()
    oracle and to ``plan="torch"`` on the card; a restart replaying the
    whole WAL (a query during replay flagged ``replaying``; load, CRC,
-   upload and replay seconds); one full-size merge (its phase seconds and
-   launches), answers unchanged. The ``plan="torch"`` answers and the
+   upload and replay seconds). The ``plan="torch"`` answers and the
    oracle come from a spawned worker on a copy of the directory, and the
    crash-point sweep runs over the K=12 ∪ K=16 terms (2,000 more ops) in
    another, both while this process serves: a merge crashed at a seeded
    point with 50 writes racing it, recovery, the retried merge checked at
-   all 8 crash points and after commit.
+   all 8 crash points and after commit (the merge runs at that scale
+   only: the full-size merge is a depth cut).
 5. path ``two_tower`` — two-tower-retrieval at full width (2^23 users and
    items) served by ``ServingEngine`` over 2^20 compressed candidates:
    256 requests drained at most 8, 4, 2 and 1 at a time, then 64 bags
@@ -202,6 +203,22 @@ fault. One JSON line per phase:
    × 4,096. Logits within 2^-5 of the largest |logit|, ``moe_drop_frac``
    equal; prefill seconds and decode ms a token beside the single
    device's.
+   Path ``mesh_cells`` — the recsys cells over a ``(data, model)`` mesh
+   of logical shards of ``cuda:0``, each against the single device from
+   the same seed and inputs: ``dp_train`` (SASRec and two-tower
+   ``train_batch`` at full width, 65,536 rows, microbatch 1, over ``(4,
+   1)``: each step's rows split over the positions and its loss reduced
+   across them), ``mp_recsys_train`` (BST and two-tower over ``(2, 2)``:
+   the tables split by rows and the MLPs by columns and rows over
+   ``model``, and a replay bit for bit); 2 steps each, each step's loss
+   and grad norm within 1e-3 and its gradients within 2^-4 (relative L2
+   over every small leaf and a sample of each table's rows, those the
+   batch hits among them) of the single device's from the same state:
+   the seed's for the first step, the state the mesh's previous step
+   left for a later one. ``mp_recsys_serve`` (SASRec and BST over
+   ``(1, 4)`` through ``registry.run_cell``: ``serve_p99`` at 512 rows
+   and ``retrieval_cand`` over 2^20 vbyte candidates, one decode launch a
+   shard, counted exactly; SASRec bit for bit, BST within 2^-5).
    Path ``sharded`` — ``make_mesh((8,), ("data",))``: over the cards when
    there are several, else 8 logical shards of ``cuda:0`` (a single
    controller, no collective, as the reference's ``shard_map`` decode).
@@ -256,6 +273,13 @@ fault. One JSON line per phase:
    CPU over sampled rows (the step's grouping by source, and the
    in-degree grouping with rows past LONG_ROW) and timed beside its
    bound, its plain version and cuSPARSE SpMM over the transposed CSR.
+   Phase ``gin_mesh``, after ``gin_train``: its first two steps over
+   ``(4, 1)`` and ``(2, 2)`` through ``jit_train_step`` with the
+   ``ogb_products`` cell's specs (node rows, labels, gap blocks and
+   ``edge_valid`` split over every position; one ``adjacency_rebase``
+   launch a position a forward, counted exactly), each step's loss, grad
+   norm and gradients (within GIN_GRAD_RTOL) held as ``mesh_cells`` holds
+   them, against one device from the same state.
 7. the ``kernels`` line, the card line, and the result line.
 """
 from __future__ import annotations
@@ -288,6 +312,8 @@ BLOCK = 128
 N_PARITY_BLOCKS = 4096
 REPLAY_WORKERS = 6  # processes replaying the main paths' torch plan (and
 #                    building the auto index's terms)
+REPLAY_QUERIES = 5  # a path's first queries replayed, one of each mode (a
+#                     depth cut: all 10 took 33-50 s a path on a slow host)
 CARD = ""  # "name, power limit" from nvidia-smi; set in phase 1
 # decode kernel and kernel 2 core each main path must launch
 PATH_KERNELS = {"vbyte": ("vbyte_decode_blocked", "vbyte"),
@@ -1444,9 +1470,9 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
              groups: dict, profile_queries: int, pool,
              workers: int) -> dict:
     """Build one index onto the card, serve ``qs`` through the kernels with
-    the launch counts read around the workload, replay every query through
-    the plain torch plan in ``pool``'s worker processes, and profile a few
-    queries."""
+    the launch counts read around the workload, replay its first
+    REPLAY_QUERIES queries through the plain torch plan in ``pool``'s
+    worker processes, and profile a few queries."""
     from repro_torch.launch.serve import SearchEngine
 
     t_path = time.perf_counter()
@@ -1504,11 +1530,14 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
     # column is off the request path; AND/OR also against numpy set
     # operations
     t0 = time.perf_counter()
-    parts = [list(range(i, len(qs), workers)) for i in range(workers)]
+    rq = qs[:REPLAY_QUERIES]
+    parts = [p for p in (list(range(i, len(rq), workers))
+                         for i in range(workers)) if p]
     state = _index_state(index, checksums=False)
     replayed = {}
     for part, rep in zip(parts, pool.map(
-            _replay, [state] * workers, [[qs[i] for i in p] for p in parts])):
+            _replay, [state] * len(parts),
+            [[rq[i] for i in p] for p in parts])):
         if rep["bits_per_int"] != index.bits_per_int:
             die(f"{name}: bits/int {index.bits_per_int} with the checksum "
                 f"columns, {rep['bits_per_int']} without")
@@ -1516,7 +1545,7 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
     del state
     oracle = 0
     by_mode = {}  # mode -> [n, kernel-plan seconds, torch-plan seconds]
-    for i, ((mode, terms), (a, sa, secs)) in enumerate(zip(qs, record)):
+    for i, ((mode, terms), (a, sa, secs)) in enumerate(zip(rq, record)):
         b, sb, secs_b = replayed[i]
         acc = by_mode.setdefault(mode, [0, 0.0, 0.0])
         acc[0] += 1
@@ -1535,7 +1564,7 @@ def run_path(np, torch, name: str, lists: dict, tfs: dict, qs: list, *,
             if not np.array_equal(a, want.astype(np.uint32)):
                 die(f"{name}: {mode} {terms} differs from the numpy oracle")
             oracle += 1
-    emit("main_path_parity", path=name, queries=len(qs),
+    emit("main_path_parity", path=name, queries=len(rq),
          oracle_checked=oracle, seconds=round(time.perf_counter() - t0, 3),
          replay_workers=workers, equal=True,
          mean_ms_by_mode={m: {"n": n, "kernels": round(ka / n * 1e3, 3),
@@ -2439,14 +2468,6 @@ def _replay_probe(flags: list, term: int):
     return probe
 
 
-def _phase_hist(tele, name: str) -> dict:
-    out = {}
-    for k, m in tele.registry.snapshot()["metrics"].items():
-        if k.startswith(name + "{"):
-            out[k[len(name) + 1:-1]] = round(m["sum"], 6)
-    return out
-
-
 def _pct_us(np, xs) -> dict:
     return {"p50_us": round(float(np.percentile(xs, 50)) * 1e6, 1),
             "p99_us": round(float(np.percentile(xs, 99)) * 1e6, 1)}
@@ -2590,11 +2611,12 @@ def phase_live_index(np, torch, paths: dict, lists: dict, tfs: dict,
     ``replaying``), the ``auto`` path's first queries as and / or / topk
     (every answer equal to ``plan="torch"`` on the card and to the
     materialize() oracle, both computed in a spawned worker on a copy of
-    the directory while this process serves), and one full-size merge,
-    after which the answers are unchanged. The crash-point sweep — a merge
-    crashed at a seeded point with writes racing it, recovery, then the
-    retried merge checked at all 8 points and after commit — runs over the
-    K=12 ∪ K=16 terms in another spawned worker, at the same time."""
+    the directory while this process serves). The crash-point sweep — a
+    merge crashed at a seeded point with writes racing it, recovery, then
+    the retried merge checked at all 8 points and after commit — runs over
+    the K=12 ∪ K=16 terms in another spawned worker, at the same time: the
+    merge runs at that scale only (the full-size merge, 60-107 s, is a
+    depth cut)."""
     import shutil
     import tempfile
 
@@ -2718,13 +2740,6 @@ def phase_live_index(np, torch, paths: dict, lists: dict, tfs: dict,
                 raise AssertionError(f"the queries launched no kernel 4: "
                                      f"{q_launches}")
 
-            # 5. the full-size merge; the logical state and answers stay
-            t0 = time.perf_counter()
-            info, m_launches = tally.run(live.merge)
-            t_merge = time.perf_counter() - t0
-            phases = _phase_hist(tele, "ingest_merge_phase_seconds")
-            after, _ = tally.run(lambda: _answers(engine, lq))
-            _live_hold(np, after, card, "after the full merge")
             live.close()
 
             plain = plain_job.result()
@@ -2743,11 +2758,8 @@ def phase_live_index(np, torch, paths: dict, lists: dict, tfs: dict,
                                      if isinstance(v, int)},
                  oracle_equal=True, torch_plan_equal=True,
                  worker_seconds=plain["seconds"])
-            emit("live_merge", scope="full", seconds=round(t_merge, 3),
-                 phase_seconds=phases, launches=m_launches, **info,
-                 answers_equal=True)
 
-            # 6. the crash-point sweep's results
+            # 5. the crash-point sweep's results
             sw = sweep_job.result()
             emit("live_recovery", **sw["recovery"])
             emit("live_sweep", terms=len(sweep), postings=sub.n_postings,
@@ -3063,6 +3075,7 @@ def run_gin(np, torch, args) -> dict:
          seconds=round(time.perf_counter() - t0, 3))
     del logits_raw, raw
     train = run_gin_train(np, torch, args, cfg, batch, comp, nbr_f, own_f)
+    mesh = gin_mesh(np, torch, args, cfg, batch, train)
     with torch.inference_mode():
         share = _profile(torch, "gin",
                          lambda: gnn.forward(params, batch, cfg), 1,
@@ -3074,7 +3087,7 @@ def run_gin(np, torch, args) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "seconds": seconds, "peak": peak,
-            "busy_share": share, "train": train, **kernels}
+            "busy_share": share, "train": train, "mesh": mesh, **kernels}
 
 
 class _StepClock:
@@ -3257,17 +3270,30 @@ def run_gin_train(np, torch, args, cfg, batch, comp, nbr, own) -> dict:
     ckpt_dir = tempfile.mkdtemp(prefix="gin_ckpt_")
     mgr = CheckpointManager(ckpt_dir, keep=1)
 
+    counters = _launch_counters()
+    state = copy.deepcopy(state0)
+    norms, first = [], {}
+
     def save(i, st):
         if i == GIN_CKPT_STEP:
             mgr.save(i, train_state_tree(st))
 
-    counters = _launch_counters()
-    state = copy.deepcopy(state0)
     _reset(torch, counters)
     with _StepClock(torch) as clock:
+        step = _grads_at_finish(make_train_step(clock.loss(loss_fn), opt),
+                                lambda g: first.update(
+                                    {k: v.float().clone()
+                                     for k, v in g.items()}))
+        real_finish = step.finish
+
+        def finish(*a, **kw):  # the grad norms the steps take
+            m = real_finish(*a, **kw)
+            norms.append(float(m["grad_norm"]))
+            return m
+
+        step.finish = finish
         state, losses, times = _train_steps(
-            torch, make_train_step(clock.loss(loss_fn), opt), state, batch,
-            GIN_TRAIN_STEPS, clock, save)
+            torch, step, state, batch, GIN_TRAIN_STEPS, clock, save)
     launches = _read(torch, counters)
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: launches[k] / GIN_TRAIN_STEPS for k in (
@@ -3323,7 +3349,137 @@ def run_gin_train(np, torch, args, cfg, batch, comp, nbr, own) -> dict:
     seconds = time.perf_counter() - t_path
     emit("path_done", path="gin_train", seconds=round(seconds, 3))
     return {"launches": launches, "seconds": seconds, "peak": peak,
-            "losses": losses, "ms": ms, "owner_sum_backward": backward}
+            "losses": losses, "ms": ms, "owner_sum_backward": backward,
+            "grad_norms": norms, "first_grads": first, "opt": opt}
+
+
+GIN_MESHES = ((4, 1), (2, 2))  # gin_mesh: every position a row position
+GIN_MESH_STEPS = 2
+
+
+def gin_mesh(np, torch, args, cfg, batch, train) -> dict:
+    """Phase ``gin_mesh``: gin_train's first GIN_MESH_STEPS steps over each
+    mesh of GIN_MESHES through ``jit_train_step`` with the ``ogb_products``
+    cell's specs: the node rows and labels, the gap blocks and
+    ``edge_valid`` split over every position (``("pod", "data",
+    "model")``), each position's blocks decoded by one kernel 2
+    ``adjacency_rebase`` launch a forward, ``h`` shared once a layer,
+    ``owner_sum`` over each position's edges (an owner straddling two
+    positions adds their partials in position order), both ways. The node
+    count is padded to a multiple of the positions (rows with no edges,
+    masked out of the loss: the same mean). Each step's loss, grad norm
+    and gradients held as ``mesh_train`` holds them (``_train_held``,
+    GIN_GRAD_RTOL) against one device from the same state: the first
+    step's against gin_train's, a later one's against the single-device
+    step on the state the mesh's previous step left (``_single_at``); the
+    launches counted exactly (the single device's outside the count)."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import whole
+    from repro_torch.models import gnn, registry
+    from repro_torch.train import (init_train_state, jit_train_step,
+                                   make_train_step)
+
+    t_path = time.perf_counter()
+    N = batch["feats"].shape[0]
+    pad = -N % max(a * b for a, b in GIN_MESHES)
+    padded = dict(batch)
+    padded["feats"] = torch.cat([batch["feats"], batch["feats"].new_zeros(
+        (pad, batch["feats"].shape[1]))])
+    padded["labels"] = torch.cat([batch["labels"],
+                                  batch["labels"].new_zeros(pad)])
+    padded["label_mask"] = torch.arange(N + pad, device="cuda") < N
+    ro = batch["row_offsets"]
+    padded["row_offsets"] = torch.cat([ro, ro[-1:].expand(pad)])
+    padded["row_gap_bases"] = torch.cat([
+        batch["row_gap_bases"], batch["row_gap_bases"].new_zeros(pad)])
+    opt = train["opt"]
+    out = {"nodes_padded": N + pad, "steps": GIN_MESH_STEPS}
+    counters = _launch_counters()
+    launches_all = None
+    for shape in GIN_MESHES:
+        mesh = make_mesh(shape, ("data", "model"))
+        cell = registry.build_cell("gin-tu", "ogb_products",
+                                   mesh_dp=shape[0], opt_cfg=opt)
+        seen = []
+
+        def sample(g):
+            return {k: whole(v).float() for k, v in g.items()}
+
+        step = _grads_at_finish(jit_train_step(
+            make_train_step(lambda p, b: gnn.loss_fn(p, b, cfg), opt),
+            in_shardings=cell.in_shardings(mesh)),
+            lambda g: seen.append(sample(g)), every=True)
+        single = make_train_step(lambda p, b: gnn.loss_fn(p, b, cfg), opt)
+        state = init_train_state(gnn.init_params(cfg, seed=args.seed + 1,
+                                                 device="cuda"))
+        losses, norms, ms, at, peak = [], [], [], [], 0
+        _reset(torch, counters)
+        off = _read(torch, counters)  # the single device's launches
+        for i in range(GIN_MESH_STEPS):
+            if i:  # the single device from this state, outside the count
+                before = _read(torch, counters)
+                at.append(_single_at(torch, single, state, batch, sample))
+                off = _merge_launches(off, _delta(before, _read(torch,
+                                                               counters)))
+                torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, padded)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(round(start.elapsed_time(end), 3))
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        launches = _delta(off, _read(torch, counters))
+        del state
+        n = len(step.devices)
+        want = {"adjacency_rebase": n * GIN_MESH_STEPS,
+                "owner_sum": n * cfg.n_layers * GIN_MESH_STEPS,
+                "owner_sum_backward": n * (cfg.n_layers - 1) * GIN_MESH_STEPS}
+        got = {"adjacency_rebase": launches["fused_decode_by"].get(
+                   "vbyte/adjacency_rebase", 0),
+               "owner_sum": launches["owner_sum"],
+               "owner_sum_backward": launches["owner_sum_backward"]}
+        if got != want or launches["fused_decode"] != got[
+                "adjacency_rebase"] or launches["vbyte_decode_blocked"]:
+            die(f"gin_mesh over {shape}: launches {launches}, expected "
+                f"{want}")
+        want_losses = train["losses"][:1] + [a[0] for a in at]
+        want_norms = train["grad_norms"][:1] + [a[1] for a in at]
+        rel = _train_rel(losses, norms, want_losses, want_norms)
+        g_rel = [_rel_l2(g, w) for g, w in zip(seen, [train["first_grads"]]
+                                               + [a[2] for a in at])]
+        worst = max(((t, k) for t, r in enumerate(g_rel) for k in r),
+                    key=lambda tk: g_rel[tk[0]][tk[1]])
+        g_worst = g_rel[worst[0]][worst[1]]
+        rec = {"mesh": mesh.shape, "positions": n, "split": step.split,
+               "losses": losses, "grad_norms": norms,
+               "single_device_from_same_state": {"losses": want_losses,
+                                                 "grad_norms": want_norms},
+               "rel_to_single": rel,
+               "grad_rel_l2_max": {"step": worst[0] + 1, "leaf": worst[1],
+                                   "value": g_worst},
+               "ms_per_step": ms,
+               "single_device_ms_per_step": train["ms"].get("step", [])[
+                   :GIN_MESH_STEPS],
+               "peak_device_bytes": peak, "launches": launches}
+        emit("gin_mesh", **rec)
+        if not all(np.isfinite(losses + norms)) or not _train_held(rel) \
+                or g_worst > GIN_GRAD_RTOL:
+            die(f"gin_mesh over {shape}: losses {losses}, norms {norms}: "
+                f"{rel}; step {worst[0] + 1}'s gradient {worst[1]} "
+                f"{g_worst}")
+        out[str(shape)] = rec
+        launches_all = launches if launches_all is None else \
+            _merge_launches(launches_all, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del padded
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="gin_mesh", seconds=round(seconds, 3))
+    return {"launches": launches_all, "seconds": seconds, **out}
 
 
 def gin_backward_kernel(np, torch, comp, nbr, own, cfg, args) -> dict:
@@ -4880,20 +5036,50 @@ def _mp_drop_recorder():
             setattr(moe, n, fn)
 
 
-def _grads_at_finish(step_fn, fn):
+def _grads_at_finish(step_fn, fn, every: bool = False):
     """``step_fn`` (a train step) calling ``fn(grads)`` with its first
-    step's accumulated gradients, before the update."""
+    step's accumulated gradients (``every``: each step's), before the
+    update."""
     st = step_fn.step if hasattr(step_fn, "step") else step_fn
     real, seen = st.finish, []
 
     def finish(state, loss, aux, grads, update=None):
-        if not seen:
+        if every or not seen:
             seen.append(True)
             fn(grads)
         return real(state, loss, aux, grads, update)
 
     st.finish = finish
     return step_fn
+
+
+def _single_at(torch, step, state, batch, sample) -> tuple:
+    """``(loss, grad norm, sample(grads))`` of the single-device
+    ``step`` (a ``TrainStep``) on ``state``'s parameters, without its
+    update: the parameters a mesh step left (its placed leaves, a split
+    one gathered whole on ``cuda:0``), so that the mesh's next step and
+    the single device start from one state and one step's rounding is
+    compared."""
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_state import ShardedParams, param_leaves
+
+    params = state["params"]
+    if isinstance(params, ShardedParams):
+        params = params.on(torch.device("cuda", 0))
+        for p in param_leaves(params).values():
+            p.requires_grad_(True)
+    seen, real = {}, step.finish
+
+    def finish(st, loss, aux, grads, update=None):
+        seen.update(sample(grads))
+        return {"loss": loss, "grad_norm": global_norm(grads)}
+
+    step.finish = finish
+    try:
+        _, m = step({"params": params}, batch)
+    finally:
+        step.finish = real
+    return float(m["loss"]), float(m["grad_norm"]), seen
 
 
 def mp_train(np, torch, args) -> dict:
@@ -5218,6 +5404,363 @@ def run_model_parallel(np, torch, args) -> dict:
          launches=launches)
     return {"launches": launches, "seconds": seconds, "train": train,
             "serve": serve}
+
+
+# ---------------------------------------------------------------------------
+# path mesh_cells: the recsys cells over a (data, model) mesh, a microbatch
+# split by rows over the data positions
+# ---------------------------------------------------------------------------
+MESH_DP = (4, 1)  # dp_train: SASRec and two-tower, rows over 4 positions
+MESH_MP = (2, 2)  # mp_recsys_train: BST and two-tower, tables / MLPs split
+MESH_SERVE = (1, 4)  # mp_recsys_serve: SASRec and BST
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_RTOL = 1e-3  # each step's loss and grad norm against one
+# device's from the same state: the first step's from the seed's, a later
+# one's from the state the mesh's previous step left (``_single_at``)
+MESH_GRAD_RTOL = 2.0**-4  # relative L2 of a sampled gradient leaf
+MESH_GRAD_ROWS = 1 << 12  # a table's rows held, drawn, besides the batch's
+MESH_HIT_ROWS = 1 << 16  # at most this many of the rows the batch hits
+MESH_SERVE_RTOL = 2.0**-5  # BST's scores, of the largest |score|
+MESH_SERVE_CALLS = 3  # timed requests a cell, mesh and single device
+
+
+def _grad_sample(torch, cfg, batch, seed: int):
+    """``sample(grads) -> {leaf: float32 tensor}``: every small leaf whole;
+    of a table (2^16 rows or more), MESH_HIT_ROWS of the rows the batch's
+    ids hit and MESH_GRAD_ROWS more, drawn from ``seed``, gathered one leaf
+    at a time."""
+    from repro_torch.distributed.sharding import BlockSharded, whole
+
+    ids = torch.cat([v.reshape(-1).to(torch.int64) for v in batch.values()])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+
+    def pick(k, n):
+        if k not in rows:
+            hit = torch.unique(ids[ids < n])
+            hit = hit[torch.randperm(hit.numel(), generator=gen,
+                                     device="cuda")[:MESH_HIT_ROWS]]
+            extra = torch.randint(0, n, (MESH_GRAD_ROWS,), generator=gen,
+                                  device="cuda")
+            rows[k] = torch.unique(torch.cat([hit, extra]))
+        return rows[k]
+
+    def sample(grads):
+        out = {}
+        for k, g in grads.items():
+            shape = g.shape
+            if len(shape) == 2 and shape[0] >= 1 << 16:
+                r = pick(k, shape[0])
+                if isinstance(g, BlockSharded) and g.dim == 0 and \
+                        g.dim2 is None:
+                    per, parts = shape[0] // len(g.shards), []
+                    for i, s in enumerate(g.shards):
+                        m = (r >= i * per) & (r < (i + 1) * per)
+                        parts.append(s[r[m] - i * per].float())
+                    out[k] = torch.cat(parts)
+                else:
+                    out[k] = whole(g)[r].float()
+            else:
+                out[k] = whole(g).float().clone()
+        return out
+
+    return sample
+
+
+def _train_rel(losses, norms, s_losses, s_norms) -> dict:
+    """The worst relative differences of the steps' losses and grad norms
+    against one device's from the same state."""
+    def worst(x, y):
+        return max(abs(a - b) / abs(b) for a, b in zip(x, y))
+
+    return {"loss": worst(losses, s_losses),
+            "grad_norm": worst(norms, s_norms)}
+
+
+def _train_held(rel: dict) -> bool:
+    return (rel["loss"] <= MESH_TRAIN_RTOL
+            and rel["grad_norm"] <= MESH_TRAIN_RTOL)
+
+
+def mesh_train(np, torch, arch: str, mesh_shape: tuple, args, *,
+               replay: bool) -> dict:
+    """The full-width train cell of ``arch`` (65,536 rows, microbatch 1)
+    over ``make_mesh(mesh_shape)`` through ``jit_train_step``: each step's
+    rows split over the data positions and its loss reduced across them,
+    the rule's tables and MLPs split over ``model``. First the
+    single-device step from the same seed and batch (ms a step, peak
+    bytes, the first step's loss, grad norm and sampled gradients; its
+    state then freed: two two-tower states do not fit together), then the
+    mesh's MESH_TRAIN_STEPS steps, each later one preceded by the single
+    device's loss, grad norm and sampled gradients on the state the
+    mesh's previous step left (``_single_at``): every step held against
+    one device from the same state by ``_train_held`` and within
+    MESH_GRAD_RTOL; with ``replay``, the mesh steps again from a fresh
+    state of the seed, bit for bit."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models import recsys, registry
+    from repro_torch.train import OptimizerConfig, init_train_state
+    from repro_torch.train import jit_train_step
+
+    n = mesh_shape[0]
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    cfg = registry.resolve_config(arch, "train_batch")
+    shape = RECSYS_SHAPES["train_batch"]
+    B = shape.dims["batch"]
+    batch = registry.recsys_batch_for(cfg, shape, np.random.default_rng(
+        args.seed + 3), device="cuda")
+    opt = OptimizerConfig(peak_lr=RECSYS_PEAK_LR[cfg.kind], warmup_steps=1,
+                          total_steps=MESH_TRAIN_STEPS)
+    sample = _grad_sample(torch, cfg, batch, args.seed + 17)
+
+    def cell():
+        return registry.build_cell(arch, "train_batch", mesh_dp=n,
+                                   opt_cfg=opt)
+
+    def run(step_fn, clock=None, before=None):
+        state = init_train_state(recsys.init_params(cfg, seed=args.seed,
+                                                    device="cuda"))
+        losses, norms, times, peak = [], [], [], 0
+        for i in range(MESH_TRAIN_STEPS):
+            if before is not None and i:
+                before(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            t = clock.step_ms() if clock is not None else {}
+            t["call"] = start.elapsed_time(end)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append({k: round(v, 3) for k, v in t.items()})
+        digests = _leaf_digests(torch, state) if replay else None
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, norms, times, peak, digests
+
+    g_one, g_mesh, at = {}, [], []
+    with _deterministic(torch):
+        one = _grads_at_finish(cell().fn, lambda g: g_one.update(sample(g)))
+        s_losses, s_norms, s_times, s_peak, _ = run(one)
+        single = cell().fn
+        c = cell()
+        step = jit_train_step(c.fn, in_shardings=c.in_shardings(mesh))
+        step.on_phase = clock = _PhaseClock(torch)
+        losses, norms, times, peak, digests = run(
+            _grads_at_finish(step, lambda g: g_mesh.append(sample(g)),
+                             every=True), clock,
+            lambda state: at.append(_single_at(torch, single, state, batch,
+                                               sample)))
+        if replay:
+            c = cell()
+            r_losses, r_norms, _, _, r_digests = run(jit_train_step(
+                c.fn, in_shardings=c.in_shardings(mesh)))
+    want_losses = s_losses[:1] + [a[0] for a in at]
+    want_norms = s_norms[:1] + [a[1] for a in at]
+    rel = _train_rel(losses, norms, want_losses, want_norms)
+    if not all(np.isfinite(losses + norms)) or not _train_held(rel):
+        die(f"mesh_cells {arch} over {mesh_shape}: losses {losses} vs "
+            f"{want_losses}, grad norms {norms} vs {want_norms}: {rel} "
+            f"beyond {MESH_TRAIN_RTOL}")
+    g_rel = [_rel_l2(g, w) for g, w in zip(g_mesh, [g_one] + [
+        a[2] for a in at])]
+    worst = max(((t, k) for t, r in enumerate(g_rel) for k in r),
+                key=lambda tk: g_rel[tk[0]][tk[1]])
+    if g_rel[worst[0]][worst[1]] > MESH_GRAD_RTOL:
+        die(f"mesh_cells {arch} over {mesh_shape}: step {worst[0] + 1}'s "
+            f"gradient {worst[1]} {g_rel[worst[0]][worst[1]]} > "
+            f"{MESH_GRAD_RTOL} of the single device's")
+    rec = {"arch": arch, "mesh": mesh.shape, "batch": B, "microbatch": 1,
+           "rows_per_position": B // n, "steps": MESH_TRAIN_STEPS,
+           "split": step.split, "model_parallel": step.tp,
+           "split_leaves": {k: str(s) for k, s in c.arg_specs[0][
+               "params"].items() if any(e is not None for e in s)},
+           "losses": losses, "grad_norms": norms,
+           "single_device_from_same_state": {"losses": want_losses,
+                                             "grad_norms": want_norms},
+           "rel_to_single": rel,
+           "grad_rel_l2_max": {"step": worst[0] + 1, "leaf": worst[1],
+                               "value": g_rel[worst[0]][worst[1]]},
+           "grad_rows_sampled": {k: int(v.shape[0]) for k, v in
+                                 g_one.items() if v.dim() == 2},
+           "ms_per_step": times, "peak_device_bytes": peak,
+           "single_device": {"ms_per_step": s_times, "losses": s_losses,
+                             "grad_norms": s_norms,
+                             "peak_device_bytes": s_peak}}
+    if replay:
+        if (r_losses, r_norms) != (losses, norms) or r_digests != digests:
+            bad = sorted(k for k in digests if r_digests.get(k)
+                         != digests[k])
+            die(f"mesh_cells {arch} over {mesh_shape}: the replay differs: "
+                f"losses {r_losses} vs {losses}, leaves {bad[:6]}")
+        rec["replay_equal"] = True
+    del batch, g_one, g_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_serve(np, torch, arch: str, args, counters) -> dict:
+    """``serve_p99`` (512 rows) and ``retrieval_cand`` (2^20 vbyte
+    candidates) of ``arch`` at full width over ``make_mesh(MESH_SERVE)``
+    through ``registry.run_cell`` (the serving rule: the item table split
+    by rows, BST's MLP by columns and rows), against the cell's function
+    on one device: SASRec's scores and ids bit for bit, BST's scores
+    within MESH_SERVE_RTOL of the largest and its ids equal; retrieval
+    launches one kernel a shard a request (kernel 2's ``dot_score`` or
+    kernel 1), counted exactly; ms beside the single device's."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import whole
+    from repro_torch.models import recsys, registry
+
+    mesh = make_mesh(MESH_SERVE, ("data", "model"))
+    shards = mesh.size
+    cfg = registry.resolve_config(arch, "serve_p99")
+    params = recsys.init_params(cfg, seed=args.seed, device="cuda")
+    rng = np.random.default_rng(args.seed + 13)
+    dot = cfg.kind in ("sasrec", "bert4rec")
+    rec = {"arch": arch, "mesh": mesh.shape}
+
+    def timed(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(MESH_SERVE_CALLS):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(ms))
+
+    def hold(what, got, want):
+        if dot:
+            ok = torch.equal(got, want)
+            err = float((got.float() - want.float()).abs().max())
+        else:
+            err = float((got.float() - want.float()).abs().max()
+                        / want.float().abs().max())
+            ok = err <= MESH_SERVE_RTOL
+        rec.setdefault("held", {})[what] = err
+        if not ok:
+            die(f"mesh_cells {arch} {what}: {err} from the single device's "
+                f"({'bit for bit' if dot else MESH_SERVE_RTOL})")
+
+    with torch.inference_mode():
+        cell = registry.build_cell(arch, "serve_p99", mesh_dp=1)
+        batch = registry.recsys_batch_for(cfg, RECSYS_SHAPES["serve_p99"],
+                                          rng, device="cuda")
+        (out, placed), ms = timed(lambda: registry.run_cell(
+            cell, mesh, params, batch))
+        want, s_ms = timed(lambda: cell.fn(params, batch))
+        hold("serve_p99 scores", whole(out), want)
+        rec["serve_p99"] = {"batch": int(batch["hist"].shape[0]), "ms": ms,
+                            "single_device_ms": s_ms,
+                            "split_leaves": sorted(
+                                k for k, v in placed.leaves.items()
+                                if type(v).__name__ == "BlockSharded")}
+        del out, placed, want
+        cell = registry.build_cell(arch, "retrieval_cand", mesh_dp=1)
+        batch = registry.recsys_batch_for(
+            cfg, RECSYS_SHAPES["retrieval_cand"], rng, device="cuda")
+        arr = batch["cands"]
+        before = _read(torch, counters)
+        got, placed = registry.run_cell(cell, mesh, params, batch)
+        after = _read(torch, counters)
+        per = {"vbyte_decode_blocked": after["vbyte_decode_blocked"]
+               - before["vbyte_decode_blocked"],
+               "vbyte/dot_score": after["fused_decode_by"].get(
+                   "vbyte/dot_score", 0) - before["fused_decode_by"].get(
+                   "vbyte/dot_score", 0)}
+        want_per = ({"vbyte_decode_blocked": 0, "vbyte/dot_score": shards}
+                    if dot else {"vbyte_decode_blocked": shards,
+                                 "vbyte/dot_score": 0})
+        if per != want_per:
+            die(f"mesh_cells {arch} retrieval: launches a request {per}, "
+                f"expected {want_per} (one a shard)")
+        (got, _), ms = timed(lambda: registry.run_cell(cell, mesh, placed,
+                                                       batch))
+        want, s_ms = timed(lambda: cell.fn(params, batch))
+        scores, (top_s, top_i) = got
+        w_scores, (w_top_s, w_top_i) = want
+        hold("retrieval scores", scores, w_scores)
+        hold("retrieval top scores", top_s, w_top_s)
+        ids_equal = bool(torch.equal(top_i, w_top_i))
+        if dot and not ids_equal:
+            die(f"mesh_cells {arch} retrieval: top ids differ")
+        table = (cfg.vocab_rows * cfg.embed_dim * 2) if dot else 0
+        rec["retrieval_cand"] = {
+            "n_candidates": arr.n, "n_blocks": arr.n_blocks,
+            "shards": shards, "launches_per_request": per,
+            "ms_per_request": ms, "single_device_ms_per_request": s_ms,
+            "top100_ids_equal": ids_equal,
+            "top100_overlap": len(set(top_i.tolist())
+                                  & set(w_top_i.tolist())),
+            # kernel 2 reads one whole bf16 table: a copy on each distinct
+            # device of the mesh (one here, 4 logical shards of one card)
+            "dot_table_bytes_per_card": table,
+            "table_copies": len(set(map(str, mesh.devices.flat)))
+            if dot else 0}
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_mesh_cells(np, torch, args) -> dict:
+    """Path ``mesh_cells``: ``dp_train`` (SASRec and two-tower over
+    MESH_DP), ``mp_recsys_train`` (BST and two-tower over MESH_MP, with a
+    replay) and ``mp_recsys_serve`` (SASRec and BST over MESH_SERVE);
+    every launch count set to 0 just before the path and read just after
+    (training launches none; retrieval one a shard a request over the
+    mesh, one a request on the single device)."""
+    t_path = time.perf_counter()
+    counters = _launch_counters()
+    _reset(torch, counters)
+    phases, out = {}, {"dp_train": {}, "mp_recsys_train": {},
+                       "mp_recsys_serve": {}}
+    for arch in ("sasrec", "two-tower-retrieval"):
+        t0 = time.perf_counter()
+        out["dp_train"][arch] = rec = mesh_train(np, torch, arch, MESH_DP,
+                                                 args, replay=False)
+        emit("dp_train", **rec)
+        phases[f"dp_train/{arch}"] = time.perf_counter() - t0
+    for arch in ("bst", "two-tower-retrieval"):
+        t0 = time.perf_counter()
+        out["mp_recsys_train"][arch] = rec = mesh_train(
+            np, torch, arch, MESH_MP, args, replay=True)
+        emit("mp_recsys_train", **rec)
+        phases[f"mp_recsys_train/{arch}"] = time.perf_counter() - t0
+    for arch in ("sasrec", "bst"):
+        t0 = time.perf_counter()
+        out["mp_recsys_serve"][arch] = rec = mesh_serve(np, torch, arch,
+                                                        args, counters)
+        emit("mp_recsys_serve", **rec)
+        phases[f"mp_recsys_serve/{arch}"] = time.perf_counter() - t0
+    launches = _read(torch, counters)
+    # each retrieval cell: 1 + MESH_SERVE_CALLS + 1 mesh requests (the
+    # counted one, the warm-up, the timed ones), then 1 + MESH_SERVE_CALLS
+    # single-device ones
+    shards = MESH_SERVE[0] * MESH_SERVE[1]
+    mesh_req, one_req = 2 + MESH_SERVE_CALLS, 1 + MESH_SERVE_CALLS
+    per_cell = shards * mesh_req + one_req
+    want = dict.fromkeys(counters, 0)
+    want.update(vbyte_decode_blocked=per_cell, fused_decode=per_cell)
+    if {k: launches[k] for k in counters} != want or launches[
+            "fused_decode_by"] != {"vbyte/dot_score": per_cell}:
+        die(f"mesh_cells: launches {launches}, expected {want}")
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="mesh_cells", seconds=round(seconds, 3),
+         phase_seconds={k: round(v, 3) for k, v in phases.items()},
+         launches=launches)
+    return {"launches": launches, "seconds": seconds, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -5847,12 +6390,14 @@ def main(argv=None) -> int:
     paths["lm"] = run_lm(np, torch, args)
     paths["sharded_train"] = run_sharded_train(np, torch, args, paths["lm"])
     paths["model_parallel"] = run_model_parallel(np, torch, args)
+    paths["mesh_cells"] = run_mesh_cells(np, torch, args)
     paths["sharded"] = run_sharded(np, torch, args, search)
     del search  # the search indexes leave the card
     gc.collect()
     torch.cuda.empty_cache()
     paths["gin"] = run_gin(np, torch, args)
     paths["gin_train"] = paths["gin"].pop("train")
+    paths["gin_mesh"] = paths["gin"].pop("mesh")
     emit("done", seconds=round(time.perf_counter() - t_start, 3),
          path_seconds={k: round(v["seconds"], 3) for k, v in paths.items()})
     print(card, flush=True)

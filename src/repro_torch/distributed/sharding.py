@@ -31,9 +31,9 @@ along one of its splits. A :class:`Replicated` is one tensor with a copy
 on each distinct device of a mesh (an embedding table the per-shard
 epilogues read; a parameter the data-parallel replicas share), made by
 :func:`replicate`. The model code computes over the ``model`` axis
-(``distributed/tensor_parallel.py``) for the LM family; the recsys rule's
-``model`` splits are refused where a step or a cell would compute over
-them (``RECSYS_TP_MISSING``).
+(``distributed/tensor_parallel.py``): the LM rule's splits and the recsys
+rule's (row- or column-split tables, the MLPs' alternating column / row
+splits); GIN replicates every leaf.
 """
 from __future__ import annotations
 
@@ -48,18 +48,6 @@ from .api import Mesh, NamedSharding, _resolve_axes, resolved_spec
 DP = ("pod", "data")
 TP = "model"
 ALL = ("pod", "data", "model")
-RECSYS_TP_MISSING = ("the recsys rule's 'model' splits (row-split tables "
-                     "of at least 2^16 rows, the alternating column / row "
-                     "splits of its MLP layers) are not computed over a "
-                     "'model' axis larger than 1 (ROADMAP.md queue 1 item "
-                     "13, what is left: 1b)")
-DP_MISSING = ("a step over a mesh deals the single-device step's own "
-              "microbatches out whole, the same count to each data "
-              "position; a step whose loss would be reduced across "
-              "positions (masked means, the two-tower in-batch softmax, a "
-              "full graph: the recsys and GNN train cells, at microbatch "
-              "1) is not ported (ROADMAP.md queue 1 item 13, what is "
-              "left: 3)")
 # leaves with a trailing byte dimension; counts and bases are [n_blocks]
 _BYTE_LEAVES = ("payload", "control", "data", "widths")
 

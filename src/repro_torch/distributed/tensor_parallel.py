@@ -24,7 +24,9 @@ The functions here work on the position slices of one leaf
   rounded to the compute dtype once (:func:`reduce_sum`);
 * :func:`vocab_embedding` — each position looks up the ids in its row
   range and leaves zeros elsewhere; the rows are summed (one of them is
-  not zero, so the sum is exact);
+  not zero, so the sum is exact); :func:`lookup` takes a table split by
+  rows or by columns (the recsys tables);
+* :func:`mlp` — a recsys MLP's alternating column / row splits;
 * :func:`vocab_logsumexp` — the logsumexp over the positions' logit
   slices, and the target's logit read from the position that owns it.
 
@@ -40,9 +42,6 @@ import torch
 from repro_torch.nn.layers import DEFAULT_COMPUTE_DTYPE, dense
 
 MODEL = "model"
-# the leaves only the LM family has: a step or a serving cell computes
-# over ``model`` only for a model with them
-LM_LEAVES = ("embed/emb", "lm_head/w")
 
 
 @dataclass(frozen=True)
@@ -135,12 +134,6 @@ def data_rows(mesh) -> list[tuple]:
     return [grid[i:i + k] for i in range(0, len(grid), k)]
 
 
-def is_lm(paths) -> bool:
-    """Whether ``paths`` (a model's leaf paths) are the LM family's."""
-    paths = set(paths)
-    return all(p in paths for p in LM_LEAVES)
-
-
 class _WideProduct(torch.autograd.Function):
     """``x [..., K] · w [K, N]`` of bf16 / fp16 operands on the card with a
     float32 result: the tensor cores' product (float32 sums), no rounding
@@ -230,6 +223,57 @@ def vocab_embedding(emb: Slices, ids: torch.Tensor, *, home,
         outs.append(rows * mask[..., None].to(rows.dtype))
         lo += n
     return reduce_sum(outs, home).to(dtype)
+
+
+def lookup(table: Slices, ids: torch.Tensor, *, home,
+           dtype=DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
+    """``table[ids]`` in ``dtype`` at ``home`` over a table split over the
+    positions: by rows (:func:`vocab_embedding`), or by columns (each
+    position looks every id up in its columns; the columns joined). Either
+    way each value is the single-device lookup's."""
+    if table.dim == 0:
+        return vocab_embedding(table, ids, home=home, dtype=dtype)
+    if table.dim != table.parts[0].dim() - 1:
+        raise ValueError(f"a table split along dimension {table.dim}")
+    return gather([torch.nn.functional.embedding(
+        ids.to(e.device, torch.int64), e).to(dtype) for e in table.parts],
+        -1, home)
+
+
+def mlp(layers, x: torch.Tensor, *, home, act=torch.relu,
+        dtype=DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
+    """``nn.layers.mlp`` (``layers.w``, ``layers.b``) over the positions:
+    a layer whose weight splits its columns runs :func:`column_dense`
+    (its bias split alike, the activation on each position's columns), one
+    whose weight splits its rows :func:`row_dense` on the previous
+    layer's column slices (its bias whole, added at home), a whole weight
+    a plain product at home. Column slices are joined (:func:`gather`)
+    before a whole layer and at the end. The activation follows every
+    layer but the last."""
+    n, xs = len(layers.w), None
+    for i, (w, b) in enumerate(zip(layers.w, layers.b)):
+        apply_act = i < n - 1
+        if isinstance(w, Slices) and w.dim == 0:
+            if xs is None:
+                xs = scatter(x, [p.device for p in w.parts], x.dim() - 1)
+            x, xs = row_dense(xs, w, home=home, dtype=dtype) + b.to(dtype), None
+        elif isinstance(w, Slices):
+            if xs is not None:
+                x, xs = gather(xs, -1, home), None
+            bs = b.parts if isinstance(b, Slices) else scatter(
+                b, [p.device for p in w.parts], 0)
+            xs = [y + bp.to(dtype) for y, bp in zip(
+                column_dense(x, w, dtype=dtype), bs)]
+            if apply_act:
+                xs = [act(y) for y in xs]
+            continue
+        else:
+            if xs is not None:
+                x, xs = gather(xs, -1, home), None
+            x = x.to(dtype) @ w.to(dtype) + b.to(dtype)
+        if apply_act:
+            x = act(x)
+    return gather(xs, -1, home) if xs is not None else x
 
 
 def vocab_logsumexp(logits: list, targets: torch.Tensor, *,

@@ -27,9 +27,12 @@ first shape at the mesh's data-parallel degree, and trains through
 ``train.jit_train_step`` with the registry's state specs
 (``build_cell``): on one card the one-position mesh, which gives the
 single-device step. Over more cards the step deals its own microbatches
-out whole, so the cards must divide their count: the LM configs' 4 or
-8 over up to 4 cards; the recsys and GNN cells' 1 raises (a loss reduced
-across cards is not ported: ROADMAP queue 1 item 13, left 3). The batch is the one that shape names: for an LM,
+out whole where the cards divide their count (the LM configs' 4 or 8
+over up to 4 cards), and otherwise splits each microbatch's rows over
+the cards and reduces its loss across them (the recsys and GNN cells'
+microbatch of 1: masked means, the two-tower in-batch softmax, a graph
+whose node rows and edges split over every card). The batch is the one
+that shape names: for an LM,
 ``train_4k``'s 4,096 tokens a row at ``LM_TRAIN_ROWS`` rows (cut from
 the shape's 256, which one card does not hold), in the config's
 microbatches, from the same pipeline; for gin-tu, ``full_graph_sm``'s

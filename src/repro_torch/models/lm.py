@@ -328,12 +328,57 @@ def loss_fn(params: LM, batch, cfg: LMConfig, *,
     """batch: ``{"tokens": [B, S+1] int32}``. Mean next-token
     cross-entropy (plus the MoE load-balance term): the head and a float32
     logsumexp over ``loss_chunk`` positions at a time, the chunks' sums
-    added in order, as the reference's scan adds them."""
-    tokens = batch["tokens"]
-    inputs, targets = tokens[:, :-1], tokens[:, 1:].to(torch.int64)
-    hidden, aux, _ = forward(params, inputs, cfg, dtype=dtype)
-    B, S, d = hidden.shape
+    added in order, as the reference's scan adds them.
 
+    ``params`` may be a ``data_parallel.RowSplit`` with ``batch`` its
+    positions' parts (one device's batch is the one-position case): each
+    position's forward over its rows (an MoE config's dispatch groups
+    divided among them, as its batch-sharded groups lie), each chunk's
+    token terms joined at home in position order and summed as one device
+    sums them; the MoE terms from every position's routing
+    (``moe.aux_of``)."""
+    import dataclasses
+
+    from repro_torch.distributed.data_parallel import RowSplit
+
+    split, parts = ((params, batch) if isinstance(params, RowSplit) else
+                    (RowSplit.one(params, batch), [batch]))
+    n = split.n
+    B = sum(b["tokens"].shape[0] for b in parts)
+    S = parts[0]["tokens"].shape[1] - 1
+    if cfg.moe:
+        G = cfg.moe.dispatch_groups if (B * S) % cfg.moe.dispatch_groups \
+            == 0 else 1
+        if G % n:
+            raise ValueError(f"{G} MoE dispatch groups do not split over "
+                             f"{n} positions")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch_groups=G // n))
+    terms, routes = [], []
+    for params, b in zip(split.replicas, parts):
+        tokens = b["tokens"]
+        with moe_lib.record_routes() as seen:
+            hidden, aux, _ = forward(params, tokens[:, :-1], cfg, dtype=dtype)
+        terms.append(_token_terms(params, hidden, tokens[:, 1:].to(
+            torch.int64), cfg, dtype))
+        routes.append(seen)
+    total = torch.zeros((), dtype=torch.float32, device=split.home)
+    for chunk in zip(*terms):
+        total = total + torch.sum(split.gather(list(chunk)))
+    loss = total / (B * S)
+    if cfg.moe:  # a dense model's are zeros (the last position's)
+        layers = [moe_lib.aux_of(list(r), top_k=cfg.moe.top_k,
+                                 home=split.home) for r in zip(*routes)]
+        aux = {k: torch.stack([a[k] for a in layers]).mean()
+               for k in layers[0]}
+        loss = loss + cfg.moe.aux_loss_coef * aux["moe_aux_loss"]
+    return loss, aux
+
+
+def _token_terms(params, hidden, targets, cfg: LMConfig, dtype) -> list:
+    """``logsumexp − target logit`` (float32 ``[B, c]``) of each
+    ``loss_chunk`` of the sequence, in order."""
+    B, S, _ = hidden.shape
     n_chunks = max(1, S // cfg.loss_chunk) if S % cfg.loss_chunk == 0 else 1
     c = S // n_chunks
     mp = isinstance(params, tp.ModelParallel)
@@ -341,7 +386,7 @@ def loss_fn(params: LM, batch, cfg: LMConfig, *,
         heads = [w.to(dtype) for w in params.view("lm_head/w").parts]
     else:
         head = params.lm_head.to(dtype)
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    out = []
     for i in range(n_chunks):
         h, t = hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c]
         if mp:
@@ -353,11 +398,8 @@ def loss_fn(params: LM, batch, cfg: LMConfig, *,
             logits = (h.to(dtype) @ head).to(torch.float32)  # [B, c, V]
             lse = torch.logsumexp(logits, dim=-1)
             true = torch.gather(logits, -1, t[..., None])[..., 0]
-        total = total + torch.sum(lse - true)
-    loss = total / (B * S)
-    if cfg.moe:
-        loss = loss + cfg.moe.aux_loss_coef * aux["moe_aux_loss"]
-    return loss, aux
+        out.append(lse - true)
+    return out
 
 
 # ----------------------------------------------------------------------------

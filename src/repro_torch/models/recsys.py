@@ -23,6 +23,7 @@ never exist at once).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any
 
 import torch
@@ -31,6 +32,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn.embedding_bag import bag_from_padded
@@ -246,7 +248,7 @@ def _seq_repr(params: SeqRec, hist, cfg: RecSysConfig, *, causal: bool,
               dtype, remat: bool = False):
     """hist [B, L] -> hidden [B, L, d] with positional embeddings."""
     L = hist.shape[1]
-    x = nnl.embedding_lookup(params.item_emb, hist, dtype=dtype)
+    x = _lookup(params, params.item_emb, hist, dtype)
     pos = torch.arange(L, dtype=torch.int32, device=hist.device)[None]
     x = x + nnl.embedding_lookup(params.pos_emb, pos, dtype=dtype)
     x = _encode_seq(params.blocks, x, cfg, causal=causal, dtype=dtype,
@@ -257,8 +259,65 @@ def _seq_repr(params: SeqRec, hist, cfg: RecSysConfig, *, causal: bool,
 def _item_scores(params: SeqRec, h, item_ids, dtype):
     """h [..., d] · emb[item_ids] [..., C, d] -> [..., C] (dot-product head),
     float32 products and sums."""
-    vecs = nnl.embedding_lookup(params.item_emb, item_ids, dtype=dtype)
+    vecs = _lookup(params, params.item_emb, item_ids, dtype)
     return accum_matmul("...d,...cd->...c", h, vecs)
+
+
+def view(params):
+    """``params`` as the model code reads them: a model as it is; a
+    ``tensor_parallel.ModelParallel`` (one data position's copy over the
+    ``model`` axis) as the same attributes, each leaf a tensor at its home
+    or its ``tensor_parallel.Slices``, and ``home``."""
+    from repro_torch.distributed.tensor_parallel import ModelParallel
+
+    if not isinstance(params, ModelParallel):
+        return params
+    v, paths = params.view, params.leaves
+
+    def ln(prefix):
+        return SimpleNamespace(scale=v(f"{prefix}/scale"),
+                               bias=v(f"{prefix}/bias"))
+
+    def mlp(prefix):
+        n = sum(1 for k in paths if k.startswith(f"{prefix}/layer_")
+                and k.endswith("/w"))
+        return SimpleNamespace(w=[v(f"{prefix}/layer_{i}/w") for i in range(n)],
+                               b=[v(f"{prefix}/layer_{i}/b") for i in range(n)])
+
+    if "user_emb/emb" in paths:
+        return SimpleNamespace(
+            home=params.home, user_emb=v("user_emb/emb"),
+            item_id_emb=v("item_id_emb/emb"), user_mlp=mlp("user_mlp"),
+            item_mlp=mlp("item_mlp"))
+    n_blocks = len({k.split("/")[1] for k in paths if k.startswith("blocks/")})
+    blocks = []
+    for i in range(n_blocks):
+        b = f"blocks/block_{i}"
+        blocks.append(SimpleNamespace(
+            ln1=ln(f"{b}/ln1"), ln2=ln(f"{b}/ln2"),
+            **{w: v(f"{b}/attn/{w}/w") for w in ("wq", "wk", "wv", "wo")},
+            w1=v(f"{b}/ffn/w1/w"), b1=v(f"{b}/ffn/w1/b"),
+            w2=v(f"{b}/ffn/w2/w"), b2=v(f"{b}/ffn/w2/b")))
+    return SimpleNamespace(
+        home=params.home, item_emb=v("item_emb/emb"), pos_emb=v("pos_emb/emb"),
+        blocks=blocks, final_ln=ln("final_ln"),
+        mlp=mlp("mlp") if any(k.startswith("mlp/") for k in paths) else None)
+
+
+def _lookup(params, table, ids, dtype):
+    """``table[ids]`` in ``dtype``: a table split over ``model`` looked up
+    where its slices lie (``tensor_parallel.lookup``)."""
+    if isinstance(table, tp.Slices):
+        return tp.lookup(table, ids, home=params.home, dtype=dtype)
+    return nnl.embedding_lookup(table, ids, dtype=dtype)
+
+
+def _mlp(params, layers, x, *, act=torch.relu, dtype):
+    """``nn.layers.mlp``, or ``tensor_parallel.mlp`` where a layer is split
+    over ``model``."""
+    if any(isinstance(w, tp.Slices) for w in layers.w):
+        return tp.mlp(layers, x, home=params.home, act=act, dtype=dtype)
+    return nnl.mlp(layers, x, act=act, dtype=dtype)
 
 
 def _leaky_relu(x):
@@ -274,18 +333,32 @@ def loss_fn(params, batch, cfg: RecSysConfig, *,
             dtype=nnl.DEFAULT_COMPUTE_DTYPE):
     """``(loss, aux)`` of a train batch (``data.synthetic.recsys_batch``'s
     leaves as tensors), computed as :func:`train_options` picks for its
-    size (the same function either way)."""
-    rows = next(iter(batch.values())).shape[0]
+    size (the same function either way). ``params`` may be a
+    ``ModelParallel`` (the rule's splits over ``model``), or a
+    ``data_parallel.RowSplit`` with ``batch`` its positions' parts: each
+    position's per-row terms, joined at home in position order, reduced
+    once, as one batch's (one device's batch is the one-position case).
+    The two-tower softmax reads every position's item vectors
+    (:func:`_two_tower_loss`)."""
+    split, parts = _positions(params, batch)
+    rows = sum(next(iter(b.values())).shape[0] for b in parts)
     opts = train_options(cfg, rows)
-    if cfg.kind == "sasrec":
-        return _sasrec_loss(params, batch, cfg, dtype, opts["remat"])
-    if cfg.kind == "bert4rec":
-        return _bert4rec_loss(params, batch, cfg, dtype, opts["remat"])
-    if cfg.kind == "bst":
-        return _bst_loss(params, batch, cfg, dtype, opts["remat"])
     if cfg.kind == "two_tower":
-        return _two_tower_loss(params, batch, cfg, dtype, opts["loss_chunk"])
-    raise ValueError(cfg.kind)
+        return _two_tower_loss(split, parts, cfg, dtype, opts["loss_chunk"])
+    terms = [_loss_terms(view(r), b, cfg, dtype, opts["remat"])
+             for r, b in zip(split.replicas, parts)]
+    return _reduce(cfg.kind, {k: split.gather([t[k] for t in terms])
+                              for k in terms[0]})
+
+
+def _positions(params, batch):
+    """``(RowSplit, parts)``: a ``RowSplit`` and its parts as given, or one
+    device's parameters and batch as one position."""
+    from repro_torch.distributed.data_parallel import RowSplit
+
+    if isinstance(params, RowSplit):
+        return params, batch
+    return RowSplit.one(params, batch), [batch]
 
 
 def train_options(cfg: RecSysConfig, batch: int) -> dict:
@@ -302,8 +375,45 @@ def train_options(cfg: RecSysConfig, batch: int) -> dict:
     return {"remat": acts > 16e9}
 
 
+def _loss_terms(params, batch, cfg, dtype, remat=False) -> dict:
+    """The per-row terms of a SASRec, BERT4Rec or BST loss (:func:`_reduce`
+    reduces them)."""
+    if cfg.kind == "sasrec":
+        return _sasrec_terms(params, batch, cfg, dtype, remat)
+    if cfg.kind == "bert4rec":
+        return _bert4rec_terms(params, batch, cfg, dtype, remat)
+    if cfg.kind == "bst":
+        return _bst_terms(params, batch, cfg, dtype, remat)
+    raise ValueError(cfg.kind)
+
+
+def _reduce(kind: str, t: dict):
+    """``(loss, aux)`` from a whole batch's per-row terms: the masked means
+    divide by the valid count, BST's plain means by the rows."""
+    if kind == "bst":
+        return -torch.mean(t["ll"]), {"accuracy": torch.mean(t["acc"])}
+    n = torch.clamp(t["valid"].sum(), min=1)
+    if kind == "sasrec":
+        return -t["ll"].sum() / n, {"pairwise_acc": t["hit"].sum() / n}
+    return t["nll"].sum() / n, {"hit_at_1": t["hit"].sum() / n}
+
+
 def _sasrec_loss(params, batch, cfg, dtype, remat=False):
-    """Next-item binary CE with one sampled negative per step (SASRec §3.5)."""
+    return _reduce("sasrec", _sasrec_terms(params, batch, cfg, dtype, remat))
+
+
+def _bert4rec_loss(params, batch, cfg, dtype, remat=False):
+    return _reduce("bert4rec", _bert4rec_terms(params, batch, cfg, dtype,
+                                               remat))
+
+
+def _bst_loss(params, batch, cfg, dtype, remat=False):
+    return _reduce("bst", _bst_terms(params, batch, cfg, dtype, remat))
+
+
+def _sasrec_terms(params, batch, cfg, dtype, remat=False):
+    """Next-item binary CE with one sampled negative per step (SASRec
+    §3.5)."""
     hist = batch["hist"]  # [B, L+1]
     neg = batch["neg"]  # [B, L]
     inputs, pos = hist[:, :-1], hist[:, 1:]
@@ -311,14 +421,13 @@ def _sasrec_loss(params, batch, cfg, dtype, remat=False):
     pos_s = _item_scores(params, h, pos[..., None], dtype)[..., 0]
     neg_s = _item_scores(params, h, neg[..., None], dtype)[..., 0]
     valid = pos != 0
-    n = torch.clamp(valid.sum(), min=1)
     lp = F.logsigmoid(pos_s)
     ln = F.logsigmoid(-neg_s)
-    loss = -torch.where(valid, lp + ln, 0.0).sum() / n
-    return loss, {"pairwise_acc": (valid & (pos_s > neg_s)).sum() / n}
+    return {"ll": torch.where(valid, lp + ln, 0.0), "valid": valid,
+            "hit": valid & (pos_s > neg_s)}
 
 
-def _bert4rec_loss(params, batch, cfg, dtype, remat=False):
+def _bert4rec_terms(params, batch, cfg, dtype, remat=False):
     """Masked-item sampled softmax with shared negatives (+ target in slot
     0)."""
     hist = batch["hist"]  # [B, L] with [MASK]=n_items+1 at masked slots
@@ -329,28 +438,26 @@ def _bert4rec_loss(params, batch, cfg, dtype, remat=False):
     idx = mask_pos.to(torch.int64)[..., None].expand(-1, -1, h.shape[-1])
     hm = torch.gather(h, 1, idx)  # [B, M, d]
     pos_s = _item_scores(params, hm, targets[..., None], dtype)[..., 0]
-    neg_v = nnl.embedding_lookup(params.item_emb, negatives, dtype=dtype)
+    neg_v = _lookup(params, params.item_emb, negatives, dtype)
     neg_s = accum_matmul("bmd,nd->bmn", hm, neg_v)
     logits = torch.cat([pos_s[..., None], neg_s], dim=-1)  # [B, M, 1+N]
     del neg_s  # 8 GB at the train_batch shape; the backward needs neither
     valid = targets != 0
-    n = torch.clamp(valid.sum(), min=1)
     nll = torch.logsumexp(logits, dim=-1) - logits[..., 0]
-    loss = torch.where(valid, nll, 0.0).sum() / n
     hit = logits[..., 0] >= logits.amax(dim=-1)
-    return loss, {"hit_at_1": (valid & hit).sum() / n}
+    return {"nll": torch.where(valid, nll, 0.0), "valid": valid,
+            "hit": valid & hit}
 
 
-def _bst_loss(params, batch, cfg, dtype, remat=False):
+def _bst_terms(params, batch, cfg, dtype, remat=False):
     """CTR binary cross-entropy (BST: transformer over history + target
     item)."""
     logit = bst_forward(params, batch["hist"], batch["target"], cfg,
                         dtype=dtype, remat=remat)
     label = batch["label"].to(torch.float32)
-    loss = -torch.mean(label * F.logsigmoid(logit)
-                       + (1 - label) * F.logsigmoid(-logit))
-    acc = torch.mean(((logit > 0) == (label > 0.5)).to(torch.float32))
-    return loss, {"accuracy": acc}
+    return {"ll": label * F.logsigmoid(logit)
+            + (1 - label) * F.logsigmoid(-logit),
+            "acc": ((logit > 0) == (label > 0.5)).to(torch.float32)}
 
 
 def bst_forward(params: SeqRec, hist, target, cfg: RecSysConfig, *,
@@ -358,8 +465,8 @@ def bst_forward(params: SeqRec, hist, target, cfg: RecSysConfig, *,
     seq = torch.cat([hist, target[:, None].to(hist.dtype)], dim=1)  # [B, L+1]
     h = _seq_repr(params, seq, cfg, causal=False, dtype=dtype, remat=remat)
     flat = h.reshape(h.shape[0], -1)
-    return nnl.mlp(params.mlp, flat, act=_leaky_relu,
-                   dtype=dtype)[:, 0].to(torch.float32)
+    return _mlp(params, params.mlp, flat, act=_leaky_relu,
+                dtype=dtype)[:, 0].to(torch.float32)
 
 
 def _normalize(v, dtype):
@@ -369,10 +476,11 @@ def _normalize(v, dtype):
 
 def user_tower(params: TwoTower, user_id, hist, cfg: RecSysConfig, *,
                dtype=nnl.DEFAULT_COMPUTE_DTYPE):
-    u = nnl.embedding_lookup(params.user_emb, user_id, dtype=dtype)  # [B, id_dim]
-    bag = bag_from_padded(params.item_id_emb, hist, mode="mean", dtype=dtype)
+    u = _lookup(params, params.user_emb, user_id, dtype)  # [B, id_dim]
+    bag = bag_from_padded(params.item_id_emb, hist, mode="mean", dtype=dtype,
+                          home=getattr(params, "home", None))
     x = torch.cat([u, bag], dim=-1)
-    return _normalize(nnl.mlp(params.user_mlp, x, dtype=dtype), dtype)
+    return _normalize(_mlp(params, params.user_mlp, x, dtype=dtype), dtype)
 
 
 def user_tower_compressed(params: TwoTower, user_id, hists,
@@ -394,8 +502,8 @@ def user_tower_compressed(params: TwoTower, user_id, hists,
 
 def item_tower(params: TwoTower, item_ids, cfg: RecSysConfig, *,
                dtype=nnl.DEFAULT_COMPUTE_DTYPE):
-    x = nnl.embedding_lookup(params.item_id_emb, item_ids, dtype=dtype)
-    return _normalize(nnl.mlp(params.item_mlp, x, dtype=dtype), dtype)
+    x = _lookup(params, params.item_id_emb, item_ids, dtype)
+    return _normalize(_mlp(params, params.item_mlp, x, dtype=dtype), dtype)
 
 
 def item_table(params: TwoTower, cfg: RecSysConfig, *,
@@ -432,26 +540,49 @@ def _in_batch_rows(u, i, start: int):
             torch.argmax(logits, dim=-1) == start + rows)
 
 
+def _in_batch(u, i, start: int, loss_chunk=None):
+    """Rows ``start:start + len(u)`` of the in-batch softmax over the item
+    rows ``i`` (every row's), ``loss_chunk`` rows at a time when given
+    (``i`` then widened to float32, so that the chunks' gradients for it
+    add in float32 and round to the compute dtype once): ``(nll, hit)``."""
+    R = u.shape[0]
+    if loss_chunk is None:
+        return _in_batch_rows(u, i, start)
+    c = max(1, min(loss_chunk, R))
+    parts = [checkpoint(_in_batch_rows, u[s:s + c], i, start + s,
+                        use_reentrant=False) if torch.is_grad_enabled()
+             else _in_batch_rows(u[s:s + c], i, start + s)
+             for s in range(0, R, c)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _two_tower_reduce(nll, hit):
+    return nll.mean(), {"in_batch_top1": hit.to(torch.float32).mean()}
+
+
 def _two_tower_loss(params, batch, cfg, dtype, loss_chunk=None):
     """In-batch sampled softmax (Yi et al., RecSys'19), temperature-scaled;
-    ``loss_chunk`` rows at a time when given (the same function)."""
-    u = user_tower(params, batch["user_id"], batch["hist"], cfg, dtype=dtype)
-    i = item_tower(params, batch["item_id"], cfg, dtype=dtype)
-    B = u.shape[0]
-    c = B if loss_chunk is None else max(1, min(loss_chunk, B))
-    if c == B:
-        nll, hit = _in_batch_rows(u, i, 0)
-    else:
-        # the item rows go in widened, so the chunks' gradients for them
-        # add in float32 and round to the compute dtype once
-        iw = i.to(torch.float32)
-        parts = [checkpoint(_in_batch_rows, u[s:s + c], iw, s,
-                            use_reentrant=False) if torch.is_grad_enabled()
-                 else _in_batch_rows(u[s:s + c], iw, s)
-                 for s in range(0, B, c)]
-        nll = torch.cat([p[0] for p in parts])
-        hit = torch.cat([p[1] for p in parts])
-    return nll.mean(), {"in_batch_top1": hit.to(torch.float32).mean()}
+    ``loss_chunk`` rows at a time when given (the same function). Over a
+    ``RowSplit`` (``params``, with ``batch`` its parts) every row's logits
+    run over every position's item vectors (``RowSplit.share``)."""
+    split, parts = _positions(params, batch)
+    views = [view(r) for r in split.replicas]
+    us = [user_tower(v, b["user_id"], b["hist"], cfg, dtype=dtype)
+          for v, b in zip(views, parts)]
+    its = [item_tower(v, b["item_id"], cfg, dtype=dtype)
+           for v, b in zip(views, parts)]
+    rows = sum(u.shape[0] for u in us)
+    c = None if loss_chunk is None or loss_chunk >= rows else loss_chunk
+    if c is not None:  # widened, as the chunks take them
+        its = [i.to(torch.float32) for i in its]
+    items = split.share(its)
+    nll, hit, start = [], [], 0
+    for u, iw in zip(us, items):
+        a, b = _in_batch(u, iw, start, c)
+        nll.append(a)
+        hit.append(b)
+        start += u.shape[0]
+    return _two_tower_reduce(split.gather(nll), split.gather(hit))
 
 
 # ----------------------------------------------------------------------------
@@ -461,7 +592,9 @@ def serve_scores(params, batch, cfg: RecSysConfig, *,
                  dtype=nnl.DEFAULT_COMPUTE_DTYPE):
     """Online/bulk scoring against a candidate set (serve_p99 /
     serve_bulk): BST ``[B]`` CTR logits; else ``[B, C]`` scores of each
-    row's candidates (two-tower: one candidate list ``[C]`` for all)."""
+    row's candidates (two-tower: one candidate list ``[C]`` for all).
+    ``params`` may be a ``ModelParallel``: the serving rule's splits."""
+    params = view(params)
     if cfg.kind == "bst":
         return bst_forward(params, batch["hist"], batch["target"], cfg,
                            dtype=dtype)
@@ -488,51 +621,78 @@ BST_ROWS = 1 << 16  # candidates a BST ranker pass scores at once
 
 def retrieval_scores_compressed(params, batch, cfg: RecSysConfig, *,
                                 top_k: int = 100, plan="auto",
-                                dtype=nnl.DEFAULT_COMPUTE_DTYPE):
+                                dtype=nnl.DEFAULT_COMPUTE_DTYPE,
+                                score_fn=None):
     """retrieval_cand: score one query against a compressed candidate list.
 
     ``batch["cands"]`` is the sorted candidate ids as a
     ``CompressedIntArray`` (delta-coded, any format); ``batch["hist"]``
     ``[1, seq_len]`` and, for two-tower, ``batch["user_id"]`` ``[1]``. The
-    dot-product heads (SASRec, BERT4Rec) score in one pass of kernel 2's
-    ``dot_score`` epilogue on the card: the candidates' rows of the
-    item table (in ``dtype``) dot the last hidden state, and only ids and
-    scores come out. The tower and ranker heads (two-tower, BST) decode
-    (kernel 1), then score: two-tower through the item tower, BST through
-    the whole ranker per candidate, ``BST_ROWS`` candidates at a time
-    (rows are independent; all 2^20 at once would hold a ``[2^20, 8, 21,
-    21]`` float32 attention). Returns ``(scores [C], (top scores, top
-    ids))``, where ``C`` counts every slot of the decoded grid (pad slots
-    are id 0, as in the reference). ``plan="auto"`` decodes with the
-    kernels on the card (the reference's off-TPU switch to its
-    gather-lowered decoder is a TPU lowering choice; the decoded ids are
-    the same). The reference's deprecated unpacked ``cand_*`` batch keys
-    are not ported.
+    query (:func:`retrieval_query`) scores every candidate
+    (:func:`score_candidates`); one top-k over the scores. Returns
+    ``(scores [C], (top scores, top ids))``, where ``C`` counts every slot
+    of the decoded grid (pad slots are id 0, as in the reference).
+    ``plan="auto"`` decodes with the kernels on the card (the reference's
+    off-TPU switch to its gather-lowered decoder is a TPU lowering
+    choice; the decoded ids are the same). ``score_fn`` (the arguments of
+    :func:`score_candidates`) scores in its place: ``registry.run_cell``
+    scores a mesh's candidate shards with it. ``params`` may be a
+    ``ModelParallel``. The reference's deprecated unpacked ``cand_*``
+    batch keys are not ported.
     """
+    params = view(params)
+    query = retrieval_query(params, batch, cfg, dtype=dtype)
+    ids, scores = (score_fn or score_candidates)(
+        params, query, batch["cands"], cfg, plan=plan, dtype=dtype)
+    top_s, top_i = topk_lower_index(scores, top_k)
+    return scores, (top_s, ids[top_i])
+
+
+def retrieval_query(params, batch, cfg: RecSysConfig, *,
+                    dtype=nnl.DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
+    """What a ``retrieval_cand`` request scores its candidates by: the last
+    hidden state ``[1, d]`` (SASRec, BERT4Rec), the user vector ``[1, v]``
+    (two-tower), or the history ``[1, seq_len]`` (BST's ranker)."""
+    if cfg.kind in ("sasrec", "bert4rec"):
+        return _seq_repr(params, batch["hist"], cfg,
+                         causal=cfg.kind == "sasrec", dtype=dtype)[:, -1]
+    if cfg.kind == "two_tower":
+        return user_tower(params, batch["user_id"], batch["hist"], cfg,
+                          dtype=dtype)
+    if cfg.kind == "bst":
+        return batch["hist"]
+    raise ValueError(cfg.kind)
+
+
+def score_candidates(params, query, cands, cfg: RecSysConfig, *,
+                     table=None, plan="auto",
+                     dtype=nnl.DEFAULT_COMPUTE_DTYPE):
+    """``(ids [C], scores [C])`` of the candidates ``cands`` (a
+    ``CompressedIntArray``), decoded where they lie. The dot-product
+    heads (SASRec, BERT4Rec) score in one pass of kernel 2's ``dot_score``
+    epilogue on the card: the candidates' rows of ``table`` (default: the
+    item table in ``dtype``, on the candidates' device) dot ``query``, and
+    only ids and scores come out. The tower and ranker heads decode
+    (kernel 1), then score at ``query``'s device: two-tower through the
+    item tower, BST through the whole ranker per candidate, ``BST_ROWS``
+    candidates at a time (rows are independent; all 2^20 at once would
+    hold a ``[2^20, 8, 21, 21]`` float32 attention)."""
     from repro_torch.kernels.vbyte_decode import dispatch
 
-    arr = batch["cands"]
     if cfg.kind in ("sasrec", "bert4rec"):
-        h = _seq_repr(params, batch["hist"], cfg,
-                      causal=cfg.kind == "sasrec", dtype=dtype)[:, -1]  # [1, d]
-        table = params.item_emb.to(dtype)
+        if table is None:
+            table = params.item_emb.to(dtype)
         ids, scores = dispatch.decode(
-            arr, epilogue="dot_score",
-            epilogue_operands={"table": table, "query": h}, plan=plan)
-        cands, scores = ids.reshape(-1), scores.reshape(-1)
-    else:
-        cands = dispatch.decode(arr, plan=plan).reshape(-1)
-        if cfg.kind == "two_tower":
-            u = user_tower(params, batch["user_id"], batch["hist"], cfg,
-                           dtype=dtype)
-            i = item_tower(params, cands, cfg, dtype=dtype)  # [C, v]
-            scores = (i @ u[0]).to(torch.float32)
-        elif cfg.kind == "bst":  # every candidate through the ranker
-            parts = cands.split(BST_ROWS)
-            scores = torch.cat([
-                bst_forward(params, batch["hist"].expand(len(c), -1), c,
-                            cfg, dtype=dtype) for c in parts])
-        else:
-            raise ValueError(cfg.kind)
-    top_s, top_i = topk_lower_index(scores, top_k)
-    return scores, (top_s, cands[top_i])
+            cands, epilogue="dot_score", plan=plan, epilogue_operands={
+                "table": table, "query": query.to(table.device)})
+        return ids.reshape(-1), scores.reshape(-1)
+    ids = dispatch.decode(cands, plan=plan).reshape(-1)
+    c = ids.to(query.device)
+    if cfg.kind == "two_tower":
+        i = item_tower(params, c, cfg, dtype=dtype)  # [C, v]
+        return ids, (i @ query[0]).to(torch.float32)
+    if cfg.kind == "bst":  # every candidate through the ranker
+        return ids, torch.cat([
+            bst_forward(params, query.expand(len(x), -1), x, cfg,
+                        dtype=dtype) for x in c.split(BST_ROWS)])
+    raise ValueError(cfg.kind)

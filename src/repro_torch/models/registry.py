@@ -516,10 +516,37 @@ def _join(parts: list, dim: int, mesh, spec: tuple):
     return place(out, named_sharding(mesh, *spec))
 
 
+def _placed(params, specs: dict):
+    """``params`` (a model, or a ``ShardedParams`` a previous call
+    returned) laid out by ``specs`` (a value already so placed stays as it
+    is)."""
+    import torch
+
+    from repro_torch.distributed.sharding import place
+    from repro_torch.train.train_state import (ShardedParams, param_leaves,
+                                               with_leaves)
+
+    leaves = param_leaves(params)
+    if not isinstance(params, ShardedParams):
+        skeleton = with_leaves(params, {
+            key: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for key, v in leaves.items()})
+    else:
+        skeleton = params.skeleton
+    out = {key: place(v.detach() if isinstance(v, torch.Tensor) else v,
+                      specs[key]) for key, v in leaves.items()}
+    if isinstance(params, ShardedParams) and all(
+            out[key] is v for key, v in leaves.items()):
+        return params  # as placed, with what was derived from it
+    return ShardedParams(skeleton, out)
+
+
 def run_cell(cell: Cell, mesh, *args):
-    """``cell.fn`` over ``mesh`` for an LM serving cell (prefill, chunked
-    prefill, decode): the counterpart of the reference's
-    ``jax.jit(cell.fn, in_shardings=cell.in_shardings(mesh))(*args)``.
+    """``cell.fn`` over ``mesh`` for a serving cell: the counterpart of
+    the reference's ``jax.jit(cell.fn, in_shardings=cell.in_shardings(
+    mesh))(*args)``. The LM prefill, chunked prefill and decode cells run
+    here; the recsys ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``
+    cells in :func:`_run_recsys_cell`.
 
     ``args`` are the cell's: the parameters (a model, or the
     ``ShardedParams`` a previous call returned placed), then the cache
@@ -538,31 +565,17 @@ def run_cell(cell: Cell, mesh, *args):
 
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.distributed.api import activate_mesh
-    from repro_torch.distributed.sharding import (DP, TP, RECSYS_TP_MISSING,
-                                                  BlockSharded, place)
-    from repro_torch.train.train_state import ShardedParams, param_leaves
+    from repro_torch.distributed.sharding import DP, TP, BlockSharded, place
 
-    k = mesh.shape.get(tp.MODEL, 1)
-    if cell.family != "lm" or cell.shape.step == "train":
-        if k > 1 and cell.family != "lm":
-            raise NotImplementedError(f"a mesh of {mesh.shape}: "
-                                      f"{RECSYS_TP_MISSING}")
-        raise ValueError(f"run_cell serves the LM prefill and decode cells, "
+    if cell.shape.step == "train":
+        raise ValueError(f"run_cell serves the LM and recsys serving cells, "
                          f"not {cell.arch_id}/{cell.shape.name} (a train "
                          "cell runs through train.jit_train_step)")
+    if cell.family == "recsys":
+        return _run_recsys_cell(cell, mesh, *args)
+    k = mesh.shape.get(tp.MODEL, 1)
     sh = cell.in_shardings(mesh)
-    params = args[0]
-    leaves = param_leaves(params)
-    if not isinstance(params, ShardedParams):
-        from repro_torch.train.train_state import with_leaves
-
-        skeleton = with_leaves(params, {
-            key: torch.empty(v.shape, dtype=v.dtype, device="meta")
-            for key, v in leaves.items()})
-    else:
-        skeleton = params.skeleton
-    params = ShardedParams(skeleton, {key: place(v.detach() if isinstance(
-        v, torch.Tensor) else v, sh[0][key]) for key, v in leaves.items()})
+    params = _placed(args[0], sh[0])
     rows = tp.data_rows(mesh)
     n = len(rows)
     decode = cell.shape.step == "decode"
@@ -607,6 +620,104 @@ def run_cell(cell: Cell, mesh, *args):
                  for key in ("k", "v")}
     out_cache["index"] = outs[0][1]["index"]
     return (logits, out_cache), params
+
+
+def _run_recsys_cell(cell: Cell, mesh, params, batch):
+    """A recsys serving cell over ``mesh`` (:func:`run_cell`): the
+    parameters placed by the serving rule (tables split by rows or
+    columns over ``model``, the MLPs' column / row splits), each data
+    position's compute copy a ``ModelParallel`` over its row of devices.
+
+    * ``serve_p99`` / ``serve_bulk``: the rows split over the data
+      positions (the batch specs), ``cell.fn`` once a position on its
+      rows; the scores joined ``(DP, ...)``.
+    * ``retrieval_cand``: the candidates' blocks split over every position
+      (``("pod", "data", "model")``, count-0 blocks padding the last) and
+      decoded where they lie, one launch a shard. SASRec and BERT4Rec
+      score in kernel 2's ``dot_score``, which reads one whole table: the
+      item table is placed whole once on each distinct device (the
+      serving engine's layout over a mesh) in the cell's dtype, made at
+      the first request and kept with the placed parameters
+      (``ShardedParams.derived``). BST and two-tower decode (kernel 1),
+      then each shard's candidates run through the ranker or the item
+      tower of the data position that holds the shard. The query is
+      computed once at home, and the ids and scores gathered there, cut
+      to the request's own blocks, for one top-k: ``cell.fn`` itself,
+      scoring through ``recsys.score_candidates`` a shard at a time.
+
+    Returns ``(outputs, params)``: ``cell.fn``'s outputs and the placed
+    parameters."""
+    import torch
+
+    from repro_torch.distributed import data_parallel as dp
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.api import NamedSharding, activate_mesh
+    from repro_torch.distributed.sharding import DP, place
+
+    sh = cell.in_shardings(mesh)
+    params = _placed(params, sh[0])
+    rows = tp.data_rows(mesh)
+    home = rows[0][0]
+    replicas = {}
+
+    def replica(r):
+        if r not in replicas:
+            replicas[r] = _replica(params, rows[r], mesh)
+        return replicas[r]
+
+    with activate_mesh(mesh), torch.no_grad():
+        if cell.shape.step == "serve":
+            parts = dp.split_rows(batch, sh[1], tuple(r[0] for r in rows),
+                                  mesh)
+            out = torch.cat([cell.fn(replica(r), part).to(home)
+                             for r, part in enumerate(parts)])
+            return place(out, NamedSharding(mesh, (DP,) + (None,) * (
+                out.dim() - 1))), params
+        return _recsys_retrieval(cell, mesh, params, batch, sh[1], rows,
+                                 replica), params
+
+
+def _recsys_retrieval(cell, mesh, params, batch, bsh, rows, replica):
+    """``retrieval_cand`` over ``mesh`` (:func:`_run_recsys_cell`):
+    ``cell.fn`` at home on the first data position's copy, its candidates
+    scored a shard at a time (``recsys.score_candidates``): ``(scores,
+    (top scores, top ids))`` as ``cell.fn`` returns them."""
+    import torch
+
+    from repro_torch.distributed import data_parallel as dp
+    from repro_torch.distributed.api import NamedSharding
+    from repro_torch.distributed.sharding import place
+    from repro_torch.models import recsys
+
+    cfg = cell.cfg
+    home, k = rows[0][0], len(rows[0])
+    devices = dp.row_devices(mesh, bsh["cands"].counts.spec[0])
+
+    def table(dtype):
+        """The item table whole in ``dtype``, one copy a distinct device:
+        made once, kept with the placed parameters."""
+        key = ("item_emb/emb", dtype)
+        if key not in params.derived:
+            params.derived[key] = place(
+                params.leaves["item_emb/emb"],
+                NamedSharding(mesh, ())).map(lambda t: t.to(dtype))
+        return params.derived[key]
+
+    def score(_, query, cands, cfg, *, plan, dtype):
+        whole = table(dtype) if cfg.kind in ("sasrec", "bert4rec") else None
+        out = [recsys.score_candidates(
+            recsys.view(replica(i // k)), query.to(rows[i // k][0]), shard,
+            cfg, table=whole.on(dev) if whole is not None else None,
+            plan=plan, dtype=dtype)
+            for i, (shard, dev) in enumerate(zip(dp.block_shards(
+                cands, len(devices), devices), devices))]
+        n_slots = cands.n_blocks * cands.block_size
+        return tuple(torch.cat([o[j].to(home) for o in out])[:n_slots]
+                     for j in (0, 1))
+
+    local = {key: v.to(home) if isinstance(v, torch.Tensor) else v
+             for key, v in batch.items()}
+    return cell.fn(replica(0), local, score_fn=score)
 
 
 def _whole_over_data(cache: dict, mesh) -> dict:
@@ -673,10 +784,10 @@ def _recsys_serve_fn(params, batch, *, cfg):
     return recsys.serve_scores(params, batch, cfg)
 
 
-def _recsys_retrieval_fn(params, batch, *, cfg):
+def _recsys_retrieval_fn(params, batch, *, cfg, **kw):
     from repro_torch.models import recsys
 
-    return recsys.retrieval_scores_compressed(params, batch, cfg)
+    return recsys.retrieval_scores_compressed(params, batch, cfg, **kw)
 
 
 def lm_batch_for(cfg, shape: ShapeDef, rng, *, device) -> dict:

@@ -8,7 +8,8 @@ lists themselves may be stored compressed, one bag per block.
 * ``embedding_bag_compressed`` — the gather-sum runs in the decode
   kernel's ``bag_sum`` epilogue (kernel 2 on the card): the ids never
   leave shared memory. This is the path ``dispatch`` picks by default.
-* ``bag_from_padded`` — fixed-width padded bags (the dense-batch path).
+* ``bag_from_padded`` — fixed-width padded bags (the dense-batch path),
+  over a whole table or one split over a mesh's ``model`` axis.
 """
 from __future__ import annotations
 
@@ -95,17 +96,25 @@ def embedding_bag_compressed(
 
 
 def bag_from_padded(
-    table: torch.Tensor,  # [V, d]
+    table,  # [V, d]: a tensor, or a table split over a mesh's ``model``
     padded_ids: torch.Tensor,  # [B, L] int, padded with pad_id
     *,
     pad_id: int = 0,
     mode: str = "sum",
     dtype=DEFAULT_COMPUTE_DTYPE,
+    home=None,
 ) -> torch.Tensor:
     """EmbeddingBag over fixed-width padded bags (the dense-batch path).
     Gathers, then casts (the reference casts the table first: the same
-    values)."""
-    vecs = table[padded_ids.to(torch.int64)].to(dtype)  # [B, L, d]
+    values). A ``tensor_parallel.Slices`` table is looked up where its
+    slices lie (``tensor_parallel.lookup``, the same values at ``home``)."""
+    from repro_torch.distributed.tensor_parallel import Slices, lookup
+
+    if isinstance(table, Slices):
+        vecs = lookup(table, padded_ids, dtype=dtype,
+                      home=padded_ids.device if home is None else home)
+    else:
+        vecs = table[padded_ids.to(torch.int64)].to(dtype)  # [B, L, d]
     valid = (padded_ids != pad_id)[..., None]
     vecs = torch.where(valid, vecs, 0)
     if mode == "sum":

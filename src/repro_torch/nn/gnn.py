@@ -71,6 +71,14 @@ def gin_layer(params: GINLayer, h: torch.Tensor, src: torch.Tensor,
     then casts: the same values)."""
     agg = owner_sum(h, src, seg, edge_valid, accumulate=agg_dtype,
                     by_source=by_source)
+    return gin_update(params, h, agg, dtype=dtype, agg_dtype=agg_dtype)
+
+
+def gin_update(params: GINLayer, h: torch.Tensor, agg: torch.Tensor, *,
+               dtype=DEFAULT_COMPUTE_DTYPE, agg_dtype=torch.float32
+               ) -> torch.Tensor:
+    """The layer after its aggregation: ``MLP((1 + ε)·h + agg)`` over the
+    rows of ``h`` and their sums ``agg`` (``agg_dtype``)."""
     scale = (1.0 + params.eps).to(agg_dtype)
     x = (scale * h.to(agg_dtype) + agg).to(dtype)
     x = torch.relu(x @ params.mlp1.to(dtype) + params.b1.to(dtype))
@@ -78,12 +86,15 @@ def gin_layer(params: GINLayer, h: torch.Tensor, src: torch.Tensor,
     return torch.relu(x)
 
 
-def edge_owners(row_offsets: torch.Tensor, n_edges: int) -> torch.Tensor:
+def edge_owners(row_offsets: torch.Tensor, n_edges: int,
+                start: int = 0) -> torch.Tensor:
     """The list l(e) that edge e belongs to, ``row_offsets[l] <= e <
-    row_offsets[l+1]``: int32 ``[E]`` on ``row_offsets``' device. Metadata
-    only — it does not wait for the decode."""
+    row_offsets[l+1]``, for the edges ``start .. start + n_edges``: int32
+    ``[n_edges]`` on ``row_offsets``' device. Metadata only — it does not
+    wait for the decode."""
     row_offsets = as_i32_bits(row_offsets)
-    e_idx = torch.arange(n_edges, dtype=torch.int32, device=row_offsets.device)
+    e_idx = torch.arange(start, start + n_edges, dtype=torch.int32,
+                         device=row_offsets.device)
     return torch.searchsorted(row_offsets, e_idx, right=True,
                               out_int32=True) - 1
 
@@ -103,7 +114,7 @@ def edge_bases(gaps, row_gap_bases: torch.Tensor,
 
 
 def decode_compressed_edges(gaps, row_offsets, n_edges: int, *,
-                            row_gap_bases=None, plan="auto"):
+                            row_gap_bases=None, plan="auto", start: int = 0):
     """Decode a per-list delta-encoded VByte adjacency stream on its device.
 
     ``gaps`` is the blocked gap stream as a ``CompressedIntArray``
@@ -120,13 +131,19 @@ def decode_compressed_edges(gaps, row_offsets, n_edges: int, *,
     on the card, then torch ops).
 
     Returns ``(src [E], dst [E])`` int32: the neighbor whose features are
-    aggregated, and the list's owner.
+    aggregated, and the list's owner. ``gaps`` may be a range of the
+    stream's blocks whose first edge is ``start`` (a position's range over
+    a mesh): the rebase reads each edge's list from the whole
+    ``row_offsets``, so that range decodes alone.
     """
     from repro_torch.kernels.vbyte_decode import dispatch
 
     dev = gaps.device
     row_offsets = as_i32_bits(row_offsets.to(dev))
-    owner = edge_owners(row_offsets, n_edges)
+    owner = edge_owners(row_offsets, n_edges, start)
+    if start and row_gap_bases is None:
+        raise ValueError("a range of the gap stream decodes alone only with "
+                         "row_gap_bases")
 
     if row_gap_bases is not None:
         # fused one-pass path: per-edge rebase inside the kernel epilogue

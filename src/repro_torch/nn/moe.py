@@ -31,8 +31,18 @@ the expert products are split, as the leaves' layout says: by experts
 buffer, and the combine reads the gathered outputs), or by each expert's
 hidden units (``gate`` and ``up`` column-parallel, ``down`` row-parallel:
 float32 partials added in position order, rounded once).
+
+A microbatch whose rows a mesh's data positions split
+(``distributed/data_parallel.py``) runs each position's dispatch groups
+there; ``moe_aux_loss`` and ``moe_drop_frac`` read every token of the
+microbatch, so each call's routing terms are recorded
+(:func:`record_routes`) and :func:`aux_of` computes them from the
+positions' terms joined in position order: the single device's values.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
@@ -162,6 +172,37 @@ def _combine(y, dst, gates, *, T: int, K: int):
         dim=2).reshape(T, d)
 
 
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def record_routes():
+    """While active, every :func:`moe_apply` / :func:`moe_apply_mp` call
+    appends its routing terms ``(probs, top_e, keep)`` (those its aux reads)
+    to the list this yields, in call order."""
+    prev = getattr(_recording, "routes", None)
+    _recording.routes = routes = []
+    try:
+        yield routes
+    finally:
+        _recording.routes = prev
+
+
+def _record(probs, top_e, keep) -> None:
+    routes = getattr(_recording, "routes", None)
+    if routes is not None:
+        routes.append((probs, top_e, keep))
+
+
+def aux_of(routes: list, *, top_k: int, home) -> dict:
+    """``moe_aux_loss`` and ``moe_drop_frac`` of one layer over the
+    positions' routing terms (``routes[p]``, in position order), joined at
+    ``home``."""
+    probs, top_e, keep = (torch.cat([r[i].to(home) for r in routes])
+                          for i in range(3))
+    return _aux(probs, top_e, keep, T=probs.shape[0], K=top_k)
+
+
 def _aux(probs, top_e, keep, *, T: int, K: int) -> dict:
     """The switch-style load-balance loss and the share of dispatch rows
     dropped (float32 0-d tensors)."""
@@ -190,6 +231,7 @@ def moe_apply(params: MoE, x: torch.Tensor, *, top_k: int,
         params, x, top_k=top_k, capacity_factor=capacity_factor,
         dispatch_groups=dispatch_groups, dtype=dtype)
     G, E, C, _ = buf.shape
+    _record(probs, top_e, keep)
     y = _experts(buf, params.gate, params.up, params.down, dtype)
     out = _combine(y.reshape(G, E * C, d), dst, gates, T=T, K=top_k)
     return out, _aux(probs, top_e, keep, T=T, K=top_k)
@@ -210,6 +252,7 @@ def moe_apply_mp(params, x: torch.Tensor, *, top_k: int, home,
         params, x, top_k=top_k, capacity_factor=capacity_factor,
         dispatch_groups=dispatch_groups, dtype=dtype)
     G, E, C, _ = buf.shape
+    _record(probs, top_e, keep)
     gate, up, down = params.gate, params.up, params.down
     if gate.dim == 0:  # expert parallel: each position its experts' rows
         ys, lo = [], 0

@@ -16,27 +16,32 @@ layout it gives (the master's).
 
 :func:`jit_train_step` runs a step over a mesh from one controller, with
 no process group (``repro_torch.distributed``): it places the state by
-its shardings, in place (the reference's donation), keeps a replica for
-each data position, and deals the step's own ``microbatch`` parts
-(:func:`_split`) out whole, ``microbatch / n`` to each of the ``n`` data
-positions in order. Every part's gradients add into one float32
-accumulator in the master layout in part order (:func:`accumulate`, the
-one loop both steps run). So the step computes the single-device step's
-function, as the reference's ``jax.jit(in_shardings=...)`` does (its
-shardings change only where data lives): over ``n`` data positions and
-a ``model`` axis of 1 it equals ``make_train_step(microbatch=mb)`` bit
-for bit. Over a ``model`` axis of ``k > 1`` (the LM family) a data
-position's replica is a ``tensor_parallel.ModelParallel``: each leaf laid
-out as its master without the data axes (the reference's compute spec),
-its ``model`` slices on the position's devices; the model code computes
-over them (``models/lm.py``), and a slice's gradient lands in the
-master's grid (a leaf ZeRO-1 splits over the data axes too). It differs
-from the single-device step only where the row-parallel and vocabulary
-sums re-associate. The recsys and GNN families over ``model > 1`` raise
-(``sharding.RECSYS_TP_MISSING``). The batch's shardings say where its
-inputs live and never split it otherwise. A microbatch count the data
-positions do not divide (the recsys and GNN cells' 1) would need the
-loss reduced across positions and raises (``sharding.DP_MISSING``).
+its shardings, in place (the reference's donation), and keeps a compute
+copy for each row position: the positions over which the batch's
+shardings split its rows (the data positions; every position for GIN's
+node batch, split over ``("pod", "data", "model")``; the first alone for
+a batch replicated whole). Where their count ``n`` divides the step's
+``microbatch``, the parts (:func:`_split`) are dealt out whole,
+``microbatch / n`` to each position in order: over a ``model`` axis of 1
+the step equals ``make_train_step(microbatch=mb)`` bit for bit. Where it
+does not, each part's rows split over the positions
+(``distributed/data_parallel.py``): each position runs its rows' forward,
+the loss is reduced across them as the model code says (the per-row
+terms joined at home, a masked mean divided once by the whole count), and
+the positions' gradients add in position order in float32
+(:func:`_position_sum`). Either way every part's gradients add into one
+float32 accumulator in the master layout in part order (:func:`accumulate`,
+the one loop both steps run), so the step computes the single-device
+step's function, as the reference's ``jax.jit(in_shardings=...)`` does.
+Over a ``model`` axis of ``k > 1`` a data position's copy is a
+``tensor_parallel.ModelParallel`` where the rule splits a leaf over
+``model`` (the LM and recsys families): each leaf laid out as its master
+without the data axes (the reference's compute spec), its ``model``
+slices on the position's devices; the model code computes over them
+(``models/lm.py``, ``models/recsys.py``), and a slice's gradient lands in
+the master's grid (a leaf ZeRO-1 splits over the data axes too). It
+differs from the single-device step only where the row-parallel,
+vocabulary and cross-position sums re-associate.
 Each leaf's square sum in the global norm is taken over the whole leaf
 (gathered one leaf at a time), as one device takes it: free while one
 card hosts the mesh; over several cards it moves the split gradient to
@@ -62,10 +67,13 @@ class ShardedParams:
     """A model's parameters placed on a mesh: ``skeleton``, the model with
     its leaves on the ``meta`` device (its structure only), and
     ``leaves`` by path, each a tensor, ``BlockSharded`` or
-    ``Replicated``."""
+    ``Replicated``; ``derived``, copies that a serving path makes from
+    the leaves once and reuses while they stand (``registry.run_cell``'s
+    whole item table for kernel 2's ``dot_score``)."""
 
     def __init__(self, skeleton, leaves: dict):
         self.skeleton, self.leaves = skeleton, leaves
+        self.derived = {}
 
     def tree(self) -> dict:
         return nest(self.leaves)
@@ -153,22 +161,30 @@ class TrainStep:
         self.grad_compression, self.microbatch = grad_compression, microbatch
         self.compute_cast, self.grad_transform = compute_cast, grad_transform
 
-    def value_and_grad(self, params, leaves: dict, batch):
+    def value_and_grad(self, params, leaves, batch):
         """``(loss, aux, grads)`` of one batch: gradients with respect to
         ``leaves`` (``params``' leaves by path; a leaf split over a mesh's
         ``model`` axis gives its gradient in the same layout, a slice a
-        position)."""
+        position). Over a ``data_parallel.RowSplit`` ``leaves`` is a list,
+        one dict a position, and the gradients are the positions' sum
+        (:func:`_position_sum`)."""
         from repro_torch.distributed.sharding import BlockSharded, pieces
 
         loss, aux = self.loss_fn(params, batch)
-        flat = [t for p in leaves.values() for t in pieces(p)]
+        groups = leaves if isinstance(leaves, list) else [leaves]
+        flat = [t for lv in groups for p in lv.values() for t in pieces(p)]
         gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
-        grads = {}
-        for k, p in leaves.items():
-            g = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(pieces(p), gs)]
-            grads[k] = (replace(p, shards=tuple(g))
-                        if isinstance(p, BlockSharded) else g[0])
+        per = []
+        for lv in groups:
+            grads = {}
+            for k, p in lv.items():
+                g = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(pieces(p), gs)]
+                grads[k] = (replace(p, shards=tuple(g))
+                            if isinstance(p, BlockSharded) else g[0])
+            per.append(grads)
+        del gs
+        grads = per[0] if len(per) == 1 else _position_sum(per)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
     def _compute(self, params):
@@ -204,6 +220,27 @@ class TrainStep:
         else:
             opt_metrics = update(state, grads)
         return {"loss": loss, **opt_metrics, **aux}
+
+
+def _position_sum(per: list) -> dict:
+    """The positions' gradients (one dict a position, each leaf in its
+    position's compute layout) added leaf by leaf in position order into
+    float32 at the first position's pieces, then rounded once to their
+    dtype. Each position's gradient is dropped once added."""
+    from repro_torch.distributed.sharding import map_pieces, pieces
+
+    out = {}
+    for k in list(per[0]):
+        vs = [g.pop(k) for g in per]
+        dtype = pieces(vs[0])[0].dtype
+        acc = map_pieces(lambda z: z.to(torch.float32), vs.pop(0))
+        while vs:
+            v = vs.pop(0)
+            for a, b in zip(pieces(acc), pieces(v)):
+                a.add_(b.to(a.device, torch.float32))
+            del v
+        out[k] = map_pieces(lambda a: a.to(dtype), acc)
+    return out
 
 
 def accumulate(step: TrainStep, work: list, lay: Callable | None = None,
@@ -271,23 +308,6 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
 # ---------------------------------------------------------------------------
 # the step over a mesh
 # ---------------------------------------------------------------------------
-def _shardings(tree) -> list:
-    from repro_torch.distributed.api import NamedSharding
-
-    if isinstance(tree, NamedSharding):
-        return [tree]
-    if isinstance(tree, dict):
-        return [s for v in tree.values() for s in _shardings(v)]
-    if isinstance(tree, (list, tuple)):
-        return [s for v in tree for s in _shardings(v)]
-    if hasattr(tree, "counts_host"):  # a CompressedIntArray of shardings
-        from repro_torch.distributed.sharding import FORMAT_LEAVES_ALL
-
-        return [s for k in FORMAT_LEAVES_ALL
-                for s in _shardings(getattr(tree, k))]
-    return []
-
-
 def _to(batch: dict, device) -> dict:
     return {k: v.to(device) if hasattr(v, "to") else v
             for k, v in batch.items()}
@@ -295,39 +315,52 @@ def _to(batch: dict, device) -> dict:
 
 class ShardedTrainStep:
     """A :class:`TrainStep` over the mesh of its shardings
-    (:func:`jit_train_step`): the step's ``microbatch`` parts dealt out,
-    ``per_shard`` to each data position in order. ``on_phase``, when set,
-    is called with ``"gather"``, ``"forward_backward"``, ``"reduce"``,
+    (:func:`jit_train_step`). Its row positions are those over which the
+    batch's shardings split the rows (``data_parallel.row_axes``): the
+    data positions, or every position for a batch split over ``("pod",
+    "data", "model")`` (GIN's node batch); one position for a batch
+    replicated whole. Where their count divides the step's ``microbatch``
+    the parts are dealt out whole, ``per_shard`` to each position in
+    order; otherwise (``split``) each part's rows are split over the
+    positions and its loss reduced across them. ``on_phase``, when set, is
+    called with ``"gather"``, ``"forward_backward"``, ``"reduce"``,
     ``"update"`` (gradient compression, the norm and AdamW) and ``"end"``
     as each part of a step begins (a clock's marks)."""
 
     def __init__(self, step: TrainStep, in_shardings, out_shardings=None):
+        from repro_torch.distributed import data_parallel as dp
         from repro_torch.distributed import tensor_parallel as tp
         from repro_torch.distributed.api import NamedSharding
-        from repro_torch.distributed.sharding import (DP_MISSING,
-                                                      RECSYS_TP_MISSING)
+        from repro_torch.distributed.sharding import split_of, without_data
 
-        state_sh, _ = in_shardings
-        meshes = {s.mesh for s in _shardings(in_shardings)}
+        state_sh, batch_sh = in_shardings
+        meshes = {s.mesh for s in dp.shardings_of(in_shardings)}
         if len(meshes) != 1:
             raise ValueError(f"in_shardings lie on {len(meshes)} meshes; "
                              "a step runs over one")
         mesh = meshes.pop()
-        self.k = mesh.shape.get(tp.MODEL, 1)
-        if self.k > 1 and not tp.is_lm(state_sh["params"]):
-            raise NotImplementedError(f"a mesh of {mesh.shape}: "
-                                      f"{RECSYS_TP_MISSING}")
+        # a data position computes over ``model`` where a leaf is split
+        # over it (the LM and recsys rules; GIN replicates every leaf)
+        self.tp = any(tp.MODEL in axes for s in state_sh["params"].values()
+                      for _, axes in split_of(without_data(s.spec), mesh))
         self.step, self.mesh, self.state_sh = step, mesh, state_sh
+        self.batch_sh = batch_sh
         self.out_state_sh = out_shardings[0] if out_shardings else None
-        # each data position's devices, one a model position (home first)
-        self.rows = tp.data_rows(mesh)
+        axes = dp.row_axes(mesh, batch_sh)
+        if self.tp:
+            if tp.MODEL in axes:
+                raise ValueError("the batch's rows split over 'model', "
+                                 "which the parameters are split over")
+            # each data position's devices, one a model position (home
+            # first)
+            self.rows = tp.data_rows(mesh) if axes else tp.data_rows(
+                mesh)[:1]
+        else:
+            self.rows = [(d,) for d in dp.row_devices(mesh, axes)]
         self.devices = tuple(row[0] for row in self.rows)
         n, mb = len(self.devices), max(step.microbatch, 1)
-        if mb % n:
-            raise NotImplementedError(
-                f"the step's microbatch count {mb} does not split over {n} "
-                f"data positions: {DP_MISSING}")
-        self.per_shard = mb // n
+        self.split = mb % n != 0
+        self.per_shard = 0 if self.split else mb // n
         self.whole = NamedSharding(mesh, ())
         self.on_phase = None
 
@@ -382,19 +415,15 @@ class ShardedTrainStep:
                                     "give placed parameters (map_params)")
             parts = [batch] if st.microbatch <= 1 else _split(batch,
                                                                st.microbatch)
-            if self.k > 1:
+            if self.split:
+                work = self._row_split_work(cp, master_sh, parts)
+            elif self.tp:
                 work = self._model_parallel_work(cp, master_sh, parts)
             else:
-                with torch.no_grad():
-                    cp = ShardedParams(cp.skeleton, {
-                        k: place(v, self.whole) for k, v in cp.leaves.items()})
-                replicas = {}
-                for dev in dict.fromkeys(self.devices):
-                    model = cp.on(dev)
-                    leaves = param_leaves(model)
-                    for p in leaves.values():
-                        p.requires_grad_(True)
-                    replicas[str(dev)] = (model, leaves)
+                distinct = list(dict.fromkeys(self.devices))
+                replicas = {str(dev): (model, param_leaves(model))
+                            for dev, model in zip(distinct, self._replicas(
+                                cp, distinct))}
                 work = [(*replicas[str(dev)], _to(part, dev)) for part, dev in
                         zip(parts, (d for d in self.devices
                                     for _ in range(self.per_shard)))]
@@ -413,14 +442,30 @@ class ShardedTrainStep:
             self.place(state, self.out_state_sh)
         return state, metrics
 
-    def _model_parallel_work(self, cp: ShardedParams, master_sh: dict,
-                             parts: list) -> list:
-        """The parts dealt out over the data positions, each with its
-        position's compute copy over the ``model`` axis
-        (``tensor_parallel.ModelParallel``): every leaf laid out as its
-        master minus the data axes (the reference's compute spec), a split
-        leaf's slices on the position's devices, a whole leaf at its home;
-        each requires grad."""
+    def _replicas(self, cp: ShardedParams, devices) -> list:
+        """One compute copy a device of ``devices``: the model whole on it,
+        its leaves' storage shared with ``cp``'s copy there, each leaf its
+        own tensor that requires grad."""
+        from repro_torch.distributed.sharding import place
+
+        with torch.no_grad():
+            cp = ShardedParams(cp.skeleton, {
+                k: place(v, self.whole) for k, v in cp.leaves.items()})
+        out = []
+        for dev in devices:
+            model = cp.on(dev)
+            for p in param_leaves(model).values():
+                p.requires_grad_(True)
+            out.append(model)
+        return out
+
+    def _model_parallel_copies(self, cp: ShardedParams, master_sh: dict,
+                               rows: list) -> list:
+        """One compute copy over the ``model`` axis
+        (``tensor_parallel.ModelParallel``) for each of ``rows``: every
+        leaf laid out as its master minus the data axes (the reference's
+        compute spec), a split leaf's slices on the row's devices, a whole
+        leaf at its home; each piece requires grad."""
         from repro_torch.distributed.api import NamedSharding
         from repro_torch.distributed.sharding import place, without_data
         from repro_torch.distributed.tensor_parallel import ModelParallel
@@ -429,16 +474,46 @@ class ShardedTrainStep:
             compute = {k: place(v, NamedSharding(
                 self.mesh, without_data(master_sh[k].spec)))
                 for k, v in cp.leaves.items()}
-        replicas = {}
-        for row in self.rows:
-            key = tuple(str(d) for d in row)
-            if key not in replicas:
-                mp = ModelParallel.of(self.mesh, row, compute,
-                                      requires_grad=True)
-                replicas[key] = (mp, mp.leaves)
+        return [ModelParallel.of(self.mesh, row, compute, requires_grad=True)
+                for row in rows]
+
+    def _model_parallel_work(self, cp: ShardedParams, master_sh: dict,
+                             parts: list) -> list:
+        """The parts dealt out over the data positions, each with its
+        position's compute copy over the ``model`` axis (one a distinct
+        row of devices)."""
+        keys = list(dict.fromkeys(tuple(str(d) for d in r) for r in
+                                  self.rows))
+        firsts = [next(r for r in self.rows if tuple(str(d) for d in r) == key)
+                  for key in keys]
+        replicas = {key: (mp, mp.leaves) for key, mp in zip(
+            keys, self._model_parallel_copies(cp, master_sh, firsts))}
         rows = (r for r in self.rows for _ in range(self.per_shard))
         return [(*replicas[tuple(str(d) for d in row)], _to(part, row[0]))
                 for part, row in zip(parts, rows)]
+
+    def _row_split_work(self, cp: ShardedParams, master_sh: dict,
+                        parts: list) -> list:
+        """Each part's rows split over the row positions
+        (``data_parallel.split_rows``), with one compute copy a position
+        (a ``data_parallel.RowSplit``), so that each position's gradient
+        is its own and the positions' add in position order. A compute
+        copy below float32 (ZeRO-1's bf16) is widened, an exact copy the
+        model reads as it reads the copy: each position's gradient stays
+        float32, and the sum is rounded once."""
+        from repro_torch.distributed.data_parallel import RowSplit, split_rows
+        from repro_torch.distributed.sharding import map_pieces
+
+        with torch.no_grad():
+            cp = map_params(lambda k, v: map_pieces(
+                lambda t: t.float() if t.is_floating_point() else t, v), cp)
+        copies = (self._model_parallel_copies(cp, master_sh, self.rows)
+                  if self.tp else self._replicas(cp, self.devices))
+        leaves = [m.leaves if self.tp else param_leaves(m) for m in copies]
+        split = RowSplit(tuple(copies), self.devices)
+        return [(split, leaves, split_rows(part, self.batch_sh, self.devices,
+                                           self.mesh))
+                for part in parts]
 
     def _adamw(self, state: dict, grads: dict) -> dict:
         """``adamw_update`` once per distinct device over the pieces that
@@ -478,9 +553,8 @@ def jit_train_step(train_step, *, in_shardings=None, out_shardings=None):
     shardings, batch shardings)``, ``distributed.sharding.to_named`` of
     the specs): a :class:`ShardedTrainStep`. Without shardings, the step
     itself (one device, nothing to place). A ``model`` axis larger than 1
-    computes over the LM family's splits (a recsys or GNN state raises);
-    a microbatch count that the data positions do not divide raises (a
-    loss reduced across positions is not ported)."""
+    computes over the rule's splits; a microbatch count that the row
+    positions do not divide splits each microbatch's rows over them."""
     if in_shardings is None:
         return train_step
     return ShardedTrainStep(train_step, in_shardings, out_shardings)

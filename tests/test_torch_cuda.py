@@ -2163,3 +2163,131 @@ def test_model_parallel_decode_on_the_card(dev):
             lg1, cache1 = lm.decode_step(params, cache1, tok, pre.cfg)
         assert cache["k"].splits == ((4, ("model",)),)
         assert all(s.device.type == "cuda" for s in cache["k"].shards)
+
+
+# -- a microbatch split by rows over a mesh; the recsys rule over model -------
+def _graph_batch(dev, n, e, seed):
+    """A skewed graph's compressed node batch on ``dev`` (owners past
+    LONG_ROW edges, a ragged last gap block), its gap blocks padded to a
+    multiple of 4."""
+    from repro_torch.data.graph import compress_adjacency
+    from repro_torch.data.sampler import CSRGraph
+    from repro_torch.data.synthetic import random_graph
+
+    rng = np.random.default_rng(seed)
+    g = random_graph(rng, n, e, 12, 3)
+    c = compress_adjacency(CSRGraph.from_edges(g["edge_src"], g["edge_dst"],
+                                               n), device=dev)
+    c.pop("_bits_per_edge")
+    gaps = c["gaps"]
+    c["gaps"] = gaps.take_blocks(np.arange(gaps.n_blocks),
+                                 pad_to=-(-gaps.n_blocks // 4) * 4)
+    c["edge_valid"] = torch.as_tensor(rng.random(e) < 0.9, device=dev)
+    return {"feats": torch.as_tensor(g["feats"], device=dev),
+            "labels": torch.as_tensor(g["labels"], device=dev),
+            "label_mask": torch.as_tensor(rng.random(n) < 0.7, device=dev),
+            **c}
+
+
+def test_data_parallel_owner_sum_partials_on_the_card(dev):
+    """A node batch split over 4 positions of the card: each position's
+    gap blocks decoded by one ``adjacency_rebase`` launch, its edges'
+    partial sums by ``owner_sum`` (owners straddling two positions: two
+    partials, added in position order) against the single-device launch
+    over all the edges: every owner whose edges one position holds bit for
+    bit, the straddling ones within 1e-5 of the largest |sum|; and the
+    source-side gradients through ``RowSplit.share`` against the
+    single-device backward launch, within 1e-5."""
+    from repro_torch.distributed import data_parallel as dp
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import segment_sum
+    from repro_torch.kernels.segment_sum import owner_sum, segments
+    from repro_torch.models import gnn, registry
+    from repro_torch.nn.gnn import decode_compressed_edges
+
+    n, e = 4096, 60_000
+    batch = _graph_batch(dev, n, e, 21)
+    cell = registry.build_cell("gin-tu", "full_graph_sm", mesh_dp=4)
+    cfg = cell.cfg
+    mesh = make_mesh((4, 1), ("data", "model"), devices=[dev] * 4)
+    specs = dict(cell.arg_specs[1], gaps=shd.compressed_array_specs(
+        batch["gaps"], axis=shd.ALL))
+    devs = (dev,) * 4
+    parts = dp.split_rows(batch, shd.to_named(mesh, specs), devs, mesh)
+    before = epilogues.launches.by.get("vbyte/adjacency_rebase", 0)
+    edges = [gnn._position_edges(parts, p, cfg, n, True) for p in range(4)]
+    assert epilogues.launches.by["vbyte/adjacency_rebase"] == before + 4
+    h = torch.randn(n, 16, device=dev)
+    pieces = [x.clone().requires_grad_(True) for x in torch.chunk(h, 4)]
+    whole = dp.RowSplit((None,) * 4, devs).share(pieces)
+    f0 = segment_sum.launches.count
+    partials = [owner_sum(w, src, seg, by_source=by)
+                for w, (src, seg, by, _, _) in zip(whole, edges)]
+    assert segment_sum.launches.count == f0 + 4
+    spans = [(x[3], x[4]) for x in edges]
+    got = torch.cat([gnn._owner_rows(partials, spans, a, b, dev,
+                                     torch.float32)
+                     for a, b in dp.rows_of(parts, "feats")])
+    nbr, own = decode_compressed_edges(batch["gaps"], batch["row_offsets"], e,
+                                       row_gap_bases=batch["row_gap_bases"])
+    src = torch.where(batch["edge_valid"], nbr, -1)
+    hw = h.clone().requires_grad_(True)
+    want = owner_sum(hw, src, segments(batch["row_offsets"]))
+    straddle = torch.zeros(n, dtype=torch.bool, device=dev)
+    for (a, b), (c, d) in zip(spans, spans[1:]):
+        if c < b:
+            straddle[c:b] = True
+    assert straddle.any()
+    assert torch.equal(got[~straddle], want[~straddle])
+    scale = float(want.detach().abs().max())
+    assert float((got - want).detach().abs().max()) <= 1e-5 * scale
+    w = torch.randn(n, 16, device=dev)
+    b0 = segment_sum.backward_launches.count
+    (got * w).sum().backward()
+    assert segment_sum.backward_launches.count == b0 + 4
+    (want * w).sum().backward()
+    g = torch.cat([p.grad for p in pieces])
+    assert float((g - hw.grad).abs().max()) <= 1e-5 * float(
+        hw.grad.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["sasrec", "bst"])
+def test_recsys_model_parallel_retrieval_on_the_card(dev, arch):
+    """``retrieval_cand`` of a reduced config (600,000 items, 4,093
+    candidate blocks) through ``run_cell`` over ``(1, 4)`` logical shards
+    of the card: one launch a shard (kernel 2's ``dot_score``, or kernel
+    1), against one launch over all the blocks on one device: ids bit for
+    bit, scores bit for bit (``dot_score``: a block's slots depend on it
+    alone) or within 2^-5 of the largest (BST's MLP split over
+    ``model``)."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models import recsys, registry
+
+    red = registry.reduced_config(arch)
+    over = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)
+            if f.name not in ("name", "kind", "extras")}
+    over["n_items"] = 600_000
+    cell = registry.build_cell(arch, "retrieval_cand", mesh_dp=1,
+                               overrides=over)
+    shape = dataclasses.replace(cell.shape, dims=dict(
+        cell.shape.dims, n_candidates=4093 * 128 - 50))
+    batch = registry.recsys_batch_for(cell.cfg, shape,
+                                      np.random.default_rng(5), device=dev)
+    params = recsys.init_params(cell.cfg, seed=0, device=dev)
+    mesh = make_mesh((1, 4), ("data", "model"), devices=[dev] * 4)
+    dot = arch == "sasrec"
+    counter = epilogues.launches if dot else kernel.launches
+    with torch.inference_mode():
+        c0 = counter.count
+        (scores, (top_s, top_i)), _ = registry.run_cell(cell, mesh, params,
+                                                        batch)
+        assert counter.count == c0 + 4
+        w_scores, (w_top_s, w_top_i) = cell.fn(params, batch)
+        assert counter.count == c0 + 5
+    assert scores.device.type == "cuda"
+    if dot:
+        assert torch.equal(scores, w_scores) and torch.equal(top_i, w_top_i)
+    else:
+        err = float((scores - w_scores).abs().max())
+        assert err <= 2**-5 * float(w_scores.abs().max())

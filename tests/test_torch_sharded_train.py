@@ -26,15 +26,19 @@ single-device step and against the reference.
   3.0e-3), and every leaf's change over 3 AdamW steps within relative L2
   ``STEP_RL2 = 0.5`` of the reference's change (read at most 0.167; a
   zero update reads 1).
-* A step whose microbatch count the data positions do not divide is
-  refused (every recsys and GNN train cell over 2 positions: their loss
-  would be reduced across positions). BERT4Rec (float32) over 2 and 3
-  positions against the reference's ``jax.jit(step, in_shardings=...)``
-  at the same microbatch count, its negatives split and shared.
+* A step whose microbatch count the data positions do not divide splits
+  each microbatch's rows over them and reduces its loss across them
+  (every recsys and GNN train cell over 2 positions, at their reduced
+  configs, against the single-device step;
+  ``tests/test_torch_data_parallel.py`` holds them against the
+  reference). BERT4Rec (float32) over 2 and 3 positions against the
+  reference's ``jax.jit(step, in_shardings=...)`` at the same microbatch
+  count, its negatives split and shared.
 * The launcher over the production mesh: trains, resumes bit for bit
   from its checkpoint, and ``--multi-pod`` changes nothing.
 """
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -221,15 +225,27 @@ def test_one_position_mesh_gives_the_single_device_step():
 
 
 def test_jit_train_step_refusals():
+    """What a step over a mesh still refuses (shardings on two meshes); a
+    microbatch count the 4 data positions do not divide (6, 2, 1) runs,
+    each microbatch's rows split over them, and matches the
+    single-device step at that count (bf16 bounds: the hooks' cast)."""
     init, loss, hooks, specs, _, _ = _lm_case(True, False)
     step = make_train_step(loss, OPT, microbatch=6, **hooks)
     assert jit_train_step(step) is step
     mesh = make_mesh((4, 1), ("data", "model"), devices=["cpu"] * 4)
-    for mb in (6, 2, 1):  # a loss that would be reduced across positions
-        with pytest.raises(NotImplementedError,
-                           match="does not split over 4.*item 13"):
-            jit_train_step(make_train_step(loss, OPT, microbatch=mb, **hooks),
-                           in_shardings=(shd.to_named(mesh, specs), {}))
+    rng = np.random.default_rng(9)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, 1 << 14, (24, 33))
+                                       .astype(np.int32))}
+    for mb in (6, 2, 1):
+        one = make_train_step(loss, OPT, microbatch=mb, **hooks)
+        sharded = jit_train_step(one, in_shardings=(
+            shd.to_named(mesh, specs), {}))
+        assert sharded.split and sharded.per_shard == 0
+        m_sh, _ = _run(sharded, init, [batch], False)
+        m_one, _ = _run(one, init, [batch], False)
+        assert abs(m_sh[0]["loss"] / m_one[0]["loss"] - 1) <= LOSS_RTOL, mb
+        assert abs(m_sh[0]["grad_norm"] / m_one[0]["grad_norm"] - 1) <= \
+            NORM_RTOL, mb
     other = make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="meshes"):
         jit_train_step(make_train_step(loss, OPT), in_shardings=(
@@ -257,20 +273,77 @@ def test_placed_state_round_trips_through_the_checkpoint_tree():
 SPANNING = [(a, sh) for a, sh, _ in registry.all_cells()
             if registry.family_of(a) in ("gnn", "recsys")
             and registry.shapes_of(a)[sh].step == "train"]
+GIN_OVER = dict(n_layers=2, d_hidden=16, d_feat=12, n_classes=3)
+
+
+def _reduced_cell(arch, shape, n, overrides=None):
+    """The train cell at its reduced config (a GIN cell keeps its shape's
+    task and adjacency; ``overrides`` replace the recsys one's) and a
+    small batch of its leaves."""
+    from repro_torch.data.graph import compress_adjacency
+    from repro_torch.data.sampler import CSRGraph
+    from repro_torch.data.synthetic import molecule_batch, random_graph
+
+    rng = np.random.default_rng(10)
+    if registry.family_of(arch) == "recsys":
+        red = registry.reduced_config(arch)
+        over = overrides or {f.name: getattr(red, f.name) for f in
+                             dataclasses.fields(red)
+                             if f.name not in ("name", "kind", "extras")}
+        cell = registry.build_cell(arch, shape, mesh_dp=n, overrides=over)
+        small = dataclasses.replace(cell.shape, dims={"batch": 8})
+        return cell, registry.recsys_batch_for(cell.cfg, small, rng,
+                                               device="cpu")
+    cell = registry.build_cell(arch, shape, mesh_dp=n, overrides=GIN_OVER)
+    cfg = cell.cfg
+    if cfg.task == "graph":
+        b = molecule_batch(rng, 4, 8, 16, cfg.d_feat, cfg.n_classes)
+        return cell, {"feats": torch.as_tensor(b["feats"]),
+                      "labels": torch.as_tensor(b["labels"]),
+                      "edge_valid": torch.ones(64, dtype=torch.bool),
+                      "graph_ids": torch.as_tensor(b["graph_ids"]),
+                      "edge_src": torch.as_tensor(b["edge_src"]),
+                      "edge_dst": torch.as_tensor(b["edge_dst"])}
+    g = random_graph(rng, 32, 400, cfg.d_feat, cfg.n_classes)
+    b = {"feats": torch.as_tensor(g["feats"]),
+         "labels": torch.as_tensor(g["labels"]),
+         "label_mask": torch.as_tensor(rng.random(32) < 0.7),
+         "edge_valid": torch.as_tensor(rng.random(400) < 0.9)}
+    if not cfg.compressed_adjacency:
+        b.update(edge_src=torch.as_tensor(g["edge_src"]),
+                 edge_dst=torch.as_tensor(g["edge_dst"]))
+        return cell, b
+    c = compress_adjacency(CSRGraph.from_edges(g["edge_src"], g["edge_dst"],
+                                               32), device="cpu")
+    c.pop("_bits_per_edge")
+    c.pop("edge_valid")  # the batch's own mask, over the CSR slots
+    b.update(c)
+    specs = dict(cell.arg_specs[1], gaps=shd.compressed_array_specs(
+        b["gaps"], axis=shd.ALL))
+    return dataclasses.replace(cell, arg_specs=(cell.arg_specs[0], specs)), b
 
 
 @pytest.mark.parametrize("arch,shape", SPANNING)
 def test_cell_whose_loss_spans_positions_is_refused(arch, shape):
     """The recsys and GNN train cells step at microbatch 1: over two data
-    positions their loss (masked means, the two-tower in-batch softmax, a
-    full graph) would be reduced across positions, which is not ported.
-    The one-position mesh (one card) takes them."""
-    cell = registry.build_cell(arch, shape, mesh_dp=2)
+    positions each microbatch's rows split over them and the loss
+    (masked means, the two-tower in-batch softmax, a full graph) reduces
+    across them; a replicated batch (``molecule``) runs at the first
+    position. One step of the reduced cell matches the single-device step:
+    its loss within 1e-5 relative, its grad norm within ``NORM_RTOL``
+    (bf16 compute: the split re-associates the gradients' sums). The
+    one-position mesh (one card) takes the cell whole."""
+    cell, batch = _reduced_cell(arch, shape, 2)
     assert cell.fn.microbatch == 1
     two = make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError,
-                       match="count 1 does not split over 2.*item 13"):
-        jit_train_step(cell.fn, in_shardings=cell.in_shardings(two))
+    sharded = jit_train_step(cell.fn, in_shardings=cell.in_shardings(two))
+    assert sharded.split == (shape != "molecule")
+    init = functools.partial(registry._family_init(cell.family), cell.cfg,
+                             seed=0, device="cpu")
+    m_sh, _ = _run(sharded, init, [batch], False)
+    m_one, _ = _run(cell.fn, init, [batch], False)
+    assert abs(m_sh[0]["loss"] / m_one[0]["loss"] - 1) <= 1e-5
+    assert abs(m_sh[0]["grad_norm"] / m_one[0]["grad_norm"] - 1) <= NORM_RTOL
     one = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
     assert jit_train_step(cell.fn, in_shardings=cell.in_shardings(
         one)).per_shard == 1
@@ -297,14 +370,15 @@ def test_bert4rec_shared_negatives_against_the_reference(reference, n, mb):
     ``n`` data positions, with the cell's state and batch specs
     (``negatives``: ``(None,)``). Where ``n`` divides ``mb`` it equals the
     single-device step at ``mb`` bit for bit (at 2 x 2 the microbatch rule
-    splits the 16 negatives, at 3 x 3 it shares them whole); at 2 x 1 it
-    is refused, and the single-device step stands for the port. Against
-    the reference's ``jax.jit(step, in_shardings=...)`` on an ``(n, 1)``
-    mesh, whose function is the single-device step's at ``mb``: the loss
-    and grad norm within ``B4R_RTOL = 1e-5`` relative (float32 sums in
-    other orders, read at most 1.9e-7), every leaf's change over the steps
-    within relative L2 ``B4R_STEP_RL2 = 2^-14`` of the reference's (read
-    at most 3.4e-6)."""
+    splits the 16 negatives, at 3 x 3 it shares them whole); at 2 x 1 the
+    microbatch's rows split over the positions, every position reading
+    all the negatives, and the step is held against the reference as the
+    single-device step is. Against the reference's ``jax.jit(step,
+    in_shardings=...)`` on an ``(n, 1)`` mesh, whose function is the
+    single-device step's at ``mb``: the loss and grad norm within
+    ``B4R_RTOL = 1e-5`` relative (float32 sums in other orders, read at
+    most 1.9e-7), every leaf's change over the steps within relative L2
+    ``B4R_STEP_RL2 = 2^-14`` of the reference's (read at most 3.4e-6)."""
     cfg, specs, init, batch = _bert4rec_reference_inputs(reference)
     opt = OptimizerConfig(peak_lr=PEAK_LR, warmup_steps=1, total_steps=STEPS)
     step = make_train_step(
@@ -313,25 +387,29 @@ def test_bert4rec_shared_negatives_against_the_reference(reference, n, mb):
     mesh = make_mesh((n, 1), ("data", "model"), devices=["cpu"] * n)
     named = (shd.to_named(mesh, specs[0]), shd.to_named(mesh, specs[1]))
     m_port, s_port = _run(step, init, [batch] * STEPS, False)
+    sharded = jit_train_step(step, in_shardings=named)
+    m_sh, s_sh = _run(sharded, init, [batch] * STEPS, False)
+    runs = [(m_port, s_port)]
     if mb % n:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            jit_train_step(step, in_shardings=named)
+        assert sharded.split
+        runs.append((m_sh, s_sh))
     else:
-        m_sh, s_sh = _run(jit_train_step(step, in_shardings=named), init,
-                          [batch] * STEPS, False)
         assert m_sh == m_port
         for (k, a), (_, b) in zip(flatten(train_state_tree(s_sh)),
                                   flatten(train_state_tree(s_port))):
             assert torch.equal(a, b), k
     tag = f"b4r/{n}x{mb}"
-    np.testing.assert_allclose([m["loss"] for m in m_port],
-                               reference[f"{tag}/loss"], rtol=B4R_RTOL)
-    np.testing.assert_allclose([m["grad_norm"] for m in m_port],
-                               reference[f"{tag}/grad_norm"], rtol=B4R_RTOL)
-    for k, v in param_leaves(s_port["params"]).items():
-        p0 = reference[f"b4r/init/{k}"]
-        d_ref = reference[f"{tag}/params/{k}"] - p0
-        assert _rl2(v.detach().numpy() - p0, d_ref) <= B4R_STEP_RL2, k
+    for m, s in runs:
+        np.testing.assert_allclose([x["loss"] for x in m],
+                                   reference[f"{tag}/loss"], rtol=B4R_RTOL)
+        np.testing.assert_allclose([x["grad_norm"] for x in m],
+                                   reference[f"{tag}/grad_norm"],
+                                   rtol=B4R_RTOL)
+        for k, v in param_leaves(s["params"]).items():
+            p0 = reference[f"b4r/init/{k}"]
+            d_ref = reference[f"{tag}/params/{k}"] - p0
+            assert _rl2(shd.whole(v).detach().numpy() - p0, d_ref) <= \
+                B4R_STEP_RL2, k
 
 
 # -- compressed_psum ----------------------------------------------------------

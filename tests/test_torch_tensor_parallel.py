@@ -4,8 +4,8 @@ grid, ``gather`` and ``keep``), the position helpers of
 ``distributed/tensor_parallel.py`` against the unsplit operations, the
 attention head ranges, the head-dimension decode, MoE over the positions
 against ``moe_apply`` on the same input, a model-parallel train state
-through the checkpoint, and the refusal of the recsys and GNN families
-over ``model``.
+through the checkpoint, and the recsys and GIN families over ``model``
+(a step and a serving cell, against the single device).
 
 Bit for bit: the column-parallel product (its columns are the unsplit
 product's), the vocabulary-parallel lookup and the target's logit (one
@@ -16,6 +16,9 @@ the logsumexp across positions, the head-dimension decode and the MoE
 output over split hidden units, whose float32 sums re-associate.
 """
 import dataclasses
+import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +35,8 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn import moe as moe_lib
 from repro_torch.train import (OptimizerConfig, init_train_state,
                                jit_train_step, make_train_step)
+
+sys.path.insert(0, str(Path(__file__).parent))
 from repro_torch.tree import flatten
 
 RTOL = 1e-6
@@ -285,7 +290,7 @@ def test_moe_over_the_positions_matches_moe_apply(split):
         _close(got, want)
 
 
-# -- the families the model axis does not serve --------------------------------
+# -- the recsys and GIN families over the model axis ---------------------------
 RECSYS_GNN = [("sasrec", "train_batch"), ("two-tower-retrieval",
                                           "train_batch"),
               ("gin-tu", "full_graph_sm")]
@@ -293,19 +298,61 @@ RECSYS_GNN = [("sasrec", "train_batch"), ("two-tower-retrieval",
 
 @pytest.mark.parametrize("arch,shape", RECSYS_GNN)
 def test_recsys_and_gnn_over_the_model_axis_are_refused(arch, shape):
-    cell = registry.build_cell(arch, shape, mesh_dp=1)
+    """The cell over ``(1, 2)`` (GIN over ``(1, 4)``, its node batch split
+    over every position) runs and matches the single-device step: a step
+    of the reduced cell (recsys at 2^16 items, so its tables split by
+    rows over ``model``), its loss within 1e-5 relative and its grad norm
+    within 2^-5 (bf16 compute: the row-parallel and cross-position sums
+    re-associate). The one-position mesh keeps ``k == 1``."""
+    from test_torch_sharded_train import _reduced_cell, _run
+
+    over = {}
+    if arch != "gin-tu":
+        red = registry.reduced_config(arch)
+        over = {f.name: getattr(red, f.name) for f in dataclasses.fields(
+            red) if f.name not in ("name", "kind", "extras")}
+        over.update(n_items=1 << 16, n_users=red.n_users and 1 << 16)
+    cell, batch = _reduced_cell(arch, shape, 1, over)
     mesh = _mesh((1, 2 if arch != "gin-tu" else 4))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 13, what is left: 1b"):
-        jit_train_step(cell.fn, in_shardings=cell.in_shardings(mesh))
+    sharded = jit_train_step(cell.fn, in_shardings=cell.in_shardings(mesh))
+    assert sharded.mesh.shape["model"] > 1 and sharded.tp == (
+        arch != "gin-tu")
+    assert sharded.split == (arch == "gin-tu")
+    init = functools.partial(registry._family_init(cell.family), cell.cfg,
+                             seed=0, device="cpu")
+    m_sh, s_sh = _run(sharded, init, [batch], False)
+    m_one, _ = _run(cell.fn, init, [batch], False)
+    assert abs(m_sh[0]["loss"] / m_one[0]["loss"] - 1) <= 1e-5
+    assert abs(m_sh[0]["grad_norm"] / m_one[0]["grad_norm"] - 1) <= 2**-5
+    if arch != "gin-tu":
+        emb = [k for k in s_sh["params"].leaves if k.endswith("_emb/emb")]
+        assert any(isinstance(s_sh["params"].leaves[k], shd.BlockSharded)
+                   for k in emb)
     assert jit_train_step(cell.fn, in_shardings=cell.in_shardings(
-        _mesh((1, 1)))).k == 1
+        _mesh((1, 1)))).mesh.shape["model"] == 1
 
 
 def test_recsys_serving_cell_over_the_model_axis_is_refused():
-    cell = registry.build_cell("sasrec", "serve_p99", mesh_dp=1)
-    with pytest.raises(NotImplementedError, match="what is left: 1b"):
-        registry.run_cell(cell, _mesh((1, 4)), None, None)
+    """SASRec's ``serve_p99`` over ``(1, 4)`` (a reduced config at 2^16
+    items: its table split by rows) runs through ``run_cell`` and equals
+    the single-device scores bit for bit (a row-split lookup adds one
+    non-zero row); a train cell still goes to ``jit_train_step``."""
+    red = registry.reduced_config("sasrec")
+    over = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)
+            if f.name not in ("name", "kind", "extras")}
+    cell = registry.build_cell("sasrec", "serve_p99", mesh_dp=1,
+                               overrides=dict(over, n_items=1 << 16))
+    small = dataclasses.replace(cell.shape, dims={"batch": 8})
+    batch = registry.recsys_batch_for(cell.cfg, small,
+                                      np.random.default_rng(2), device="cpu")
+    from repro_torch.models import recsys
+
+    params = recsys.init_params(cell.cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        got, placed = registry.run_cell(cell, _mesh((1, 4)), params, batch)
+        want = cell.fn(params, batch)
+    assert isinstance(placed.leaves["item_emb/emb"], shd.BlockSharded)
+    assert torch.equal(shd.whole(got), want)
     lm_train = registry.build_cell("h2o-danube-1.8b", "train_4k", mesh_dp=1)
     with pytest.raises(ValueError, match="jit_train_step"):
         registry.run_cell(lm_train, _mesh((1, 4)), None, None)
