@@ -280,7 +280,23 @@ fault. One JSON line per phase:
    launch a position a forward, counted exactly), each step's loss, grad
    norm and gradients (within GIN_GRAD_RTOL) held as ``mesh_cells`` holds
    them, against one device from the same state.
-7. the ``kernels`` line, the card line, and the result line.
+   Path ``analysis`` — every launch count set to 0 just before it and
+   read just after: ``autotune`` (``dispatch.autotune`` at its defaults,
+   3 formats × 11 epilogues at the reference's workload, into a
+   temporary file: each key's ``candidates_ms`` and fastest candidate,
+   every key this card's and its plan the kernels, no other file
+   written), ``auto_cache`` (that file rewritten so every entry names the
+   torch decoder: on every key ``plan="auto"`` on the card still resolves
+   to the kernels, launches one and gives the explicit kernel plan's
+   output bit for bit; no ``plan_cache_total`` counted, since card
+   operands read no cache) and ``dryrun`` (``launch/dryrun.py`` over every
+   built cell at ``(1, 1)`` and ``(4, 1)`` on ``meta``, a line a cell with
+   its bytes a card, whether they fit in 80 GB and the dominant roofline
+   term; then h2o-danube-1.8b's ``train_4k`` params and optimizer state
+   with ZeRO-1 over ``(4, 1)`` equal, to the byte, to the largest shard of
+   path ``sharded_train``'s placed state).
+7. the ``kernels`` line (the ``analysis`` path's launches a column of
+   ``launches_by_path``), the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -295,6 +311,7 @@ import multiprocessing as mp
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ProcessPoolExecutor
@@ -6213,6 +6230,202 @@ def run_sharded(np, torch, args, search: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path analysis: the measured autotune cache, plan="auto" over it, and the
+# dry run of every cell
+# ---------------------------------------------------------------------------
+ANALYSIS_KEYS = 33  # 3 formats × 11 epilogues, autotune's defaults
+ANALYSIS_MESHES = ((1, 1), (4, 1))  # the dry run's (cards, 1) meshes
+
+
+def _autotune_phase(torch, dispatch, cache_file: str, seed: int) -> dict:
+    """``dispatch.autotune`` with its defaults on the card into
+    ``cache_file`` (a temporary file): every key this card's, every
+    entry's plan the kernels (the card's entries record times, they pick
+    nothing), the file the only one written, the default cache
+    untouched."""
+    default = Path(dispatch.DEFAULT_CACHE_PATH)
+    before = default.read_bytes() if default.exists() else None
+    t0 = time.perf_counter()
+    cache = dispatch.autotune(cache_file=cache_file, seed=seed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    kernels = dispatch.default_plan(torch.device("cuda"))
+    bad = [k for k, v in cache.items()
+           if not k.startswith(name + "/") or v["device"] != name
+           or dispatch._entry_plan(v) != kernels
+           or kernels.label not in v["candidates_ms"]]
+    if len(cache) != ANALYSIS_KEYS or bad:
+        die(f"autotune: {len(cache)} keys (expected {ANALYSIS_KEYS}), "
+            f"not this card's or not the kernels': {bad[:4]}")
+    written = os.listdir(os.path.dirname(cache_file))
+    if written != [os.path.basename(cache_file)]:
+        die(f"autotune wrote {written}")
+    if (default.read_bytes() if default.exists() else None) != before:
+        die(f"autotune changed the default cache {default}")
+    table = {k[len(name) + 1:]: {
+        "plan": dispatch._entry_plan(v).label,
+        "fastest": min(v["candidates_ms"], key=v["candidates_ms"].get),
+        "candidates_ms": v["candidates_ms"]}
+        for k, v in sorted(cache.items())}
+    emit("autotune", seconds=round(seconds, 3), keys=len(cache),
+         workload=next(iter(cache.values()))["workload"],
+         fastest=dict(Counter(r["fastest"] for r in table.values())),
+         table=table)
+    return cache
+
+
+def _auto_cache_phase(torch, dispatch, cache: dict, cache_file: str,
+                      seed: int, counters) -> dict:
+    """The autotune's entries rewritten to name the torch decoder, written
+    to ``cache_file`` and named as the cache: on every key ``plan="auto"``
+    on the card still resolves to the kernels, launches a kernel and gives
+    the explicit kernel plan's output bit for bit; no
+    ``plan_cache_total`` is counted (card operands read no cache)."""
+    from dataclasses import asdict
+
+    from repro_torch import obs
+
+    t0 = time.perf_counter()
+    kernels = dispatch.default_plan(torch.device("cuda"))
+    other = dispatch.DecodePlan("torch", fused=True)
+    with open(cache_file, "w") as f:
+        json.dump({k: {**v, "plan": asdict(other)} for k, v in cache.items()},
+                  f)
+    dispatch.load_cache(reload=True)
+    tele = obs.Telemetry()
+    held = 0
+    for fmt in ("vbyte", "streamvbyte", "binpack"):
+        ops, extras, _ = dispatch._synthetic_workload(
+            fmt, n_blocks=64, block_size=BLOCK, vocab=4096, d=64, seed=seed,
+            device="cuda")
+        kw = dict(format=fmt, block_size=BLOCK, differential=True)
+        for ep, ex in extras.items():
+            if dispatch.cache_key(fmt, ep, BLOCK) not in cache:
+                die(f"auto_cache: no autotune key for {fmt}/{ep}")
+            resolved = dispatch.resolve_plan("auto", format=fmt, epilogue=ep,
+                                             block_size=BLOCK,
+                                             device=torch.device("cuda"))
+            if resolved != kernels:
+                die(f"auto_cache {fmt}/{ep}: auto resolves to "
+                    f"{resolved.label} on the card, not {kernels.label}")
+            before = sum(c.count for c in counters.values())
+            with obs.install(tele):
+                got = dispatch.decode(ops, epilogue=ep, epilogue_operands=ex,
+                                      plan="auto", **kw)
+            torch.cuda.synchronize()
+            if sum(c.count for c in counters.values()) == before:
+                die(f"auto_cache {fmt}/{ep}: auto launched no kernel")
+            want = dispatch.decode(ops, epilogue=ep, epilogue_operands=ex,
+                                   plan=kernels, **kw)
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                if not torch.equal(g, w):
+                    die(f"auto_cache {fmt}/{ep}: auto's output differs from "
+                        f"the explicit {kernels.label} plan's")
+            held += 1
+    m = tele.registry.snapshot()["metrics"]
+    calls = _counter_sum(m, "decode_calls_total")
+    plans = {s["attrs"]["plan"] for s in tele.tracer.spans}
+    if (calls != held or plans != {kernels.label}
+            or _counter_sum(m, "plan_cache_total")):
+        die(f"auto_cache: {calls} decode calls for {held} auto calls, "
+            f"plans {plans}: {sorted(m)}")
+    rec = {"keys_held": held, "cache_plan": other.label,
+           "auto_plan": kernels.label, "decode_calls": calls,
+           "plan_cache_total": 0, "max_abs_err": 0.0,
+           "seconds": round(time.perf_counter() - t0, 3)}
+    emit("auto_cache", **rec)
+    return rec
+
+
+def _dryrun_phase(sharded_state_bytes: dict) -> dict:
+    """``dryrun.run_cell`` over every cell at ``(1, 1)`` and ``(4, 1)``
+    (``meta``: no card): a line a cell. Then the state check: h2o-danube's
+    ``train_4k`` params and optimizer state with ZeRO-1 over ``(4, 1)`` at
+    its largest position equal, to the byte, the largest shard of path
+    ``sharded_train``'s placed state on the card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    rows = {}
+    for arch, shape, _ in registry.all_cells():
+        row = {}
+        for mesh_shape in ANALYSIS_MESHES:
+            r = dryrun.run_cell(arch, shape, mesh_shape=mesh_shape)
+            row["x".join(map(str, mesh_shape))] = {
+                "bytes_per_card": r["argument_bytes_per_device"],
+                "fits_80GB": r["fits_80GB"],
+                "dominant": r["roofline"]["dominant"],
+                "bound_s": r["roofline"]["step_time_bound_s"]}
+        rows[f"{arch}/{shape}"] = row
+        emit("dryrun", cell=f"{arch}/{shape}", **row)
+    r = dryrun.run_cell(LM_TRAIN_ARCH, "train_4k",
+                        mesh_shape=(SHARDED_TRAIN_SHARDS, 1),
+                        overrides={"zero1": True})
+    parts = r["argument_bytes_by_part"]
+    state = parts["params"] + parts["optimizer"]
+    measured = max(sharded_state_bytes["per_shard"])
+    if state != measured:
+        die(f"dryrun state check: {state} bytes of state a card against "
+            f"the sharded_train path's {measured}")
+    rec = {"cells": len(rows), "meshes": ["x".join(map(str, m))
+                                          for m in ANALYSIS_MESHES],
+           "state_check": {"arch": LM_TRAIN_ARCH, "mesh": r["mesh"],
+                           "zero1": True, "dryrun_state_bytes": state,
+                           "sharded_train_per_shard_max": measured,
+                           "equal": True},
+           "seconds": round(time.perf_counter() - t0, 3)}
+    emit("dryrun_done", **rec)
+    return rec
+
+
+def run_analysis(np, torch, args, sharded_train: dict) -> dict:
+    """Path ``analysis``: ``autotune`` (all 33 keys on the card into a
+    temporary file), ``auto_cache`` (``plan="auto"`` over a cache naming
+    the torch decoder) and ``dryrun`` (every cell on ``meta``, and the
+    state check against path ``sharded_train``); every launch count set to
+    0 just before the path and read just after (the autotune's and
+    auto_cache's kernel launches). The cache setting is restored after
+    ``auto_cache``."""
+    import shutil
+
+    from repro_torch.kernels.vbyte_decode import dispatch
+
+    t_path = time.perf_counter()
+    counters = _launch_counters()
+    _reset(torch, counters)
+    tmp = tempfile.mkdtemp(prefix="autotune_")
+    cache_file = os.path.join(tmp, "autotune_torch.json")
+    prev = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    try:
+        cache = _autotune_phase(torch, dispatch, cache_file, args.seed)
+        tune = _read(torch, counters)
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache_file
+        auto = _auto_cache_phase(torch, dispatch, cache, cache_file,
+                                 args.seed, counters)
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = prev
+        dispatch.load_cache(reload=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _read(torch, counters)
+    if not (launches["fused_decode"] and launches["vbyte_decode_blocked"]
+            and launches["stream_decode_blocked"]
+            and launches["binpack_decode_blocked"]):
+        die(f"analysis: a decode kernel was never launched: {launches}")
+    dry = _dryrun_phase(sharded_train["train"]["state_bytes"])
+    seconds = time.perf_counter() - t_path
+    emit("path_done", path="analysis", seconds=round(seconds, 3),
+         autotune_launches=tune, launches=launches)
+    return {"launches": launches, "seconds": seconds,
+            "autotune_launches": tune, "auto_cache": auto, "dryrun": dry}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernels line
 # ---------------------------------------------------------------------------
 def kernels_line(records, max_err, paths):
@@ -6398,6 +6611,8 @@ def main(argv=None) -> int:
     paths["gin"] = run_gin(np, torch, args)
     paths["gin_train"] = paths["gin"].pop("train")
     paths["gin_mesh"] = paths["gin"].pop("mesh")
+    paths["analysis"] = run_analysis(np, torch, args,
+                                     paths["sharded_train"])
     emit("done", seconds=round(time.perf_counter() - t_start, 3),
          path_seconds={k: round(v["seconds"], 3) for k, v in paths.items()})
     print(card, flush=True)

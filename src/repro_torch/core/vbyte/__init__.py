@@ -15,6 +15,7 @@ from .binpack import (  # noqa: F401
 from .encode import (  # noqa: F401
     BlockedEncoding,
     BlockedMeta,
+    delta_decode,
     delta_encode,
     encode_blocked,
     encode_ragged_blocked,

@@ -90,3 +90,20 @@ def decode_blocked(
         out = to_u32(bases).reshape(-1, 1) + torch.cumsum(out, dim=1)
         out = torch.where(valid, out & U32_MASK, 0)
     return to_i32_bits(out)
+
+
+def decode_stream(widths, data: torch.Tensor, n_max: int, *,
+                  n: int | None = None, differential: bool = False,
+                  base: int = 0) -> torch.Tensor:
+    """Decode one packed stream of width ``widths[0]`` to int32 ``[n_max]``
+    (uint32 bits) through :func:`decode_blocked` as a single block of
+    ``n_max`` slots: ``n`` valid integers (default ``n_max``), slots past
+    ``n`` zero."""
+    n = n_max if n is None else n
+    dev = data.device
+    w = torch.as_tensor(widths, device=dev).reshape(1, 1)
+    out = decode_blocked(
+        w, data[None, :], torch.tensor([n], dtype=torch.int32, device=dev),
+        to_i32_bits(torch.tensor([base], dtype=torch.int64, device=dev)),
+        block_size=n_max, differential=differential)
+    return out[0, :n_max]

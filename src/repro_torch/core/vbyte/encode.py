@@ -102,6 +102,12 @@ def delta_encode(values: np.ndarray) -> np.ndarray:
     return np.diff(v, prepend=np.uint64(0))
 
 
+def delta_decode(gaps: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`delta_encode`: the running sum of the gaps
+    (uint64)."""
+    return np.cumsum(np.asarray(gaps, dtype=np.uint64)).astype(np.uint64)
+
+
 @dataclass(frozen=True)
 class BlockedEncoding:
     """Fixed-shape blocked VByte encoding (see module docstring).

@@ -135,3 +135,14 @@ def decode_blocked(
         out = to_u32(bases).reshape(-1, 1) + torch.cumsum(out, dim=1)
         out = torch.where(valid, out & U32_MASK, zero)
     return to_i32_bits(out)
+
+
+def count_integers(data: torch.Tensor, nbytes: int | None = None
+                   ) -> torch.Tensor:
+    """The complete integers in a VByte stream: its terminator bytes
+    (those below 0x80) among the first ``nbytes`` (default: all). An int32
+    scalar on the stream's device."""
+    S = data.shape[-1]
+    valid = torch.arange(S, device=data.device) < (
+        S if nbytes is None else int(nbytes))
+    return ((data < 0x80) & valid).sum(dtype=torch.int32)

@@ -94,3 +94,21 @@ def decode_blocked(
         out = to_u32(bases).reshape(-1, 1) + torch.cumsum(out, dim=1)
         out = torch.where(valid, out & U32_MASK, 0)
     return to_i32_bits(out)
+
+
+def decode_stream(control: torch.Tensor, data: torch.Tensor, n_max: int, *,
+                  n: int | None = None, differential: bool = False,
+                  base: int = 0) -> torch.Tensor:
+    """Decode one (control, data) stream pair to int32 ``[n_max]`` (uint32
+    bits) through :func:`decode_blocked` as a single block of
+    ``ceil(n_max / 4) · 4`` slots: ``control`` holds at least
+    ``ceil(n_max / 4)`` bytes (zero past the valid region), ``n`` valid
+    integers (default ``n_max``), slots past ``n`` zero."""
+    n = n_max if n is None else n
+    dev = data.device
+    out = decode_blocked(
+        control[None, : -(-n_max // 4)], data[None, :],
+        torch.tensor([n], dtype=torch.int32, device=dev),
+        to_i32_bits(torch.tensor([base], dtype=torch.int64, device=dev)),
+        block_size=-(-n_max // 4) * 4, differential=differential)
+    return out[0, :n_max]

@@ -5,8 +5,8 @@ document ids drawn from a 50M-document universe, grouped by list length
 2^K..2^{K+1}-1 — shorter lists have larger gaps and compress worse.
 ``random_graph`` makes a graph with skewed in-degrees for the GNN,
 ``molecule_batch`` a batch of small graphs for its graph task,
-``recsys_batch`` a recsys training batch and ``token_stream`` the LM
-pipeline's Zipf token ids.
+``recsys_batch`` a recsys training batch, ``sorted_id_bag`` a sorted id
+bag and ``token_stream`` the LM pipeline's Zipf token ids.
 """
 from __future__ import annotations
 
@@ -57,6 +57,13 @@ def token_stream(rng: np.random.Generator, n_tokens: int, vocab: int,
     """Zipf-distributed token ids (the LM data pipeline's input), uint64."""
     z = rng.zipf(zipf_a, size=n_tokens)
     return np.minimum(z - 1, vocab - 1).astype(np.uint64)
+
+
+def sorted_id_bag(rng: np.random.Generator, n: int, vocab: int) -> np.ndarray:
+    """A sorted multi-hot id bag of ``min(n, vocab)`` distinct ids below
+    ``vocab`` (a recsys history for embedding bags and retrieval), uint64."""
+    return np.sort(rng.choice(vocab, size=min(n, vocab),
+                              replace=False)).astype(np.uint64)
 
 
 def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int,

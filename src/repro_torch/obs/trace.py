@@ -79,7 +79,7 @@ class Span:
         self.tracer = tracer
         self.name = name
         self.attrs = attrs
-        self.count = count  # (counter, label attrs): see counted_trace
+        self.count = count  # (counter, label attrs, ...): counted_trace
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -224,9 +224,11 @@ class Tracer:
             end = self._counted = len(log)
         for r in log[start:end]:
             if type(r) is tuple and r[7] is not None:
-                (counter, labels), attrs = r[7], r[6]
+                (counter, labels, *more), attrs = r[7], r[6]
                 registry._get(Counter, counter,
                               {k: attrs[k] for k in labels}).inc(1)
+                for name, fixed in more:
+                    registry._get(Counter, name, fixed).inc(1)
 
     def current(self) -> Span | _NullSpan:
         st = getattr(self._tls, "stack", None)
@@ -338,13 +340,15 @@ def trace(name: str, **attrs):
 
 def counted_trace(name: str, count: tuple[str, tuple[str, ...]], **attrs):
     """:func:`trace`, for a span that is also one increment of a counter on
-    every call: ``count`` is ``(counter, label attribute names)``. The
-    span is the call's one record; its counter, labelled by those of the
-    span's attributes, is added to the registry when the registry is read
-    (snapshot, exposition, merge, lookup): the same counts as a
-    ``counter_inc`` beside the span, for one site instead of two
-    (``dispatch.decode``: ``decode_calls_total`` by plan, format and
-    epilogue)."""
+    every call: ``count`` is ``(counter, label attribute names, *more)``,
+    each of ``more`` a ``(counter, labels dict)`` pair counted with fixed
+    labels. The span is the call's one record; its counters (the first
+    labelled by those of the span's attributes) are added to the registry
+    when the registry is read (snapshot, exposition, merge, lookup): the
+    same counts as ``counter_inc`` calls beside the span, for one site
+    instead of several (``dispatch.decode``: ``decode_calls_total`` by
+    plan, format and epilogue, and with ``plan="auto"`` the cache's
+    ``plan_cache_total{result}``)."""
     t = _ACTIVE
     if t is None:
         return NULL_SPAN

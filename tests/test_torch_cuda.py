@@ -2291,3 +2291,87 @@ def test_recsys_model_parallel_retrieval_on_the_card(dev, arch):
     else:
         err = float((scores - w_scores).abs().max())
         assert err <= 2**-5 * float(w_scores.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the measured autotune cache on the card
+# ---------------------------------------------------------------------------
+def test_autotune_on_the_card_writes_only_its_file(dev, tmp_path,
+                                                   monkeypatch):
+    """``autotune`` on the card writes the file it is given and nothing
+    else (the default cache untouched); its keys name this card, its
+    candidates are one program a label with the kernels among them, and
+    every entry's plan is the kernels."""
+    from pathlib import Path
+
+    from repro_torch.kernels.vbyte_decode import dispatch
+    from repro_torch.kernels.vbyte_decode.dispatch import DecodePlan
+
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE_CACHE", raising=False)
+    default = Path(dispatch.DEFAULT_CACHE_PATH)
+    before = default.read_bytes() if default.exists() else None
+    path = tmp_path / "autotune.json"
+    cache = dispatch.autotune(formats=("vbyte", "binpack"),
+                              epilogue_names=("stream", "bag_sum",
+                                              "membership"),
+                              n_blocks=16, reps=1, warmup=1,
+                              cache_file=str(path))
+    assert list(tmp_path.iterdir()) == [path]
+    assert (default.read_bytes() if default.exists() else None) == before
+    name = torch.cuda.get_device_name(dev)
+    assert len(cache) == 6
+    for k, v in cache.items():
+        assert k.startswith(name + "/") and v["device"] == name, k
+        assert dispatch._entry_plan(v) == DecodePlan("cuda", fused=True), k
+        fmt, ep = k.split("/")[1:3]
+        want = {"cuda_fused", "torch_fused"}
+        if ep != "stream":
+            want.add("cuda_unfused")
+        elif fmt == "vbyte":
+            want.add("ref_unfused")
+        assert set(v["candidates_ms"]) == want, k
+    dispatch.load_cache(reload=True)
+
+
+@pytest.mark.parametrize("fmt", ["vbyte", "streamvbyte", "binpack"])
+def test_auto_on_the_card_is_the_kernels(dev, tmp_path, monkeypatch, fmt):
+    """A cache whose card entry for every epilogue names the torch
+    decoder: ``auto`` on card operands still runs the kernels (kernel 2
+    for every consumer), with the explicit kernel plan's bits, and counts
+    no ``plan_cache_total``."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.kernels.vbyte_decode import dispatch
+    from repro_torch.kernels.vbyte_decode.dispatch import DecodePlan
+
+    ops, extras, _ = dispatch._synthetic_workload(
+        fmt, n_blocks=16, block_size=128, vocab=4096, d=64, seed=1,
+        device=dev)
+    kernels = DecodePlan("cuda", fused=True)
+    path = tmp_path / "autotune.json"
+    path.write_text(json.dumps({
+        dispatch.cache_key(fmt, ep, 128, dev): {
+            "schema": dispatch.CACHE_SCHEMA, "plan": {
+                "path": "torch", "fused": True}} for ep in extras}))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(path))
+    tele = obs.Telemetry()
+    try:
+        for ep in sorted(extras):
+            kw = dict(format=fmt, block_size=128, differential=True,
+                      epilogue=ep, epilogue_operands=extras[ep])
+            c0 = epilogues.launches.count
+            with obs.install(tele):
+                got = dispatch.decode(ops, plan="auto", **kw)
+            torch.cuda.synchronize()
+            assert epilogues.launches.count == c0 + (ep != "stream"), ep
+            want = dispatch.decode(ops, plan=kernels, **kw)
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert torch.equal(g, w), (fmt, ep)
+    finally:
+        monkeypatch.undo()
+        dispatch.load_cache(reload=True)
+    assert {s["attrs"]["plan"] for s in tele.tracer.spans} == {"cuda_fused"}
+    assert not any(k.startswith("plan_cache_total")
+                   for k in tele.registry.snapshot()["metrics"])

@@ -26,6 +26,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert "repro_torch.launch.serve" in mods and "repro_torch.convert" in mods
     assert "repro_torch.distributed.sharding" in mods
     assert "repro_torch.core.vbyte.device_encode" in mods
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.roofline_math",
+            "repro_torch.launch.cost_model"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -513,16 +513,62 @@ def test_span_tree_equals_reference(indexes, mode):
     assert [s["name"] for s in t_tree] == [s["name"] for s in r_tree]
     for r, t in zip(r_tree, t_tree):
         assert t == r, (r["name"], r, t)
-    r_m = {k: v for k, v in r_tele.registry.snapshot()["metrics"].items()
-           if not k.startswith("plan_cache_total")}
+    r_m = r_tele.registry.snapshot()["metrics"]
     t_m = t_tele.registry.snapshot()["metrics"]
     assert {k.replace("jnp_", "torch_"): v for k, v in r_m.items()} == t_m
 
 
+@pytest.mark.parametrize("cache", ["miss", "hit"])
+def test_auto_plan_metrics_equal_reference(indexes, tmp_path, monkeypatch,
+                                           cache):
+    """Both engines on ``plan="auto"``, each with a measured cache of its
+    own: with no entry for the index's block size (every lookup a miss),
+    and with one entry a (format, epilogue) the queries decode, each naming
+    the package's fused plan (every lookup a hit). Span trees and the
+    whole metrics registry, ``plan_cache_total`` included, equal the
+    reference's."""
+    from repro.kernels.vbyte_decode import dispatch as rdispatch
+    from repro_torch.kernels.vbyte_decode import dispatch as tdispatch
+
+    eps = ("stream", "membership", "membership_rows", "bm25_weighted")
+    r_file, t_file = tmp_path / "ref.json", tmp_path / "port.json"
+    r_cache, t_cache = {}, {}
+    if cache == "hit":
+        for ep in eps:
+            r_cache[rdispatch.cache_key("vbyte", ep, 32, "cpu")] = {
+                "schema": rdispatch.CACHE_SCHEMA,
+                "plan": {"path": "jnp", "fused": True}}
+            t_cache[tdispatch.cache_key("vbyte", ep, 32, "cpu")] = {
+                "schema": tdispatch.CACHE_SCHEMA,
+                "plan": {"path": "torch", "fused": True}}
+    r_file.write_text(json.dumps(r_cache))
+    t_file.write_text(json.dumps(t_cache))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(r_file))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(t_file))
+    ri, ti = indexes
+    reng = RSearchEngine(ri, top_k=10)
+    teng = TSearchEngine(ti, top_k=10, device=CPU)
+    r_tele, t_tele = robs.Telemetry(), obs.Telemetry()
+    try:
+        for mode in SEARCH_MODES:
+            with robs.install(r_tele):
+                reng.search([0, 2, 4], mode)
+            with obs.install(t_tele):
+                teng.search([0, 2, 4], mode)
+    finally:
+        monkeypatch.undo()
+        rdispatch.load_cache(reload=True)
+        tdispatch.load_cache(reload=True)
+    assert _tree(t_tele) == _tree(r_tele, "jnp_")
+    r_m = r_tele.registry.snapshot()["metrics"]
+    t_m = t_tele.registry.snapshot()["metrics"]
+    assert {k.replace("jnp_", "torch_"): v for k, v in r_m.items()} == t_m
+    assert f"plan_cache_total{{result={cache}}}" in t_m
+
+
 def test_serve_counters_mirror_serve_stats(indexes):
     """SearchEngine keeps the serve_stats dict and mirrors increments into
-    labeled registry counters. (The reference's ``plan_cache_total`` comes
-    with the port's measured autotune cache.)"""
+    labeled registry counters."""
     _, index = indexes
     engine = TSearchEngine(index, top_k=5, device=CPU)
     tele = obs.Telemetry()
@@ -536,6 +582,7 @@ def test_serve_counters_mirror_serve_stats(indexes):
     assert m["serve_retries_total{engine=search}"]["value"] == 2 == \
         engine.serve_stats["retries"]
     assert any(k.startswith("decode_calls_total") for k in m)
+    assert any(k.startswith("plan_cache_total") for k in m)
 
 
 def test_serving_engine_microbatch_spans():
